@@ -8,11 +8,19 @@ phases run in order, each prints its result on its own line, and any
 failure exits non-zero:
 
 1. card     — the card's name and power limit (``nvidia-smi``);
-2. build    — both kernels compiled from ``hops_tpu_torch/ops/csrc``;
-3. kernels  — each kernel against its plain PyTorch version (fp32) on
-   the same seeded inputs: bf16 inputs within ``2e-2 + 2e-2 *
-   max|plain|``, fp32 inputs at the same shapes within 1e-4, and the
-   flash kernel's lse within 1e-4;
+2. build    — all four kernels compiled from ``hops_tpu_torch/ops/csrc``;
+3. kernels  — the forward and decode kernels (K1, K4) against their
+   plain PyTorch versions (fp32) on the same seeded inputs: bf16 inputs
+   within ``2e-2 + 2e-2 * max|plain|``, fp32 inputs at the same shapes
+   within 1e-4, and the flash kernel's lse within 1e-4;
+3b. backward — the flash backward kernels (K2 dq, K3 dk/dv) against
+   their plain versions on the same (o, lse) from K1, at the same
+   shapes plus a negative offset (rows that see no key) and a window
+   past an offset (keys no query sees): bf16 inputs at the bf16 rule
+   above, fp32 inputs within ``1e-4 * max(1, max|plain|)`` per output,
+   and exact zeros in dq for rows that see no key and in dk/dv for keys
+   that no query sees (outputs are allocated over freed NaN-filled
+   memory first);
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
    1024, 8 heads of 128, 12 layers, bf16, max_decode_len 2048) written
    as an artifact, served by ``LMEnginePredictor`` with 4 slots: 8 greedy
@@ -25,17 +33,32 @@ failure exits non-zero:
 5. timing   — each kernel at the serving path's shapes beside its bound,
    its plain version and one PyTorch library call;
 6. profile  — a ``torch.profiler`` trace of 10 engine decode steps:
-   device busy time, idle share, and the kernels that take the time.
+   device busy time, idle share, and the kernels that take the time;
+7. train    — the training slice at full width: the same LM with fp32
+   master weights and bf16 compute, ``create_train_state`` (Adam 1e-3)
+   and ``make_lm_train_step(loss_chunk=512)`` on one seeded batch of
+   8 x 2048 tokens, 2 warm-up and 6 timed steps. Every loss must be
+   finite, the last below the first, and K1, K2 and K3 must launch 12
+   times a step (counts reset just before the timed steps). Prints step
+   ms, tokens/s and MFU (``bench.py``'s model-FLOPs accounting against
+   989 TFLOP/s) and a ``torch.profiler`` breakdown of one step;
+7b. grads   — the same widths at 2 layers, fp32 weights and compute,
+   batch 2 x 2048: every parameter gradient of the kernel path within
+   ``1e-3 * ||ref||inf`` of the same model on the plain attention
+   (``attention_impl="reference"``).
 
-The second-to-last line is one JSON object with a record per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
-JAX package is imported.
+Phase 5's rows for K2 and K3 are timed after phase 7, at (8, 8, 2048,
+128) bf16 causal, beside the launches per train step. The second-to-last
+line is one JSON object with a record per kernel; the last line is
+``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package
+is imported.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import shutil
 import sys
@@ -54,6 +77,16 @@ MODEL = dict(
 )
 PROMPT_LENS = (1500, 16, 900, 64, 1300, 200, 1024, 512)
 NEW_TOKENS = (64, 32, 48, 40, 56, 32, 64, 48)
+# Phase 7: bench.py's LM (run_lm_bench) with fp32 masters, at the batch
+# of hops_tpu/ops/xent.py's sizing note and bench.py's loss chunk.
+TRAIN = dict(MODEL, param_dtype="float32", attention_impl="flash")
+TRAIN_BATCH, TRAIN_SEQ, LOSS_CHUNK, LEARNING_RATE = 8, 2048, 512, 1e-3
+WARMUP_STEPS, TIMED_STEPS = 2, 6
+# Phase 7b: full width at 2 layers, fp32 weights and compute.
+GRAD_CHECK = dict(MODEL, num_layers=2, dtype="float32")
+GRAD_BATCH = 2
+GRAD_REL = 1e-3
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def fail(msg: str) -> int:
@@ -68,6 +101,9 @@ def fail(msg: str) -> int:
 BF16_ATOL, BF16_REL = 2e-2, 2e-2
 FP32_ATOL = 1e-4
 LSE_ATOL = 1e-4
+# Phase 3b, fp32 inputs: 1e-4 * max(1, max|plain|) per output (gradients
+# grow with the row length, the forward's output does not).
+BWD_FP32_REL = 1e-4
 # Phase 4 bounds on the logits' distance from the plain fp32 model. fp32
 # kernels: 1e-4 * ||ref||inf (three seeds read at most 3.4e-6 relative).
 # The served bf16 kernels: 1.5 times the plain bf16 model's own distance
@@ -171,6 +207,74 @@ def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
     return worst
 
 
+def unseen(torch, sq, sk, causal, window, q_offset, dev):
+    """``(rows that see no key, keys that no query sees)`` as boolean
+    ``(sq,)`` and ``(sk,)`` masks of the causal/window band."""
+    if not causal:
+        return torch.zeros(sq, dtype=torch.bool, device=dev), torch.zeros(sk, dtype=torch.bool, device=dev)
+    off = sk - sq if q_offset is None else q_offset
+    gap = (torch.arange(sq, device=dev)[:, None] + off) - torch.arange(sk, device=dev)[None, :]
+    vis = gap >= 0
+    if window:
+        vis &= gap < window
+    return ~vis.any(1), ~vis.any(0)
+
+
+def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
+    """Phase 3b. Returns the worst error per backward kernel and input
+    dtype; raises on a miss."""
+    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in names}
+    bad = []
+    cases = [(s, s, c, None, None) for s in (16, 128, 1000, 2048) for c in (True, False)]
+    cases += [(2048, 2048, True, 256, None), (64, 1024, True, None, None),
+              (1024, 1024, True, None, -200),  # rows 0..199 see no key
+              (1000, 1000, True, 64, 300)]  # keys 0..236 seen by no query
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).rsplit(".", 1)[-1]
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+        for d in (128, 64):
+            for sq, sk, causal, window, q_offset in cases:
+                kw = dict(causal=causal, window=window, q_offset=q_offset)
+                q, k, v, do = rand(2, 8, sq, d), rand(2, 8, sk, d), rand(2, 8, sk, d), rand(2, 8, sq, d)
+                o, lse = A.flash_attention(q, k, v, return_lse=True, **kw)
+                delta = (o.float() * do.float()).sum(-1)
+                # Free NaN-filled blocks of the outputs' sizes, so the
+                # kernels' torch.empty outputs start as NaN, not as 0.
+                poison = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+                del poison
+                dq = A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+                dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+                torch.cuda.synchronize()
+                f = [t.float() for t in (q, k, v, do)]
+                refs = (A.flash_bwd_dq_reference(*f, lse, delta, **kw),
+                        *A.flash_bwd_dkv_reference(*f, lse, delta, **kw))
+                no_key, no_query = unseen(torch, sq, sk, causal, window, q_offset, dev)
+                errs = []
+                for out_name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                    if dtype == torch.bfloat16:
+                        err, tol, ok = close(out, ref, BF16_ATOL, BF16_REL)
+                    else:
+                        err, tol, ok = close(
+                            out, ref, BWD_FP32_REL * max(1.0, ref.abs().max().item()))
+                    empty = no_key if out_name == "dq" else no_query
+                    zeros = int(empty.sum())
+                    ok = ok and not out[:, :, empty].any()
+                    kname = names[0] if out_name == "dq" else names[1]
+                    worst[kname][dname] = max(worst[kname][dname], err)
+                    errs.append(f"{out_name} {err:.3e} (bound {tol:.3e}, {zeros} rows must be 0)")
+                    if not ok:
+                        bad.append(f"{out_name} {dname} d{d} {sq}x{sk} {kw}")
+                print(f"  flash_bwd {dname} b2 h8 d{d} seq_q {sq} seq_k {sk} causal={causal} "
+                      f"window={window} q_offset={q_offset}: " + "; ".join(errs), flush=True)
+    if bad:
+        raise AssertionError("backward kernel disagrees with its plain version: " + "; ".join(bad))
+    return worst
+
+
 def check_logits(model, torch, prompts, answers, dev) -> None:
     """Phase 4 check, for two requests: the logits at the last prompt
     position (a fresh-cache prefill, through flash_fwd) and after the
@@ -266,37 +370,182 @@ def time_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     return rows
 
 
+def time_bwd_kernels(A, torch, gen, dev, launches, worst, steps: int) -> list[dict]:
+    """Phase 5 rows for K2 and K3 at the training path's shapes, with
+    the backward of ``scaled_dot_product_attention`` (dq, dk and dv in
+    one call) as the library yardstick of both."""
+    F = torch.nn.functional
+    b, h, s, d = TRAIN_BATCH, MODEL["num_heads"], TRAIN_SEQ, MODEL["d_model"] // MODEL["num_heads"]
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+    o, lse = A.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (o.float() * do.float()).sum(-1)
+    pairs = b * h * s * (s + 1) // 2
+    bhsd, bhs = b * h * s * d, b * h * s
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    library_ms = cuda_ms(lambda i=0: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), 10)
+    args = (q, k, v, do, lse, delta)
+    rows = []
+    for name, line, fn, ref, flops, nbytes in (
+        ("flash_bwd_dq", 218, A.flash_bwd_dq, A.flash_bwd_dq_reference,
+         6 * d * pairs, 5 * bhsd * 2 + 2 * bhs * 4),
+        ("flash_bwd_dkv", 260, A.flash_bwd_dkv, A.flash_bwd_dkv_reference,
+         8 * d * pairs, 6 * bhsd * 2 + 2 * bhs * 4),
+    ):
+        rows.append(dict(
+            name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{name}.cu",
+            replaces=f"hops_tpu/ops/attention.py:{line}",
+            shape=f"q,k,v,do ({b},{h},{s},{d}) bf16 causal",
+            launches=launches[name], launches_per_step=launches[name] // steps,
+            max_abs_err=worst[name]["bfloat16"],
+            ms=cuda_ms(lambda i=0, fn=fn: fn(*args, causal=True), 10),
+            plain_ms=cuda_ms(lambda i=0, ref=ref: ref(*args, causal=True), 3),
+            library_ms=library_ms, **bound(flops, nbytes),
+        ))
+    return rows
+
+
 def profile_decode(engine, torch, prompts, steps: int = 10) -> None:
     """Phase 6: a ``torch.profiler`` trace of ``steps`` engine decode
     steps with all 4 slots busy — device busy time per step, the idle
     share of the wall time, and the kernels that take the device time.
     The profiler's own host cost inflates the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     for p in prompts[:4]:
         engine.submit(p, max_new_tokens=steps + 8)
     for _ in range(4):  # admission, then warm decode steps
         engine.step()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(steps):
             engine.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    wall_ms, busy, kernels = device_profile(torch, run, steps)
     engine.run()
-    kernels = [
-        (e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy = sum(ms for _, ms, _ in kernels)
-    if not busy:
-        raise AssertionError("the profiler recorded no device time")
     print(f"phase 6 profile: {steps} decode steps at 4 busy slots: wall {wall_ms:.3f} ms/step "
           f"(profiled), device busy {busy:.3f} ms/step, idle share {1 - busy / wall_ms:.3f}, "
           f"{sum(n for _, _, n in kernels)} kernel launches/step", flush=True)
-    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:8]:
+    for name, ms, n in kernels[:8]:
         print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
+
+
+def device_profile(torch, run, steps: int = 1) -> tuple[float, float, list]:
+    """``torch.profiler`` over ``run()``: host wall ms and device busy ms
+    per step, and ``(name, ms per step, launches per step)`` of each
+    device kernel, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = sorted((
+        (e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)  # ranges such as Adam.step
+    ), key=lambda k: -k[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    if not busy:
+        raise AssertionError("the profiler recorded no device time")
+    return wall_ms, busy, kernels
+
+
+def train_slice(A, torch, np, params, dev, seed: int, card_line: str) -> dict:
+    """Phase 7: the full-width train step, timed; returns the launch
+    counts of the timed steps."""
+    from hops_tpu_torch.models.common import create_train_state
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+
+    model = TransformerLM(**TRAIN, device=dev).load_flax(params)
+    state = create_train_state(model, seed=seed, learning_rate=LEARNING_RATE)
+    step = make_lm_train_step(loss_chunk=LOSS_CHUNK)
+    tokens = np.random.default_rng(seed + 2).integers(
+        0, TRAIN["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = A.launch_counts()
+    losses = [float(x) for x in losses]
+    layers = TRAIN["num_layers"]
+    print(f"  losses {[round(x, 4) for x in losses]}; launches over {TIMED_STEPS} timed steps "
+          f"{launches}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        if launches[name] != layers * TIMED_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in {TIMED_STEPS} steps, "
+                                 f"not {layers} a step")
+    # bench.py run_lm_bench: 6 * N_matmul per token plus causal attention.
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.embed.embedding.numel()
+    flops_per_token = 3 * (2 * (n_params - n_embed)
+                           + 2 * TRAIN["d_model"] * TRAIN_SEQ * layers)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TIMED_STEPS / elapsed
+    step_ms = elapsed / TIMED_STEPS * 1e3
+    mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
+    print(f"phase 7 train: {n_params / 1e6:.1f}M params ({(n_params - n_embed) / 1e6:.1f}M matmul), "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: step {step_ms:.3f} ms, {tokens_per_s:.1f} tokens/s, "
+          f"MFU {mfu:.4f} ({tokens_per_s * flops_per_token / 1e12:.2f} model TFLOP/s of 989); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card_line}",
+          flush=True)
+    wall, busy, kernels = device_profile(torch, lambda: step(state, batch))
+    groups = {n: 0.0 for n in (*TRAIN_KERNELS, "matmul", "other")}
+    for key, ms, _ in kernels:
+        group = next((n for n in TRAIN_KERNELS if f"{n}_kernel" in key), None)
+        if group is None:
+            group = "matmul" if re.search(r"gemm|nvjet|cutlass|sm90_xmma", key) else "other"
+        groups[group] += ms
+    print(f"  profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {sum(c for _, _, c in kernels)} kernel launches; "
+          + ", ".join(f"{n} {ms:.3f} ms ({ms / busy:.1%})" for n, ms in groups.items()),
+          flush=True)
+    for name, ms, n in kernels[:12]:
+        print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
+    return launches
+
+
+def check_grads(A, torch, np, params, dev, seed: int) -> float:
+    """Phase 7b: per parameter, ``||g_kernel - g_plain||inf <= GRAD_REL *
+    ||g_plain||inf``. Returns the worst ratio ``||Δ||inf / ||ref||inf``."""
+    from hops_tpu_torch.models.transformer import TransformerLM
+    from hops_tpu_torch.ops.xent import chunked_softmax_xent
+
+    model = TransformerLM(**GRAD_CHECK, device=dev)
+    names = {n.replace(".", "/") for n in model.state_dict()}
+    model.load_flax({n: a for n, a in params.items() if n in names})
+    plain = model.clone(attention_impl="reference")  # shares the weights
+    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, GRAD_CHECK["vocab_size"], (GRAD_BATCH, TRAIN_SEQ + 1))).to(dev)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    grads = []
+    for m in (model, plain):
+        hidden = m(inputs, train=True, return_hidden=True)
+        loss = chunked_softmax_xent(hidden, m.unembed.kernel, targets, chunk=LOSS_CHUNK)
+        grads.append(torch.autograd.grad(loss, list(m.parameters())))
+    worst, worst_name = 0.0, ""
+    for (name, _), g, ref in zip(model.named_parameters(), *grads):
+        scale = ref.abs().max().item()
+        ratio = (g - ref).abs().max().item() / scale
+        if not ratio <= GRAD_REL:
+            raise AssertionError(f"{name}: ||kernel - plain||inf / ||plain||inf = {ratio:.3e}")
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    print(f"phase 7b grads: {len(grads[0])} parameter tensors, worst ||kernel - plain||inf / "
+          f"||plain||inf {worst:.3e} ({worst_name}; bound {GRAD_REL:.0e})", flush=True)
+    return worst
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -317,6 +566,8 @@ def main() -> int:
     if not (ROOT / "hops_tpu_torch" / "ops" / "csrc").is_dir():
         return fail(f"no hops_tpu_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    import numpy as np
+
     from hops_tpu_torch.models.convert import random_params
     from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, save_lm_artifact
     from hops_tpu_torch.ops import _build
@@ -350,12 +601,21 @@ def main() -> int:
     print("phase 3 ok: worst error " + ", ".join(
         f"{k} {w['bfloat16']:.3e} (bf16) {w['float32']:.3e} (fp32)" for k, w in worst.items()
     ), flush=True)
+    print("phase 3b backward kernels against plain versions (bf16 and fp32 in, fp32 plain):",
+          flush=True)
+    with torch.inference_mode():
+        worst.update(check_bwd_kernels(A, torch, gen, dev))
+    print("phase 3b ok: worst error " + ", ".join(
+        f"{k} {worst[k]['bfloat16']:.3e} (bf16) {worst[k]['float32']:.3e} (fp32)"
+        for k in ("flash_bwd_dq", "flash_bwd_dkv")
+    ), flush=True)
 
     art = ROOT / "_smoke" / "artifact"
     predictor = None
     try:
         t0 = time.perf_counter()
-        save_lm_artifact(art, MODEL, random_params(**MODEL, seed=args.seed))
+        params = random_params(**MODEL, seed=args.seed)
+        save_lm_artifact(art, MODEL, params)
         predictor = LMEnginePredictor(art, {"slots": 4})
         print(f"phase 4 slice: artifact written and loaded in "
               f"{time.perf_counter() - t0:.1f} s ({MODEL})", flush=True)
@@ -375,8 +635,8 @@ def main() -> int:
         for p, n, ans in zip(PROMPT_LENS, NEW_TOKENS, answers):
             if len(ans) != n:
                 return fail(f"request with prompt {p} answered {len(ans)} tokens, not {n}")
-        if not all(launches[name] > 0 for name in A.LAUNCHES):
-            return fail(f"a kernel of the path never launched: {launches}")
+        if not (launches["flash_fwd"] > 0 and launches["decode_attention"] > 0):
+            return fail(f"a kernel of the serving path never launched: {launches}")
         decode_tok_s = stats["decode_tokens"] / stats["decode_s"]
         print(f"  answers: {[len(a) for a in answers]} tokens; launches {launches}; "
               f"admission waves {stats['admission_waves']}, decode steps {stats['dispatches']}",
@@ -395,16 +655,37 @@ def main() -> int:
                   f"scaled_dot_product_attention {r['library_ms']:.4f} ms; card {card_line}", flush=True)
         predictor.stop()  # the engine is now driven from this thread alone
         profile_decode(predictor.engine, torch, prompts)
+        del predictor
+        predictor = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        print("phase 7 training slice:", flush=True)
+        train_launches = train_slice(A, torch, np, params, dev, args.seed, card_line)
+        print("phase 7 ok", flush=True)
+        torch.cuda.empty_cache()
+        check_grads(A, torch, np, params, dev, args.seed)
+        print("phase 7b ok", flush=True)
+        torch.cuda.empty_cache()
+        bwd_rows = time_bwd_kernels(A, torch, gen, dev, train_launches, worst, TIMED_STEPS)
+        for r in bwd_rows:
+            print(f"phase 5 {r['name']} at {r['shape']}: {r['ms']:.4f} ms; "
+                  f"{r['launches_per_step']} launches per train step; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; backward of "
+                  f"scaled_dot_product_attention (dq, dk, dv) {r['library_ms']:.4f} ms; "
+                  f"card {card_line}", flush=True)
+        k1 = rows[0]
+        k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"]}
+        k1["launches"] += train_launches["flash_fwd"]
+        rows = [k1, *bwd_rows, rows[1]]
     finally:
         if predictor is not None:
             predictor.stop()
         shutil.rmtree(ROOT / "_smoke", ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
-                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in rows
-    ]}), flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "launches_by_path")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

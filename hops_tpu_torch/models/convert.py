@@ -6,7 +6,9 @@ port's modules keep the flax names and shapes (``embed/embedding``,
 ``block_i/{RMSNorm_0,RMSNorm_1}/scale``, ``block_i/attn/{qkv|q,kv,out}/kernel``,
 ``block_i/mlp/{gate,up,down}/kernel``, ``final_norm/scale``,
 ``unembed/kernel``). Neither side needs the other's framework to write or
-read the ``.npz`` artifact.
+read the ``.npz`` artifact. :func:`params_to_flax` carries the weights
+back: a model trained by the port loads into the JAX module and into an
+artifact.
 """
 
 from __future__ import annotations
@@ -45,6 +47,17 @@ def params_from_flax(tree_or_flat: Mapping[str, Any] | str | Path) -> dict[str, 
             arr if arr.flags.writeable and arr.flags.c_contiguous else np.array(arr)
         )
         for name, arr in flat.items()
+    }
+
+
+def params_to_flax(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The module's weights as a flat ``'/'``-joined dict of fp32 numpy
+    arrays in the flax layout: :func:`save_npz` writes it as an artifact
+    and ``flax.traverse_util.unflatten_dict(flat, sep="/")`` makes it
+    the JAX module's parameter tree."""
+    return {
+        name.replace(".", "/"): t.detach().to(torch.float32).cpu().numpy()
+        for name, t in model.state_dict().items()
     }
 
 

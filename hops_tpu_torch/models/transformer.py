@@ -3,9 +3,12 @@
 Modules keep the flax parameter names and shapes as attributes — for
 example ``block_3.attn.qkv.kernel`` of shape ``(d_model, 3, heads,
 head_dim)`` — so a JAX parameter tree loads with no reshape
-(:mod:`hops_tpu_torch.models.convert`). Projections compute with
-``einsum``/``matmul`` in the model dtype, as flax's ``Dense`` does;
-RMSNorm statistics and scale stay fp32; logits are fp32.
+(:mod:`hops_tpu_torch.models.convert`). Parameters are stored in
+``param_dtype`` (default: the compute ``dtype``, the serving layout;
+training keeps fp32 masters, as flax stores them) and each op casts to
+the compute ``dtype`` exactly where flax does: ``Dense`` casts its input
+and its kernel, ``Embed`` its table; RMSNorm statistics and scale stay
+fp32; logits are fp32.
 
 The KV cache is explicit: :meth:`TransformerLM.init_cache` returns a
 :class:`KVCache`, and a decode call writes into it in place. Attention
@@ -14,8 +17,10 @@ forward, and the prefill of a fresh cache) and
 :func:`hops_tpu_torch.ops.attention.decode_attention` (every step on a
 warm cache): the port's two Hopper kernels on CUDA tensors.
 
-This slice serves dense models; the paged cache, the int8 cache, MoE
-blocks, tensor parallelism and the ring/Ulysses impls raise
+The full forward also trains: :func:`make_lm_train_step` runs the
+JAX package's next-token step (dense or chunked loss, dropout, per-block
+remat) with the flash kernels' backward. The paged cache, the int8
+cache, MoE blocks, tensor parallelism and the ring/Ulysses impls raise
 ``NotImplementedError``.
 """
 
@@ -24,9 +29,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from hops_tpu_torch.models.common import TrainState, cross_entropy_loss
 from hops_tpu_torch.models.convert import params_from_flax
 from hops_tpu_torch.ops.attention import (
     attention_reference,
@@ -34,6 +42,7 @@ from hops_tpu_torch.ops.attention import (
     flash_attention,
     repeat_kv,
 )
+from hops_tpu_torch.ops.xent import chunked_softmax_xent
 from hops_tpu_torch.runtime.devices import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -77,31 +86,35 @@ def rotary_embedding(
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    # Serving slice: weights are loaded, never trained here.
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+    # Filled by load_flax (a JAX tree or convert.random_params).
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Dense(nn.Module):
     """Bias-free projection holding flax's ``kernel`` of shape
-    ``(in, *features)``."""
+    ``(in, *features)`` in ``param_dtype``; input and kernel are cast to
+    the compute ``dtype`` for the product, as flax's ``Dense`` does."""
 
-    def __init__(self, in_features: int, features: tuple[int, ...], dtype, device):
+    def __init__(self, in_features: int, features: tuple[int, ...], dtype, param_dtype, device):
         super().__init__()
-        self.kernel = _param((in_features, *features), dtype, device)
+        self.dtype = dtype
+        self.kernel = _param((in_features, *features), param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel
-        out = x.to(w.dtype) @ w.reshape(w.shape[0], -1)
+        w = self.kernel.to(self.dtype)
+        out = x.to(self.dtype) @ w.reshape(w.shape[0], -1)
         return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
 class Embed(nn.Module):
-    def __init__(self, vocab: int, dim: int, dtype, device):
+    def __init__(self, vocab: int, dim: int, dtype, param_dtype, device):
         super().__init__()
-        self.embedding = _param((vocab, dim), dtype, device)
+        self.dtype = dtype
+        self.embedding = _param((vocab, dim), param_dtype, device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return nn.functional.embedding(tokens, self.embedding)
+        # Gather, then cast: the same values as casting the table first.
+        return nn.functional.embedding(tokens, self.embedding).to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -141,7 +154,7 @@ class KVCache:
 
 class Attention(nn.Module):
     def __init__(
-        self, d_model: int, num_heads: int, *, dtype, device,
+        self, d_model: int, num_heads: int, *, dtype, param_dtype, device,
         attention_impl: str = "flash", num_kv_heads: int | None = None,
         window: int | None = None,
     ):
@@ -153,18 +166,19 @@ class Attention(nn.Module):
         self.attention_impl = attention_impl
         self.window = window
         self.fused = num_kv_heads is None
+        dt = (dtype, param_dtype, device)
         if self.fused:
             self.kv_heads = num_heads
-            self.qkv = Dense(d_model, (3, num_heads, self.head_dim), dtype, device)
+            self.qkv = Dense(d_model, (3, num_heads, self.head_dim), *dt)
         else:
             if num_heads % num_kv_heads:
                 raise ValueError(
                     f"{num_heads} heads not divisible by num_kv_heads={num_kv_heads}"
                 )
             self.kv_heads = num_kv_heads
-            self.q = Dense(d_model, (num_heads, self.head_dim), dtype, device)
-            self.kv = Dense(d_model, (2, num_kv_heads, self.head_dim), dtype, device)
-        self.out = Dense(num_heads * self.head_dim, (d_model,), dtype, device)
+            self.q = Dense(d_model, (num_heads, self.head_dim), *dt)
+            self.kv = Dense(d_model, (2, num_kv_heads, self.head_dim), *dt)
+        self.out = Dense(num_heads * self.head_dim, (d_model,), *dt)
 
     def _project_in(self, x):
         if self.fused:
@@ -235,36 +249,63 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """SwiGLU: gate/up projections and a gated down projection."""
 
-    def __init__(self, d_model: int, *, dtype, device, hidden_mult: int = 4):
+    def __init__(self, d_model: int, *, dtype, param_dtype, device, hidden_mult: int = 4):
         super().__init__()
         hidden = int(d_model * hidden_mult * 2 / 3)
         hidden = max(128, (hidden // 128) * 128)
-        self.gate = Dense(d_model, (hidden,), dtype, device)
-        self.up = Dense(d_model, (hidden,), dtype, device)
-        self.down = Dense(hidden, (d_model,), dtype, device)
+        dt = (dtype, param_dtype, device)
+        self.gate = Dense(d_model, (hidden,), *dt)
+        self.up = Dense(d_model, (hidden,), *dt)
+        self.down = Dense(hidden, (d_model,), *dt)
 
     def forward(self, x):
         return self.down(nn.functional.silu(self.gate(x)) * self.up(x))
 
 
-class Block(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, *, dtype, device, **attn_kw):
-        super().__init__()
-        self.RMSNorm_0 = RMSNorm(d_model, dtype, device)
-        self.attn = Attention(d_model, num_heads, dtype=dtype, device=device, **attn_kw)
-        self.RMSNorm_1 = RMSNorm(d_model, dtype, device)
-        self.mlp = MLP(d_model, dtype=dtype, device=device)
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """flax's ``Dropout``: keep each entry with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``. The mask is a function
+    of ``seed`` alone (a fresh generator on ``x``'s device), so a
+    recomputed forward (remat) draws the same mask."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
-    def forward(self, x, cache=None, layer=0, offset=None, fresh=False, rows=None):
-        x = x + self.attn(self.RMSNorm_0(x), cache, layer, offset, fresh, rows)
-        return x + self.mlp(self.RMSNorm_1(x))
+
+class Block(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, *, dtype, param_dtype, device,
+                 dropout_rate: float = 0.0, **attn_kw):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        dt = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.RMSNorm_0 = RMSNorm(d_model, dtype, device)
+        self.attn = Attention(d_model, num_heads, **dt, **attn_kw)
+        self.RMSNorm_1 = RMSNorm(d_model, dtype, device)
+        self.mlp = MLP(d_model, **dt)
+
+    def forward(self, x, cache=None, layer=0, offset=None, fresh=False, rows=None,
+                seed: int | None = None):
+        """``seed`` (training with dropout only): the attention and MLP
+        outputs are dropped with masks drawn from ``seed`` and
+        ``seed + 1``."""
+        h = self.attn(self.RMSNorm_0(x), cache, layer, offset, fresh, rows)
+        if seed is not None:
+            h = dropout(h, self.dropout_rate, seed)
+        x = x + h
+        h = self.mlp(self.RMSNorm_1(x))
+        if seed is not None:
+            h = dropout(h, self.dropout_rate, seed + 1)
+        return x + h
 
 
 class TransformerLM(nn.Module):
     """GPT-style causal LM over token ids ``(batch, seq)`` -> fp32 logits.
 
     Constructor arguments are the flax module's fields (the artifact's
-    ``lm_config.json``), plus ``device`` (``None`` = the card). Fields of
+    ``lm_config.json``), plus ``param_dtype`` (flax's name: the storage
+    type of the weights; ``None`` stores them in ``dtype``, as the
+    serving path does) and ``device`` (``None`` = the card). Fields of
     later slices raise ``NotImplementedError``. ``attention_impl=
     "reference"`` runs the full forward on the plain attention version;
     the cached path always runs the kernels.
@@ -289,6 +330,7 @@ class TransformerLM(nn.Module):
         tp_axis: str | None = None,
         dropout_rate: float = 0.0,
         remat: bool = False,
+        param_dtype: Any = None,
         device: str | torch.device | None = None,
     ):
         super().__init__()
@@ -302,36 +344,41 @@ class TransformerLM(nn.Module):
             raise NotImplementedError("moe_every: MoE blocks are a later slice")
         if tp_shards != 1 or tp_axis is not None:
             raise NotImplementedError("tp_*: tensor parallelism is a later slice")
-        if dropout_rate or remat:
-            raise NotImplementedError(
-                "dropout_rate/remat act in training, which is a later slice"
-            )
+        if not 0.0 <= dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
         if attention_impl not in ("flash", "reference"):
             raise NotImplementedError(
                 f"attention_impl={attention_impl!r}: ring/ulysses are a later slice"
             )
         device = resolve_device(device)
         dtype = as_dtype(dtype)
+        stored = None if param_dtype is None else dtype_name(as_dtype(param_dtype))
+        param_dtype = dtype if param_dtype is None else as_dtype(param_dtype)
         self.config = dict(
             vocab_size=vocab_size, d_model=d_model, num_heads=num_heads,
             num_layers=num_layers, dtype=dtype_name(dtype),
             attention_impl=attention_impl, max_decode_len=max_decode_len,
             num_kv_heads=num_kv_heads, window=window, ragged_decode=ragged_decode,
+            dropout_rate=dropout_rate, remat=remat,
+            param_dtype=stored,
         )
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.max_decode_len = max_decode_len
         self.ragged_decode = ragged_decode
+        self.dropout_rate = dropout_rate
+        self.remat = remat
         self.dtype = dtype
-        self.embed = Embed(vocab_size, d_model, dtype, device)
+        self.param_dtype = param_dtype
+        self.embed = Embed(vocab_size, d_model, dtype, param_dtype, device)
         for i in range(num_layers):
             self.add_module(f"block_{i}", Block(
-                d_model, num_heads, dtype=dtype, device=device,
-                attention_impl=attention_impl, num_kv_heads=num_kv_heads,
-                window=window,
+                d_model, num_heads, dtype=dtype, param_dtype=param_dtype, device=device,
+                dropout_rate=dropout_rate, attention_impl=attention_impl,
+                num_kv_heads=num_kv_heads, window=window,
             ))
         self.final_norm = RMSNorm(d_model, dtype, device)
-        self.unembed = Dense(d_model, (vocab_size,), dtype, device)
+        self.unembed = Dense(d_model, (vocab_size,), dtype, param_dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -342,9 +389,11 @@ class TransformerLM(nn.Module):
 
     def clone(self, **changes) -> "TransformerLM":
         """A new module with ``changes`` applied to the config and this
-        module's weights: shared when the dtype stays, else cast copies."""
+        module's weights: shared when their storage type stays, else cast
+        copies."""
         other = TransformerLM(**{**self.config, **changes}, device=self.device)
-        other.load_state_dict(self.state_dict(), strict=True, assign=other.dtype == self.dtype)
+        other.load_state_dict(self.state_dict(), strict=True,
+                              assign=other.param_dtype == self.param_dtype)
         return other
 
     def load_flax(self, tree_or_flat) -> "TransformerLM":
@@ -378,10 +427,17 @@ class TransformerLM(nn.Module):
         fresh: bool = False,
         rows: torch.Tensor | None = None,
         return_hidden: bool = False,
+        train: bool = False,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Logits ``(batch, seq, vocab)`` fp32.
 
-        Without ``cache``: the full causal forward. With ``cache``: decode
+        Without ``cache``: the full causal forward. ``train=True`` turns
+        on dropout (``dropout_rate > 0``; its masks come from
+        ``generator``, which is then required) and, with ``remat`` while
+        autograd records, recomputes each block in backward
+        (``torch.utils.checkpoint``) instead of keeping its activations.
+        With ``cache``: decode
         mode — the chunk is written at the cache index and the index
         advances by ``seq``. ``fresh=True`` says the written rows hold no
         history (their index is taken as 0: the prefill of a new
@@ -404,8 +460,19 @@ class TransformerLM(nn.Module):
                 )
             else:
                 offset = cache.idx
+        seed = None
+        if train and self.dropout_rate:
+            if cache is not None or generator is None:
+                raise ValueError("dropout in training needs generator= and no cache")
+            # One draw per forward; block i uses seed + 2i and + 2i + 1.
+            seed = int(torch.randint(0, 2**62, (), generator=generator))
+        remat = train and self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
-            x = block(x, cache, i, offset, fresh, rows)
+            block_seed = None if seed is None else seed + 2 * i
+            if remat:
+                x = checkpoint(block, x, layer=i, seed=block_seed, use_reentrant=False)
+            else:
+                x = block(x, cache, i, offset, fresh, rows, block_seed)
         if cache is not None:
             if rows is None:
                 cache.idx = offset + tokens.shape[1]
@@ -415,3 +482,46 @@ class TransformerLM(nn.Module):
         if return_hidden:
             return x
         return self.logits(x)
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The dropout seed of step ``step`` (``fold_in(rng, step)`` in JAX)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = None):
+    """Next-token-prediction step: ``(state, {"tokens"}) -> (state, metrics)``.
+
+    The JAX package's step (``hops_tpu/models/transformer.py``) on a
+    :class:`~hops_tpu_torch.models.common.TrainState`: inputs are
+    ``tokens[:, :-1]``, targets ``tokens[:, 1:]``; the loss is the dense
+    cross-entropy over fp32 logits or, with ``loss_chunk``, the chunked
+    LM-head loss (:func:`~hops_tpu_torch.ops.xent.chunked_softmax_xent`,
+    ``loss_chunk`` tokens' logits at a time); one optimizer step follows.
+    Dropout masks derive from ``(state.seed, state.step)``. Unlike JAX,
+    the step updates the model's weights and the optimizer's moments in
+    place (no second copy of either); the returned state carries the
+    next step number. Metrics are 0-d tensors on the model's device (no
+    host sync). ``aux_loss_weight`` weighs MoE load-balancing losses,
+    which are 0 here: MoE blocks are a later slice and raise at
+    construction.
+    """
+
+    def train_step(state: TrainState, batch: dict[str, Any]):
+        model = state.model
+        tokens = torch.as_tensor(batch["tokens"]).to(model.device, torch.long)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        gen = torch.Generator().manual_seed(_step_seed(state.seed, state.step))
+        out = model(inputs, train=True, generator=gen, return_hidden=bool(loss_chunk))
+        if loss_chunk:
+            loss = chunked_softmax_xent(out, model.unembed.kernel, targets, chunk=loss_chunk)
+        else:
+            loss = cross_entropy_loss(out, targets)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        loss = loss.detach()
+        state = dataclasses.replace(state, step=state.step + 1)
+        return state, {"loss": loss, "perplexity": torch.exp(loss)}
+
+    return train_step

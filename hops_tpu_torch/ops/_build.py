@@ -40,6 +40,18 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # causal, q_offset, window, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     ),
+    "flash_bwd_dq": (
+        "flash_bwd_dq.cu", "hops_flash_bwd_dq",
+        # q, k, v, do, lse, delta, dq, bh, seq_q, seq_k, head_dim, is_bf16,
+        # sm_scale, causal, q_offset, window, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd_dkv.cu", "hops_flash_bwd_dkv",
+        # q, k, v, do, lse, delta, dk, dv, bh, seq_q, seq_k, head_dim,
+        # is_bf16, sm_scale, causal, q_offset, window, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
     "decode_attention": (
         "decode_attention.cu", "hops_decode_attention",
         # q, k, v, valid_len, o, b, hkv, rows, s, cap, head_dim, is_bf16,

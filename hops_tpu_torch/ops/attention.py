@@ -2,11 +2,14 @@
 
 Layout ``(batch, heads, seq, head_dim)``, as in the JAX package.
 
-Two entry points run hand-written CUDA kernels for Hopper on CUDA
+The entry points run hand-written CUDA kernels for Hopper on CUDA
 tensors and their plain PyTorch versions on CPU tensors:
 
-- :func:`flash_attention` -> ``csrc/flash_fwd.cu`` (K1, ``_fwd_kernel``),
-  forward only;
+- :func:`flash_attention` -> ``csrc/flash_fwd.cu`` (K1, ``_fwd_kernel``)
+  forward; under autograd its backward (:func:`flash_attention_bwd`)
+  runs ``csrc/flash_bwd_dq.cu`` (K2, ``_bwd_dq_kernel``) and
+  ``csrc/flash_bwd_dkv.cu`` (K3, ``_bwd_dkv_kernel``), the
+  flash-attention-2 split of the JAX custom VJP;
 - :func:`decode_attention` -> ``csrc/decode_attention.cu`` (K4,
   ``_decode_kernel``), the dense, unquantized cache.
 
@@ -27,7 +30,9 @@ from hops_tpu_torch.ops import _build
 NEG_INF = float("-inf")
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
-LAUNCHES: dict[str, int] = {"flash_fwd": 0, "decode_attention": 0}
+LAUNCHES: dict[str, int] = {
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
+}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -129,6 +134,49 @@ def attention_lse_reference(
     )
 
 
+def _bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, q_offset, window):
+    """fp32 ``(p, ds)`` of the backward kernels: ``p = exp(s - lse)``
+    (0 where the row's lse is -inf: the row sees no key), ``dp = do vᵀ``,
+    ``ds = p (dp - delta) sm_scale``."""
+    s = _masked_scores(q, k, causal, sm_scale, q_offset, window)
+    lse = lse.float()[..., None]
+    dead = torch.isneginf(lse)
+    p = torch.where(dead, 0.0, torch.exp(s - torch.where(dead, 0.0, lse)))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta.float()[..., None]) * sm_scale
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=False, sm_scale=None,
+                           q_offset=None, window=None) -> torch.Tensor:
+    """Plain version of K2: ``dq = ds k`` from the forward's fp32 ``lse``
+    and ``delta = rowsum(o·do)`` (both ``(b, h, seq_q)``), in q's dtype."""
+    sm_scale, q_offset = _attention_args(q, k, causal, sm_scale, q_offset, window)
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=False, sm_scale=None,
+                            q_offset=None, window=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: ``dk = dsᵀ q`` and ``dv = pᵀ do``, in k's and
+    v's dtypes."""
+    sm_scale, q_offset = _attention_args(q, k, causal, sm_scale, q_offset, window)
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float()).to(v.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False, sm_scale=None,
+                                  q_offset=None, window=None):
+    """Plain backward of :func:`flash_attention` with the kernels'
+    formulas (not autograd of :func:`attention_reference`): ``(dq, dk,
+    dv)`` from the saved output ``o`` and fp32 ``lse``."""
+    delta = (o.float() * do.float()).sum(-1)
+    args = (causal, sm_scale, q_offset, window)
+    return (flash_bwd_dq_reference(q, k, v, do, lse, delta, *args),
+            *flash_bwd_dkv_reference(q, k, v, do, lse, delta, *args))
+
+
 def _normalize_valid_len(valid_len, b: int, device) -> torch.Tensor:
     """``valid_len`` as a contiguous ``(b,)`` int32 tensor on ``device``:
     a scalar broadcasts (uniform decode), a ``(b,)`` vector passes
@@ -194,6 +242,125 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _device_of(name: str, q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type
+
+
+def _flash_fwd(q, k, v, causal, sm_scale, q_offset, window):
+    """``(o, lse)``: K1 on CUDA tensors; on CPU tensors the plain
+    versions, with a row that sees no key at 0 as the kernel writes it."""
+    if _device_of("flash_attention", q) == "cpu":
+        lse = attention_lse_reference(q, k, causal, sm_scale, q_offset, window)
+        o = attention_reference(q, k, v, causal, sm_scale, q_offset, window)
+        return torch.where(torch.isneginf(lse)[..., None], 0.0, o), lse
+    b, h, sq, d = q.shape
+    _check_kernel_inputs("flash_fwd", q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("flash_fwd")
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b * h, sq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(sm_scale),
+        int(causal), int(q_offset), int(window or 0), _stream(q.device),
+    )
+    _build.check("flash_fwd", rc)
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, sm_scale, q_offset, window):
+    b, h, sq, d = q.shape
+    _check_kernel_inputs(name, q, k, v, do, *outs)
+    for t in (lse, delta):
+        if t.device != q.device or t.dtype != torch.float32 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: lse/delta must be 16-byte aligned fp32 on {q.device}")
+    fn = _build.kernel(name)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(t.data_ptr() for t in outs), b * h, sq, k.shape[2], d,
+        int(q.dtype == torch.bfloat16), float(sm_scale), int(causal), int(q_offset),
+        int(window or 0), _stream(q.device),
+    )
+    _build.check(name, rc)
+    LAUNCHES[name] += 1
+
+
+def _bwd_inputs(name, q, k, v, do, lse, delta, causal, sm_scale, q_offset, window):
+    if (k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] or v.shape != k.shape
+            or do.shape != q.shape):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, do {tuple(do.shape)}")
+    if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
+        raise ValueError(f"{name}: lse/delta must be (b, h, seq_q) = {tuple(q.shape[:3])}")
+    sm_scale, q_offset = _attention_args(q, k, causal, sm_scale, q_offset, window)
+    return sm_scale, q_offset, [t.contiguous() for t in (q, k, v, do, lse, delta)]
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, sm_scale=None,
+                 q_offset=None, window=None) -> torch.Tensor:
+    """``dq`` of flash attention from the forward's fp32 ``lse`` and
+    ``delta = rowsum(o·do)`` (both ``(b, h, seq_q)`` fp32), in q's dtype.
+    CUDA tensors run ``csrc/flash_bwd_dq.cu`` (K2); CPU tensors run
+    :func:`flash_bwd_dq_reference`."""
+    sm_scale, q_offset, ts = _bwd_inputs(
+        "flash_bwd_dq", q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
+    if _device_of("flash_bwd_dq", q) == "cpu":
+        return flash_bwd_dq_reference(*ts, causal, sm_scale, q_offset, window)
+    dq = torch.empty_like(ts[0])
+    _bwd_launch("flash_bwd_dq", *ts, [dq], causal, sm_scale, q_offset, window)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, sm_scale=None,
+                  q_offset=None, window=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` of flash attention, in k's dtype. CUDA tensors run
+    ``csrc/flash_bwd_dkv.cu`` (K3); CPU tensors run
+    :func:`flash_bwd_dkv_reference`. A key that no query sees gets 0."""
+    sm_scale, q_offset, ts = _bwd_inputs(
+        "flash_bwd_dkv", q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
+    if _device_of("flash_bwd_dkv", q) == "cpu":
+        return flash_bwd_dkv_reference(*ts, causal, sm_scale, q_offset, window)
+    dk, dv = torch.empty_like(ts[1]), torch.empty_like(ts[2])
+    _bwd_launch("flash_bwd_dkv", *ts, [dk, dv], causal, sm_scale, q_offset, window)
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
+                        q_offset=None, window=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` from its saved output
+    ``o`` and fp32 ``lse``: ``delta = rowsum(o·do)`` in fp32 (a torch op,
+    as in the JAX VJP), then K2 and K3 (CPU tensors: their plain
+    versions)."""
+    delta = (o.float() * do.float()).sum(-1)
+    args = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset, window=window)
+    return (flash_bwd_dq(q, k, v, do, lse, delta, **args),
+            *flash_bwd_dkv(q, k, v, do, lse, delta, **args))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward saving ``(q, k, v, o, lse)``; K2/K3 backward (the JAX
+    custom VJP ``_flash``). ``lse`` is returned but not differentiable,
+    as in JAX, where only ``o`` leaves the VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset, window):
+        o, lse = _flash_fwd(q, k, v, causal, sm_scale, q_offset, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset, window=window)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        # The cotangent often arrives as a transposed view (the out
+        # projection's transpose); the kernels take contiguous rows.
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -205,54 +372,36 @@ def flash_attention(
     window: int | None = None,
     return_lse: bool = False,
 ):
-    """Flash attention forward over ``(batch, heads, seq, head_dim)``.
+    """Flash attention over ``(batch, heads, seq, head_dim)``.
 
     ``window`` (causal only): query p attends keys ``[p - window + 1, p]``.
     Cross-length causal calls place the query chunk at ``q_offset``
     (default: the last ``seq_q`` key positions). k and v carry q's head
-    count (broadcast GQA heads with :func:`repeat_kv` first). With
-    ``return_lse`` also returns the fp32 ``(b, h, seq_q)`` logsumexp.
+    count (broadcast GQA heads with :func:`repeat_kv` first; autograd
+    sums the repeated heads' gradients back). A query row that sees no
+    key returns 0. With ``return_lse`` also returns the fp32 ``(b, h,
+    seq_q)`` logsumexp (not differentiable).
 
     CUDA tensors run ``csrc/flash_fwd.cu`` (bf16 or fp32, head_dim 64 or
-    128); CPU tensors run :func:`attention_reference`. Forward only: this
-    raises when autograd would need a gradient.
+    128) and, when autograd needs a gradient, ``csrc/flash_bwd_dq.cu``
+    and ``csrc/flash_bwd_dkv.cu`` in backward; CPU tensors run the plain
+    versions of all three.
     """
     if window is not None and not causal:
         raise ValueError("window requires causal=True")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention is forward-only in this port; run under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
     if k.shape[1] != q.shape[1] or v.shape != k.shape:
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} — k/v need q's heads (use repeat_kv)"
         )
     sm_scale, q_offset = _attention_args(q, k, causal, sm_scale, q_offset, window)
-    if q.device.type == "cpu":
-        o = attention_reference(q, k, v, causal, sm_scale, q_offset, window)
-        if return_lse:
-            return o, attention_lse_reference(q, k, causal, sm_scale, q_offset, window)
-        return o
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check_kernel_inputs("flash_fwd", q, k, v)
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.kernel("flash_fwd")
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, sq, sk, d, int(q.dtype == torch.bfloat16), float(sm_scale),
-        int(causal), int(q_offset), int(window or 0), _stream(q.device),
-    )
-    _build.check("flash_fwd", rc)
-    LAUNCHES["flash_fwd"] += 1
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, lse = _FlashAttention.apply(q, k, v, causal, sm_scale, q_offset, window)
+    else:
+        o, lse = _flash_fwd(q, k, v, causal, sm_scale, q_offset, window)
     return (o, lse) if return_lse else o
 
 

@@ -7,8 +7,11 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: bf16 inputs against the fp32 plain version, ``max err <=
-2e-2 + 2e-2 * max|plain|``; fp32 inputs ``atol 1e-5`` (same arithmetic,
-another summation order).
+2e-2 + 2e-2 * max|plain|``; fp32 inputs ``atol 1e-5`` for the forward
+and decode kernels and ``1e-4 * max(1, max|plain|)`` for the backward
+kernels, whose outputs grow with the row length (same arithmetic,
+another summation order); gradients and weights of a train step
+``1e-4``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,64 @@ def test_flash_kernel_matches_plain(d, sq, sk, causal, window):
     f = [t.float() for t in (q, k, v)]
     _close_bf16(o, T.attention_reference(*f, causal=causal, window=window))
     _close_bf16(lse, T.attention_lse_reference(*f[:2], causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
+    (16, 16, True, None, None), (1000, 1000, True, None, None), (300, 300, False, None, None),
+    (512, 512, True, 100, None), (64, 1024, True, None, None),
+    (200, 333, True, 64, 150),  # keys 0..86 seen by no query
+    (128, 128, True, None, -40),  # rows 0..39 see no key
+])
+def test_flash_bwd_kernels_match_plain(dtype, d, sq, sk, causal, window, q_offset):
+    """K2 and K3 against their plain versions on the same (o, lse) from
+    K1; rows that see no key and keys that no query sees are exactly 0."""
+    dev = _card()
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(2, 4, n, d, generator=g).to(dev, dtype) for n in (sq, sk, sk))
+    do = torch.randn(2, 4, sq, d, generator=g).to(dev, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = T.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = (o.float() * do.float()).sum(-1)
+    before = T.launch_counts()
+    dq = T.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = T.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    after = T.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    f = [t.float() for t in (q, k, v, do)]
+    ref_dq = T.flash_bwd_dq_reference(*f, lse, delta, **kw)
+    ref_dk, ref_dv = T.flash_bwd_dkv_reference(*f, lse, delta, **kw)
+    for out, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert out.dtype == dtype
+        if dtype == torch.bfloat16:
+            _close_bf16(out, ref)
+        else:
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            assert (out - ref).abs().max().item() <= tol
+    if q_offset == -40:
+        assert not dq[:, :, :40].any()
+    if q_offset == 150:
+        assert not dk[:, :, :87].any() and not dv[:, :, :87].any()
+
+
+def test_flash_attention_autograd_on_the_card_matches_the_cpu():
+    """Gradients through the autograd Function: K1/K2/K3 on the card
+    against the plain versions on the CPU, fp32, GQA through repeat_kv."""
+    dev = _card()
+    g = torch.Generator().manual_seed(7)
+    leaves = [torch.randn(2, h, 300, 64, generator=g) for h in (8, 2, 2)]
+    cot = torch.randn(2, 8, 300, 64, generator=g)
+    grads = []
+    for device in ("cpu", dev):
+        ts = [t.detach().to(device).requires_grad_(True) for t in leaves]
+        k, v = T.repeat_kv(*ts)
+        o = T.flash_attention(ts[0], k, v, causal=True, window=100)
+        (o * cot.to(device)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -122,3 +183,38 @@ def test_engine_on_the_card_matches_the_cpu():
         results = engine.run()
         out.append([results[t] for t in tickets])
     assert out[0] == out[1]
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """Two fp32 train steps (chunked loss, Adam) of a small GQA model on
+    the card (K1/K2/K3) against the same steps on the CPU (plain
+    versions): both losses, and every gradient of the first step within
+    ``1e-4 * ||g_cpu||inf``. Weights after Adam are not compared: its
+    first update ``lr * g / (|g| + eps)`` turns a gradient difference at
+    rounding level into a weight difference of up to ``lr * |dg| / eps``
+    wherever ``|g|`` is near ``eps``."""
+    from hops_tpu_torch.models.common import create_train_state
+    from hops_tpu_torch.models.convert import random_params
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+
+    dev = _card()
+    cfg = dict(vocab_size=256, d_model=256, num_heads=2, num_layers=2, dtype="float32",
+               num_kv_heads=1)
+    params = random_params(**cfg, seed=8)
+    tokens = torch.randint(0, 256, (2, 300), generator=torch.Generator().manual_seed(9))
+    runs = []
+    for device in ("cpu", dev):
+        state = create_train_state(TransformerLM(**cfg, device=device).load_flax(params), seed=0)
+        step = make_lm_train_step(loss_chunk=128)
+        before = T.launch_counts()["flash_bwd_dkv"]
+        state, first = step(state, {"tokens": tokens})
+        grads = {n: p.grad.cpu().clone() for n, p in state.model.named_parameters()}
+        state, second = step(state, {"tokens": tokens})
+        runs.append(([first["loss"].item(), second["loss"].item()], grads,
+                     T.launch_counts()["flash_bwd_dkv"] - before))
+    (cpu_losses, cpu_g, cpu_n), (gpu_losses, gpu_g, gpu_n) = runs
+    assert cpu_n == 0 and gpu_n == 4
+    torch.testing.assert_close(torch.tensor(gpu_losses), torch.tensor(cpu_losses),
+                               atol=1e-4, rtol=1e-4)
+    for name, g in cpu_g.items():
+        assert (gpu_g[name] - g).abs().max() <= 1e-4 * g.abs().max(), name
