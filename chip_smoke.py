@@ -8,7 +8,8 @@ phases run in order, each prints its result on its own line, and any
 failure exits non-zero:
 
 1. card     — the card's name and power limit (``nvidia-smi``);
-2. build    — all four kernels compiled from ``hops_tpu_torch/ops/csrc``;
+2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
+   (one ``nvcc`` per source, five sources);
 3. kernels  — the forward and decode kernels (K1, K4) against their
    plain PyTorch versions (fp32) on the same seeded inputs: bf16 inputs
    within ``2e-2 + 2e-2 * max|plain|``, fp32 inputs at the same shapes
@@ -21,6 +22,15 @@ failure exits non-zero:
    and exact zeros in dq for rows that see no key and in dk/dv for keys
    that no query sees (outputs are allocated over freed NaN-filled
    memory first);
+3c. caches  — the int8 and paged decode kernels (K5 dense int8, K6 paged
+   bf16/fp32 pools, K7 paged int8 pools) against their plain versions:
+   d 64/128, MHA and GQA (8 q heads on 2 kv heads), 1 and 256 query
+   tokens, ragged valid_len (0, 1, a tile or page boundary ± 1, full
+   capacity), window 256, pages of 64, 16 and 24 on shuffled tables whose
+   free rows are all zeros, int8 values from ``quantize_kv``; bf16 and
+   fp32 queries at the phase-3 bounds, outputs over freed NaN memory,
+   and bit-identical outputs when the scratch block 0 holds ±1e30 (NaN
+   in fp32 pools; NaN/1e30 scales for int8);
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
    1024, 8 heads of 128, 12 layers, bf16, max_decode_len 2048) written
    as an artifact, served by ``LMEnginePredictor`` with 4 slots: 8 greedy
@@ -45,18 +55,36 @@ failure exits non-zero:
 7b. grads   — the same widths at 2 layers, fp32 weights and compute,
    batch 2 x 2048: every parameter gradient of the kernel path within
    ``1e-3 * ||ref||inf`` of the same model on the plain attention
-   (``attention_impl="reference"``).
+   (``attention_impl="reference"``);
+8. caches   — phase 4's artifact and requests served three more times:
+   (a) the int8 cache (K5), (b) the paged cache with 256-token prefill
+   chunks and the parity pool (K6), (c) the paged int8 cache on 65
+   blocks (K7), where the four largest requests do not fit together, so
+   admission queues. Every answer must have its full length, the slice's
+   kernel must launch and K1/K4 must not, and (c) must use at least 90%
+   of its pool at peak. Prints TTFT, decode tokens/s, prefill chunks,
+   preemptions, peak blocks, the persistent KV bytes against phase 4's
+   dense cache, and how many streams equal phase 4's; checks the logits
+   of two requests as phase 4 does, against the plain attention
+   versions on the same cache type;
+8b. parity  — 2 layers at full width in fp32: the paged engine against
+   the dense engine of the same cache dtype (fp32 pools, int8 pools) on
+   a pool of 5 usable blocks that forces a preemption; greedy streams
+   identical unless the dense engine's top-2 logit gap at the first
+   difference is under ``1e-4 * ||logits||inf`` (printed).
 
 Phase 5's rows for K2 and K3 are timed after phase 7, at (8, 8, 2048,
-128) bf16 causal, beside the launches per train step. The second-to-last
-line is one JSON object with a record per kernel; the last line is
-``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package
-is imported.
+128) bf16 causal, beside the launches per train step; its rows for K5,
+K6 and K7 after phase 8b, at phase 5's decode shape, beside their
+launches in phase 8. The second-to-last line is one JSON object with a
+record per kernel; the last line is ``{"ok": true, "device": {...}}``.
+Nothing of JAX or of the JAX package is imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -87,6 +115,26 @@ GRAD_CHECK = dict(MODEL, num_layers=2, dtype="float32")
 GRAD_BATCH = 2
 GRAD_REL = 1e-3
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Phase 8: (name, lm_config, the kernel it runs). (c)'s 64 usable blocks
+# hold 4096 tokens, under the ~5000 the four largest requests reach.
+CACHE_SLICES = (
+    ("int8", {"slots": 4, "kv_cache_dtype": "int8"}, "decode_attention_q8"),
+    ("paged", {"slots": 4, "kv_page_size": 64, "prefill_chunk": 256}, "paged_decode_attention"),
+    ("paged-int8", {"slots": 4, "kv_cache_dtype": "int8", "kv_page_size": 64,
+                    "kv_pool_blocks": 65, "prefill_chunk": 256}, "paged_decode_attention_q8"),
+)
+PEAK_POOL_SHARE = 0.9
+# Phase 8b: two 60-token prompts with 70 new tokens each need 3 blocks
+# of 64 apiece at their deepest write; the pool has 5.
+PARITY = dict(MODEL, num_layers=2, dtype="float32")
+PARITY_PROMPT, PARITY_NEW, PARITY_PAGE, PARITY_POOL = 60, 70, 64, 6
+TIE_REL = 1e-4
+# Phase 3c and 5: the cache kernels and the TPU kernels they replace.
+CACHE_KERNELS = {
+    "decode_attention_q8": ("decode_attention_q8.cu", 1211),
+    "paged_decode_attention": ("paged_decode_attention.cu", 916),
+    "paged_decode_attention_q8": ("paged_decode_attention.cu", 965),
+}
 
 
 def fail(msg: str) -> int:
@@ -275,6 +323,118 @@ def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
     return worst
 
 
+def shuffled_pages(torch, gen, valid: list[int], page: int, cap: int, dev):
+    """``(pages, nblocks)``: a ``(len(valid), ceil(cap / page))`` table
+    over a pool of ``1 + rows * max_blocks`` blocks in which each row maps
+    distinct, shuffled nonzero blocks below its valid length and the
+    scratch block 0 past it (a free row is all zeros)."""
+    mb = -(-cap // page)
+    nblocks = 1 + len(valid) * mb
+    free = (torch.randperm(nblocks - 1, generator=gen) + 1).tolist()
+    table = torch.zeros(len(valid), mb, dtype=torch.int32)
+    for r, n in enumerate(valid):
+        need = -(-n // page)
+        table[r, :need] = torch.tensor(free[:need], dtype=torch.int32)
+        free = free[need:]
+    return table.to(dev), nblocks
+
+
+def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
+    """Phase 3c. Returns the worst error per kernel and query dtype;
+    raises on a miss or when the scratch block changes an output."""
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in CACHE_KERNELS}
+    bad = []
+    cap, b, h = 2048, 5, 8
+    nan = float("nan")
+
+    def run(name, fn, q):
+        # Free a NaN-filled block of the output's size first, so the
+        # kernel's torch.empty output starts as NaN, not as 0.
+        poison = torch.full_like(q, nan)
+        del poison
+        before = A.launch_counts()[name]
+        out = fn()
+        torch.cuda.synchronize()
+        if A.launch_counts()[name] != before + 1:
+            raise AssertionError(f"{name} did not launch its kernel")
+        return out
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).rsplit(".", 1)[-1]
+        atol, rel = (BF16_ATOL, BF16_REL) if dtype == torch.bfloat16 else (FP32_ATOL, 0.0)
+        for d in (128, 64):
+            for hkv in (8, 2):
+                for s in (1, 256):
+                    q = torch.randn(b, h, s, d, generator=gen).to(dev, dtype)
+                    errs = {k: 0.0 for k in CACHE_KERNELS}
+                    # K5: tile boundary +-1 and full capacity.
+                    vl = torch.tensor([0, 1, 63, 65, cap], dtype=torch.int32, device=dev)
+                    (kq, ks), (vq, vs) = (A.quantize_kv(torch.randn(b, hkv, cap, d, generator=gen)
+                                                        .to(dev)) for _ in range(2))
+                    for window in (None, 256):
+                        o = run("decode_attention_q8", lambda: A.decode_attention_q8(
+                            q, kq, vq, ks, vs, vl, window=window), q)
+                        ref = A.decode_attention_q8_reference(q.float(), kq, vq, ks, vs, vl,
+                                                              window=window)
+                        err, tol, ok = close(o, ref, atol, rel)
+                        errs["decode_attention_q8"] = max(errs["decode_attention_q8"], err)
+                        if not ok:
+                            bad.append(f"decode_attention_q8 {dname} d{d} hkv {hkv} s {s} "
+                                       f"window={window}: {err:.3e} > {tol:.3e}")
+                    # K6 and K7: page boundary +-1 and full capacity.
+                    for page in (64, 16, 24):
+                        mb = -(-cap // page)
+                        valid = [0, 1, 5 * page - 1, 5 * page + 1, mb * page]
+                        vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+                        pages, nblocks = shuffled_pages(torch, gen, valid, page, cap, dev)
+                        pools = [torch.randn(hkv, nblocks, page, d, generator=gen).to(dev)
+                                 for _ in range(2)]
+                        quant = [A.quantize_kv(p) for p in pools]
+                        for name in ("paged_decode_attention", "paged_decode_attention_q8"):
+                            if name.endswith("q8"):
+                                (k, ksc), (v, vsc) = quant
+                                scales = dict(k_scale=ksc, v_scale=vsc)
+                                plain_kv = (k, v)
+                            else:
+                                k, v = (p.to(dtype) for p in pools)
+                                scales = {}
+                                plain_kv = (k.float(), v.float())
+                            for window in (None, 256):
+                                o = run(name, lambda: A.paged_decode_attention(
+                                    q, k, v, vl, pages, window=window, **scales), q)
+                                ref = A.paged_decode_attention_reference(
+                                    q.float(), *plain_kv, vl, pages, window=window, **scales)
+                                err, tol, ok = close(o, ref, atol, rel)
+                                errs[name] = max(errs[name], err)
+                                if not ok:
+                                    bad.append(f"{name} {dname} d{d} hkv {hkv} s {s} page {page} "
+                                               f"window={window}: {err:.3e} > {tol:.3e}")
+                            # The scratch block: garbage there changes nothing.
+                            k2, v2 = k.clone(), v.clone()
+                            sc2 = {n: t.clone() for n, t in scales.items()}
+                            if scales:
+                                k2[:, 0], v2[:, 0] = 127, -127
+                                sc2["k_scale"][:, 0], sc2["v_scale"][:, 0] = nan, 1e30
+                            else:
+                                k2[:, 0] = 1e30
+                                v2[:, 0] = nan if dtype == torch.float32 else -1e30
+                            dirty = run(name, lambda: A.paged_decode_attention(
+                                q, k2, v2, vl, pages, **sc2), q)
+                            if not torch.equal(dirty, A.paged_decode_attention(
+                                    q, k, v, vl, pages, **scales)):
+                                bad.append(f"{name} {dname} d{d} hkv {hkv} s {s} page {page}: "
+                                           "the scratch block reached an output")
+                    for name, err in errs.items():
+                        worst[name][dname] = max(worst[name][dname], err)
+                    print(f"  {dname} b{b} h8 hkv {hkv} d{d} s {s}: worst err " + ", ".join(
+                        f"{n} {e:.3e}" for n, e in errs.items())
+                        + f" (bound {atol:.0e}{' + 2e-2*max|plain|' if rel else ''}); "
+                        "scratch block unreachable", flush=True)
+    if bad:
+        raise AssertionError("cache kernel disagrees with its plain version: " + "; ".join(bad))
+    return worst
+
+
 def check_logits(model, torch, prompts, answers, dev) -> None:
     """Phase 4 check, for two requests: the logits at the last prompt
     position (a fresh-cache prefill, through flash_fwd) and after the
@@ -319,6 +479,119 @@ def check_logits(model, torch, prompts, answers, dev) -> None:
         print(f"  request {i}: first greedy token {first}, plain fp32 argmax {best}", flush=True)
         if first != best and not tie <= 2 * noise[0].item():
             raise AssertionError(f"request {i}: first token {first} != plain argmax {best}")
+
+
+def cached_logits(m, torch, prompt, nxt, chunk: int | None):
+    """``(2, vocab)`` logits of ``m`` at the last prompt position and
+    after one decode step, on a fresh batch-1 cache of ``m``'s type: a
+    dense cache takes the prompt in one fresh prefill; a paged one maps
+    blocks 1.. and takes it in ``chunk``-token chunks, as the engine."""
+    cache = m.init_cache(1)
+    if m.paged_decode:
+        need = -(-(prompt.shape[1] + 1) // m.kv_page_size)
+        cache.pages[0, :need] = torch.arange(1, need + 1, dtype=torch.int32)
+        for c0 in range(0, prompt.shape[1], chunk):
+            last = m(prompt[:, c0:c0 + chunk], cache)[0, -1]
+    else:
+        last = m(prompt, cache, fresh=True)[0, -1]
+    return torch.stack([last, m(nxt, cache)[0, -1]])
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Run the model's cached attention on the plain versions: swap the
+    kernel entry points that ``hops_tpu_torch.models.transformer`` calls
+    (K1, K4, K5, K6/K7) for their ``*_reference`` counterparts, cast to
+    the query's dtype as the kernels return it."""
+    import hops_tpu_torch.models.transformer as TM
+    from hops_tpu_torch.ops import attention as A
+
+    def cast(ref):
+        return lambda q, *args, **kw: ref(q, *args, **kw).to(q.dtype)
+
+    swaps = {
+        "flash_attention": cast(A.attention_reference),
+        "decode_attention": cast(A.decode_attention_reference),
+        "decode_attention_q8": cast(A.decode_attention_q8_reference),
+        "paged_decode_attention": cast(A.paged_decode_attention_reference),
+    }
+    real = {name: getattr(TM, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(TM, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(TM, name, fn)
+
+
+@contextlib.contextmanager
+def int8_tape(tape: list, replay: bool):
+    """Record what the model's ``quantize_kv`` returns, call by call, or
+    replay a recording: two runs whose fp32 K/V differ by rounding then
+    store the same int8 bytes and scales, where they would otherwise
+    round a few values to the next int8 step."""
+    import hops_tpu_torch.models.transformer as TM
+
+    real, calls = TM.quantize_kv, iter(tape)
+
+    def record(x):
+        tape.append(real(x))
+        return tape[-1]
+
+    def play(x):
+        values, scales = next(calls)
+        assert values.shape == x.shape, "replayed int8 K/V out of step"
+        return values, scales
+
+    TM.quantize_kv = play if replay else record
+    try:
+        yield
+    finally:
+        TM.quantize_kv = real
+
+
+def check_cache_logits(model, torch, prompts, answers, dev, chunk) -> None:
+    """Phase 8 check, for two requests: ``model`` (the engine's, with
+    its int8 or paged cache) on its kernels against the same model type
+    on the plain attention versions (:func:`plain_attention`), on the
+    same kind of cache filled the same way, as in phase 4. fp32
+    weights within ``LOGITS_REL_FP32 * ||ref||inf``: for an int8 cache
+    the kernel run stores the int8 bytes the plain run stored
+    (:func:`int8_tape`), so both attend the same cache contents. The
+    served bf16 model within ``BF16_VS_PLAIN`` times the plain bf16
+    model's distance from the plain fp32 one (both quantize their own
+    K/V)."""
+    fp32 = model.clone(dtype="float32")
+    for i in (0, 3):
+        prompt = torch.tensor(prompts[i], dtype=torch.long, device=dev)[None]
+        nxt = torch.tensor([[answers[i][0]]], device=dev)
+        tape: list = []
+        with plain_attention():
+            with int8_tape(tape, replay=False):
+                ref = cached_logits(fp32, torch, prompt, nxt, chunk)
+            plain_bf16 = cached_logits(model, torch, prompt, nxt, chunk)
+        scale = ref.abs().max(dim=-1).values
+        noise = (plain_bf16 - ref).abs().max(dim=-1).values
+        for m, bounds in ((fp32, LOGITS_REL_FP32 * scale), (model, BF16_VS_PLAIN * noise)):
+            with int8_tape(tape, replay=True) if m is fp32 else contextlib.nullcontext():
+                got = cached_logits(m, torch, prompt, nxt, chunk)
+            errs = (got - ref).abs().max(dim=-1).values
+            for j, step in enumerate(("prefill", "decode step")):
+                err, tol = errs[j].item(), bounds[j].item()
+                dname = str(m.dtype).rsplit(".", 1)[-1]
+                extra = f"; plain bf16 model {noise[j].item():.3e}" if m is model else ""
+                print(f"  request {i} (prompt {prompt.shape[1]}) {dname}: {step} logits "
+                      f"|kernel - plain fp32|inf {err:.3e} (bound {tol:.3e}){extra}; "
+                      f"||ref||inf {scale[j].item():.3e}", flush=True)
+                if not err <= tol:
+                    raise AssertionError(f"request {i} {dname} {step} logits disagree")
+
+
+def kv_bytes(cache) -> int:
+    """Persistent bytes of a KV cache: values, scales, page table, index."""
+    tensors = [*cache.k, *cache.v, *(cache.k_scale or []), *(cache.v_scale or []), cache.idx]
+    return sum(t.nbytes for t in tensors) + (cache.pages.nbytes if hasattr(cache, "pages") else 0)
 
 
 def time_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
@@ -403,6 +676,189 @@ def time_bwd_kernels(A, torch, gen, dev, launches, worst, steps: int) -> list[di
             library_ms=library_ms, **bound(flops, nbytes),
         ))
     return rows
+
+
+def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
+    """Phase 5 rows for K5, K6 and K7 at K4's serving shape: one decode
+    step of 4 slots, 12 layer caches in turn, page 64 on a shuffled
+    table. The yardstick is ``scaled_dot_product_attention`` on the
+    gathered (paged) and dequantized (int8) bf16 tensors; the gather and
+    the dequantization are not timed."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    b, h, d, cap, layers, page = 4, 8, 128, 2048, 12, 64
+    vl_host = [p + n // 2 for p, n in zip(PROMPT_LENS[:4], NEW_TOKENS[:4])]
+    vl = torch.tensor(vl_host, dtype=torch.int32, device=dev)
+    q = torch.randn(b, h, 1, d, generator=gen).to(dev, bf16)
+    mask = (torch.arange(cap, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+    keys = sum(vl_host)
+    blocks = sum(-(-n // page) for n in vl_host)
+    flops = 4 * d * h * keys
+    io = 2 * b * h * d * 2 + b * 4  # q, o and valid_len
+    pages, nblocks = shuffled_pages(torch, gen, vl_host, page, cap, dev)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def deq(t, sc):
+        return A.dequantize_kv(t, sc, bf16)
+
+    q8 = [[*A.quantize_kv(rand(b, h, cap, d)), *A.quantize_kv(rand(b, h, cap, d))]
+          for _ in range(layers)]
+    pools = [[rand(h, nblocks, page, d).to(bf16) for _ in range(2)] for _ in range(layers)]
+    qpools = [[*A.quantize_kv(rand(h, nblocks, page, d)), *A.quantize_kv(rand(h, nblocks, page, d))]
+              for _ in range(layers)]
+    cases = {
+        "decode_attention_q8": (
+            lambda i: A.decode_attention_q8(q, q8[i][0], q8[i][2], q8[i][1], q8[i][3], vl),
+            lambda i: A.decode_attention_q8_reference(q, q8[i][0], q8[i][2], q8[i][1], q8[i][3], vl),
+            [(deq(c[0], c[1]), deq(c[2], c[3])) for c in q8],
+            "int8 cache (4,8,2048,128) + fp32 scales",
+            2 * h * (d + 4) * keys + io,
+        ),
+        "paged_decode_attention": (
+            lambda i: A.paged_decode_attention(q, *pools[i], vl, pages),
+            lambda i: A.paged_decode_attention_reference(q, *pools[i], vl, pages),
+            [tuple(A.paged_gather_kv(p, pages) for p in pl) for pl in pools],
+            f"bf16 pools ({h},{nblocks},{page},{d}), page table ({b},{cap // page})",
+            2 * h * d * 2 * keys + io + blocks * 4,
+        ),
+        "paged_decode_attention_q8": (
+            lambda i: A.paged_decode_attention(q, qpools[i][0], qpools[i][2], vl, pages,
+                                               k_scale=qpools[i][1], v_scale=qpools[i][3]),
+            lambda i: A.paged_decode_attention_reference(q, qpools[i][0], qpools[i][2], vl, pages,
+                                                         k_scale=qpools[i][1], v_scale=qpools[i][3]),
+            [(deq(A.paged_gather_kv(c[0], pages), A.paged_gather_scales(c[1], pages)),
+              deq(A.paged_gather_kv(c[2], pages), A.paged_gather_scales(c[3], pages)))
+             for c in qpools],
+            f"int8 pools ({h},{nblocks},{page},{d}) + fp32 scale pools, page table ({b},{cap // page})",
+            2 * h * (d + 4) * keys + io + blocks * 4,
+        ),
+    }
+    rows = []
+    for name, (fn, plain, dense, what, nbytes) in cases.items():
+        src, line = CACHE_KERNELS[name]
+        rows.append(dict(
+            name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{src}",
+            replaces=f"hops_tpu/ops/attention.py:{line}",
+            shape=f"q ({b},{h},1,{d}) bf16, {what}, valid_len {vl_host}",
+            launches=launches[name], max_abs_err=worst[name]["bfloat16"],
+            ms=cuda_ms(lambda i=0, fn=fn: fn(i % layers), 120),
+            plain_ms=cuda_ms(lambda i=0, plain=plain: plain(i % layers), 24),
+            library_ms=cuda_ms(lambda i=0, dense=dense: F.scaled_dot_product_attention(
+                q, *dense[i % layers], attn_mask=mask), 120),
+            **bound(flops, nbytes),
+        ))
+    return rows
+
+
+def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_bytes,
+                       dev, card_line) -> dict[str, dict[str, int]]:
+    """Phase 8: serve phase 4's requests with each of ``CACHE_SLICES``;
+    returns each slice's launch counts."""
+    from hops_tpu_torch.modelrepo.serving import LMEnginePredictor
+
+    out = {}
+    for name, cfg, kernel in CACHE_SLICES:
+        predictor = LMEnginePredictor(art, cfg)
+        try:
+            torch.cuda.synchronize()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            answers = predictor.predict(instances)
+            wall = time.perf_counter() - t0
+            launches = A.launch_counts()
+            stats = predictor.stats()
+            ttft = predictor.last_ttft_s
+            engine = predictor.engine
+            for p, n, ans in zip(PROMPT_LENS, NEW_TOKENS, answers):
+                if len(ans) != n:
+                    raise AssertionError(f"{name}: prompt {p} answered {len(ans)} tokens, not {n}")
+            others = {k: n for k, n in launches.items() if k != kernel and n}
+            if not launches[kernel] or others:
+                raise AssertionError(f"{name}: {kernel} must launch and no other attention "
+                                     f"kernel: {launches}")
+            paged = stats["cache_layout"] == "paged"
+            if paged and name == "paged-int8" and (
+                    stats["blocks_peak_used"] < PEAK_POOL_SHARE * stats["blocks_total"]):
+                raise AssertionError(f"{name}: peak pool use {stats['blocks_peak_used']} of "
+                                     f"{stats['blocks_total']} blocks")
+            same = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+                    for a, b in zip(answers, dense_answers)]
+            nbytes = kv_bytes(engine._cache)
+            print(f"phase 8 {name} {cfg}: answers {[len(a) for a in answers]} tokens; "
+                  f"launches {kernel} {launches[kernel]}, others none; "
+                  f"{sum(n == len(a) for n, a in zip(same, answers))} of {len(answers)} streams "
+                  f"equal phase 4's (equal leading tokens {same})", flush=True)
+            pool = (f"; prefill chunks {stats['prefill_chunks']}, preemptions "
+                    f"{stats['preemptions']}, peak blocks {stats['blocks_peak_used']} of "
+                    f"{stats['blocks_total']}" if paged else "")
+            print(f"  ttft_ms {[round(t * 1e3, 1) for t in ttft]}; decode "
+                  f"{stats['decode_tokens'] / stats['decode_s']:.1f} tokens/s "
+                  f"({stats['decode_tokens']} tokens in {stats['decode_s']:.3f} s of decode-only "
+                  f"steps); {stats['dispatches']} steps, prefill {stats['prefill_s']:.3f} s; "
+                  f"wall {wall:.3f} s{pool}; persistent KV {nbytes} bytes "
+                  f"({nbytes / dense_bytes:.3f} of phase 4's dense bf16 cache, {dense_bytes} "
+                  f"bytes); card {card_line}", flush=True)
+            with torch.inference_mode():
+                check_cache_logits(engine.model, torch, prompts, answers, dev,
+                                   cfg.get("prefill_chunk"))
+            out[name] = launches
+        finally:
+            predictor.stop()
+        del predictor, engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def engine_parity(torch, params, dev) -> None:
+    """Phase 8b: the paged engine against the dense engine of the same
+    cache dtype, fp32 at full width and 2 layers, on a pool small enough
+    to preempt."""
+    from hops_tpu_torch.models.transformer import TransformerLM
+    from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+
+    model = TransformerLM(**PARITY, ragged_decode=True, device=dev)
+    names = {n.replace(".", "/") for n in model.state_dict()}
+    model.load_flax({n: a for n, a in params.items() if n in names})
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, PARITY["vocab_size"], (PARITY_PROMPT,), generator=rng).tolist()
+               for _ in range(2)]
+    for dt in (None, "int8"):
+        m = model if dt is None else model.clone(kv_cache_dtype=dt)
+        dense = LMEngine(m, slots=2, device=dev)
+        paged = LMEngine(m, slots=2, kv_page_size=PARITY_PAGE, kv_pool_blocks=PARITY_POOL,
+                         device=dev)
+        streams = []
+        for engine in (dense, paged):
+            tickets = [engine.submit(p, max_new_tokens=PARITY_NEW) for p in prompts]
+            res = engine.run()
+            streams.append([res[t] for t in tickets])
+        stats = paged.stats()
+        if not stats["preemptions"]:
+            raise AssertionError(f"phase 8b {dt}: the pool of {PARITY_POOL} blocks never preempted")
+        notes = []
+        for p, a, b in zip(prompts, *streams):
+            if a == b:
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            # The dense engine's logits at the first difference, replayed
+            # on a batch-1 dense cache.
+            with torch.inference_mode():
+                cache = m.init_cache(1)
+                seq = torch.tensor([p + a[:j]], dtype=torch.long, device=dev)
+                logits = m(seq, cache, fresh=True)[0, -1]
+            top2 = torch.topk(logits, 2).values
+            gap, scale = (top2[0] - top2[1]).item(), logits.abs().max().item()
+            notes.append(f"streams differ at token {j}: dense top-2 gap {gap:.3e} "
+                         f"(near tie below {TIE_REL * scale:.3e})")
+            if not gap < TIE_REL * scale:
+                raise AssertionError(f"phase 8b {dt}: paged and dense streams differ at token {j} "
+                                     f"without a near tie ({gap:.3e})")
+        print(f"phase 8b parity {dt or 'fp32'} pools: 2 requests of {PARITY_PROMPT} + "
+              f"{PARITY_NEW} tokens, page {PARITY_PAGE}, pool {PARITY_POOL} blocks: preemptions "
+              f"{stats['preemptions']}, peak blocks {stats['blocks_peak_used']}; "
+              + ("; ".join(notes) if notes else "greedy streams identical"), flush=True)
 
 
 def profile_decode(engine, torch, prompts, steps: int = 10) -> None:
@@ -609,6 +1065,14 @@ def main() -> int:
         f"{k} {worst[k]['bfloat16']:.3e} (bf16) {worst[k]['float32']:.3e} (fp32)"
         for k in ("flash_bwd_dq", "flash_bwd_dkv")
     ), flush=True)
+    print("phase 3c int8 and paged decode kernels against plain versions (bf16 and fp32 in, "
+          "fp32 plain):", flush=True)
+    with torch.inference_mode():
+        worst.update(check_cache_kernels(A, torch, gen, dev))
+    print("phase 3c ok: worst error " + ", ".join(
+        f"{k} {worst[k]['bfloat16']:.3e} (bf16) {worst[k]['float32']:.3e} (fp32)"
+        for k in CACHE_KERNELS
+    ), flush=True)
 
     art = ROOT / "_smoke" / "artifact"
     predictor = None
@@ -646,6 +1110,7 @@ def main() -> int:
               f"prefill {stats['prefill_s']:.3f} s; wall {wall:.3f} s; card {card_line}", flush=True)
         with torch.inference_mode():
             check_logits(predictor.engine.model, torch, prompts, answers, dev)
+        dense_bytes = kv_bytes(predictor.engine._cache)
         print("phase 4 ok", flush=True)
         with torch.inference_mode():
             rows = time_kernels(A, torch, gen, dev, launches, worst)
@@ -674,10 +1139,27 @@ def main() -> int:
                   f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; backward of "
                   f"scaled_dot_product_attention (dq, dk, dv) {r['library_ms']:.4f} ms; "
                   f"card {card_line}", flush=True)
+        torch.cuda.empty_cache()
+        slice_launches = serve_cache_slices(A, torch, art, prompts, instances, answers,
+                                            dense_bytes, dev, card_line)
+        print("phase 8 ok", flush=True)
+        engine_parity(torch, params, dev)
+        print("phase 8b ok", flush=True)
+        torch.cuda.empty_cache()
+        cache_launches = {k: n for launches in slice_launches.values()
+                          for k, n in launches.items() if k in CACHE_KERNELS and n}
+        with torch.inference_mode():
+            cache_rows = time_cache_kernels(A, torch, gen, dev, cache_launches, worst)
+        for r in cache_rows:
+            print(f"phase 5 {r['name']} at {r['shape']}: {r['ms']:.4f} ms; "
+                  f"{r['launches']} launches in phase 8; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; scaled_dot_product_attention "
+                  f"on the gathered/dequantized bf16 tensors {r['library_ms']:.4f} ms; "
+                  f"card {card_line}", flush=True)
         k1 = rows[0]
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"]}
         k1["launches"] += train_launches["flash_fwd"]
-        rows = [k1, *bwd_rows, rows[1]]
+        rows = [k1, *bwd_rows, rows[1], *cache_rows]
     finally:
         if predictor is not None:
             predictor.stop()

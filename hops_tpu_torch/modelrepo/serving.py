@@ -24,10 +24,7 @@ from hops_tpu_torch.runtime.devices import resolve_device
 
 log = logging.getLogger(__name__)
 
-_LATER_SLICES = (
-    "kv_cache_dtype", "draft_model", "kv_page_size", "kv_pool_blocks",
-    "prefill_chunk", "prefixes",
-)
+_LATER_SLICES = ("draft_model", "prefixes")
 
 
 def save_lm_artifact(
@@ -56,7 +53,10 @@ class LMEnginePredictor:
     Predictions are generated-token lists, prompt excluded.
 
     ``lm_config`` holds the engine options: ``slots`` (default 4),
-    ``prefill_buckets``, ``max_queue`` and ``decode_horizon`` (1 only).
+    ``prefill_buckets``, ``max_queue``, ``decode_horizon`` (1 only),
+    ``kv_cache_dtype`` (``"int8"``: the quantized KV cache) and the
+    paged cache with chunked prefill, ``kv_page_size``,
+    ``kv_pool_blocks`` and ``prefill_chunk``.
     """
 
     def __init__(
@@ -73,8 +73,14 @@ class LMEnginePredictor:
         artifact_dir = Path(artifact_dir)
         model_cfg = json.loads((artifact_dir / "lm_config.json").read_text())
         model_cfg["ragged_decode"] = True
+        if cfg.get("kv_cache_dtype"):
+            model_cfg["kv_cache_dtype"] = str(cfg["kv_cache_dtype"])
         module = TransformerLM(**model_cfg, device=device)
         module.load_flax(load_npz(artifact_dir / "params.npz"))
+
+        def optional_int(key):
+            return int(cfg[key]) if cfg.get(key) else None
+
         self._engine = LMEngine(
             module,
             slots=int(cfg.get("slots", 4)),
@@ -82,6 +88,9 @@ class LMEnginePredictor:
                 tuple(cfg["prefill_buckets"]) if "prefill_buckets" in cfg else None
             ),
             decode_horizon=int(cfg.get("decode_horizon", 1)),
+            kv_page_size=optional_int("kv_page_size"),
+            kv_pool_blocks=optional_int("kv_pool_blocks"),
+            prefill_chunk=optional_int("prefill_chunk"),
             max_queue=int(cfg.get("max_queue", 1024)),
             device=device,
         )

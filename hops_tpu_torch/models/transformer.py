@@ -11,17 +11,19 @@ and its kernel, ``Embed`` its table; RMSNorm statistics and scale stay
 fp32; logits are fp32.
 
 The KV cache is explicit: :meth:`TransformerLM.init_cache` returns a
-:class:`KVCache`, and a decode call writes into it in place. Attention
-runs through :func:`hops_tpu_torch.ops.attention.flash_attention` (full
-forward, and the prefill of a fresh cache) and
-:func:`hops_tpu_torch.ops.attention.decode_attention` (every step on a
-warm cache): the port's two Hopper kernels on CUDA tensors.
+:class:`KVCache` (dense, bf16/fp32 or int8 with fp32 scales) or, with
+``paged_decode``, a :class:`PagedKVCache` (per-layer block pools and one
+page table), and a decode call writes into it in place. Attention runs
+through :mod:`hops_tpu_torch.ops.attention`: ``flash_attention`` (full
+forward, and the prefill of a fresh bf16/fp32 cache), ``decode_attention``
+(every other dense call; int8 caches on its q8 kernel) and
+``paged_decode_attention`` (every paged call) — the port's Hopper
+kernels on CUDA tensors.
 
 The full forward also trains: :func:`make_lm_train_step` runs the
 JAX package's next-token step (dense or chunked loss, dropout, per-block
-remat) with the flash kernels' backward. The paged cache, the int8
-cache, MoE blocks, tensor parallelism and the ring/Ulysses impls raise
-``NotImplementedError``.
+remat) with the flash kernels' backward. MoE blocks, tensor parallelism
+and the ring/Ulysses impls raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,10 @@ from hops_tpu_torch.models.convert import params_from_flax
 from hops_tpu_torch.ops.attention import (
     attention_reference,
     decode_attention,
+    decode_attention_q8,
     flash_attention,
+    paged_decode_attention,
+    quantize_kv,
     repeat_kv,
 )
 from hops_tpu_torch.ops.xent import chunked_softmax_xent
@@ -141,14 +146,48 @@ class KVCache:
     index — ``(batch,)`` int32 on a ``ragged_decode`` model (every row
     advances on its own), a 0-d int32 otherwise. All layers advance in
     lockstep, so one index serves them all. Decode calls update the
-    tensors in place."""
+    tensors in place. An int8 cache (``kv_cache_dtype="int8"``) holds
+    int8 ``k``/``v`` and fp32 ``k_scale[i]``/``v_scale[i]`` of shape
+    ``(batch, kv_heads, max_decode_len)``, one scale per written
+    position (:func:`~hops_tpu_torch.ops.attention.quantize_kv`)."""
 
     k: list[torch.Tensor]
     v: list[torch.Tensor]
     idx: torch.Tensor
+    k_scale: list[torch.Tensor] | None = None
+    v_scale: list[torch.Tensor] | None = None
 
     @property
     def capacity(self) -> int:
+        return self.k[0].shape[2]
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged per-layer KV cache (``paged_decode``): ``k[i]``/``v[i]`` are
+    block pools ``(kv_heads, kv_pool_blocks, page, head_dim)`` shared by
+    every batch row; ``pages`` is the ``(batch, max_blocks)`` int32 page
+    table, shared by all layers as ``idx`` is: position ``p`` of row ``r``
+    lives in pool block ``pages[r, p // page]`` at offset ``p % page``.
+    Block 0 is the scratch block: entries of 0 catch free rows and pad
+    writes, and the kernels never read it below a row's valid length.
+    The owner (the serving engine) fills ``pages``; int8 pools carry fp32
+    scale pools ``(kv_heads, kv_pool_blocks, page)``."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    pages: torch.Tensor
+    idx: torch.Tensor
+    max_len: int  # the model's max_decode_len: positions clamp below it
+    k_scale: list[torch.Tensor] | None = None
+    v_scale: list[torch.Tensor] | None = None
+
+    @property
+    def capacity(self) -> int:
+        return self.max_len
+
+    @property
+    def page_size(self) -> int:
         return self.k[0].shape[2]
 
 
@@ -216,24 +255,42 @@ class Attention(nn.Module):
         layers; :class:`TransformerLM` advances ``cache.idx`` once after
         the last layer). The chunk lands at each row's offset (clamped so
         it fits, as ``dynamic_update_slice`` clamps). A multi-token chunk
-        on a ``fresh`` cache (nothing earlier to attend to) is plain
-        causal self-attention over the chunk and runs through the flash
-        kernel; every other call streams the cache through the decode
-        kernel. ``rows`` (fresh only) maps batch row i to cache row
+        on a ``fresh`` bf16/fp32 cache (nothing earlier to attend to) is
+        plain causal self-attention over the chunk and runs through the
+        flash kernel; every other call streams the cache through the
+        decode kernel. An int8 cache quantizes k/v as it writes them and
+        reads them back quantized on every call, prefill included, as the
+        JAX package does (so the dense and paged int8 layouts attend the
+        same bytes); a fresh int8 chunk is read as a cache of its own,
+        valid to its length, which holds exactly what its rows of the
+        cache hold. ``rows`` (fresh only) maps batch row i to cache row
         ``rows[i]``: the engine prefills admitted slots in place.
         """
         b, _, s, _ = q.shape
-        ck, cv = cache.k[layer], cache.v[layer]
-        cap = ck.shape[2]
         steps = torch.arange(s, device=q.device)
         pos = offset[:, None] + steps[None, :] if offset.ndim == 1 else offset + steps
         q = rotary_embedding(q, pos)
         k = rotary_embedding(k, pos)
+        if isinstance(cache, PagedKVCache):
+            return self._project_out(self._paged_attend(q, k, v, cache, layer, pos, offset + s))
+        ck, cv = cache.k[layer], cache.v[layer]
+        cap = ck.shape[2]
         start = torch.clamp(offset, 0, cap - s)
         wpos = start[:, None] + steps[None, :] if start.ndim == 1 else (start + steps)[None, :]
         row_idx = torch.arange(b, device=q.device) if rows is None else rows
-        # (b, cap, h, d) views: one index_put_ per cache writes every
-        # row's chunk at its own offset.
+        if cache.k_scale is not None:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            # (b, cap, h, d) and (b, cap, h) views: one index_put_ per
+            # tensor writes every row's chunk at its own offset.
+            for dst, val in ((ck, kq), (cv, vq), (cache.k_scale[layer], ks),
+                             (cache.v_scale[layer], vs)):
+                dst.transpose(1, 2)[row_idx[:, None], wpos] = val.transpose(1, 2)
+            if fresh:
+                kv = [t.contiguous() for t in (kq, vq, ks, vs)]
+            else:
+                kv = [ck, cv, cache.k_scale[layer], cache.v_scale[layer]]
+            return self._project_out(decode_attention_q8(q, *kv, offset + s, window=self.window))
         ck.transpose(1, 2)[row_idx[:, None], wpos] = k.transpose(1, 2).to(ck.dtype)
         cv.transpose(1, 2)[row_idx[:, None], wpos] = v.transpose(1, 2).to(cv.dtype)
         if s > 1 and fresh:
@@ -244,6 +301,33 @@ class Attention(nn.Module):
                 raise ValueError("rows= is only for fresh prefill")
             o = decode_attention(q, ck, cv, offset + s, window=self.window)
         return self._project_out(o)
+
+    def _paged_attend(self, q, k, v, cache, layer, pos, valid_len):
+        """The paged path (JAX ``_paged_decode_attend``): position ``p`` of
+        row ``r`` is written to pool block ``pages[r, p // page]`` at
+        offset ``p % page``, with ``p`` clamped below ``max_decode_len``;
+        a pad position past a row's allocation meets a table entry of 0
+        and lands in the scratch block. There is no fresh-cache shortcut:
+        a prefill is a chunk appended at the row's own offset, so the
+        engine can run prefill chunks and decode steps in one call."""
+        page = cache.page_size
+        posc = torch.clamp_max(pos, cache.max_len - 1)
+        blk = torch.gather(cache.pages, 1, (posc // page).to(torch.long)).to(torch.long)
+        off = (posc % page).to(torch.long)
+        ck, cv = cache.k[layer], cache.v[layer]
+        scales = {}
+        if cache.k_scale is not None:
+            ks_pool, vs_pool = cache.k_scale[layer], cache.v_scale[layer]
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            # pool[:, blk, off] is (hkv, b, s, ...): head-major updates.
+            ks_pool[:, blk, off] = ks.transpose(0, 1)
+            vs_pool[:, blk, off] = vs.transpose(0, 1)
+            scales = dict(k_scale=ks_pool, v_scale=vs_pool)
+        ck[:, blk, off] = k.transpose(0, 1).to(ck.dtype)
+        cv[:, blk, off] = v.transpose(0, 1).to(cv.dtype)
+        return paged_decode_attention(q, ck, cv, valid_len, cache.pages, window=self.window,
+                                      **scales)
 
 
 class MLP(nn.Module):
@@ -309,6 +393,9 @@ class TransformerLM(nn.Module):
     later slices raise ``NotImplementedError``. ``attention_impl=
     "reference"`` runs the full forward on the plain attention version;
     the cached path always runs the kernels.
+    ``kv_cache_dtype="int8"`` quantizes the KV cache; ``paged_decode``
+    (with ``ragged_decode``, ``kv_page_size`` and ``kv_pool_blocks`` >= 2)
+    makes :meth:`init_cache` return a :class:`PagedKVCache`.
     """
 
     def __init__(
@@ -325,6 +412,8 @@ class TransformerLM(nn.Module):
         window: int | None = None,
         ragged_decode: bool = False,
         paged_decode: bool = False,
+        kv_page_size: int = 64,
+        kv_pool_blocks: int | None = None,
         moe_every: int = 0,
         tp_shards: int = 1,
         tp_axis: str | None = None,
@@ -334,12 +423,19 @@ class TransformerLM(nn.Module):
         device: str | torch.device | None = None,
     ):
         super().__init__()
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r} (None or 'int8')")
         if paged_decode:
-            raise NotImplementedError("paged_decode: the paged KV cache is a later slice")
-        if kv_cache_dtype is not None:
-            raise NotImplementedError(
-                f"kv_cache_dtype={kv_cache_dtype!r}: the int8 cache is a later slice"
-            )
+            if not ragged_decode:
+                raise ValueError(
+                    "paged_decode requires ragged_decode=True — the page table "
+                    "is per-row, so rows must advance independently")
+            if kv_pool_blocks is None or kv_pool_blocks < 2:
+                raise ValueError(
+                    "paged_decode needs kv_pool_blocks >= 2 (block 0 is the "
+                    "reserved scratch block)")
+            if kv_page_size < 1:
+                raise ValueError(f"kv_page_size must be >= 1, got {kv_page_size}")
         if moe_every:
             raise NotImplementedError("moe_every: MoE blocks are a later slice")
         if tp_shards != 1 or tp_axis is not None:
@@ -358,14 +454,20 @@ class TransformerLM(nn.Module):
             vocab_size=vocab_size, d_model=d_model, num_heads=num_heads,
             num_layers=num_layers, dtype=dtype_name(dtype),
             attention_impl=attention_impl, max_decode_len=max_decode_len,
-            num_kv_heads=num_kv_heads, window=window, ragged_decode=ragged_decode,
+            kv_cache_dtype=kv_cache_dtype, num_kv_heads=num_kv_heads, window=window,
+            ragged_decode=ragged_decode, paged_decode=paged_decode,
+            kv_page_size=kv_page_size, kv_pool_blocks=kv_pool_blocks,
             dropout_rate=dropout_rate, remat=remat,
             param_dtype=stored,
         )
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.max_decode_len = max_decode_len
+        self.kv_cache_dtype = kv_cache_dtype
         self.ragged_decode = ragged_decode
+        self.paged_decode = paged_decode
+        self.kv_page_size = kv_page_size
+        self.kv_pool_blocks = kv_pool_blocks
         self.dropout_rate = dropout_rate
         self.remat = remat
         self.dtype = dtype
@@ -403,17 +505,37 @@ class TransformerLM(nn.Module):
         self.load_state_dict(params_from_flax(tree_or_flat), strict=True)
         return self
 
-    def init_cache(self, batch: int) -> KVCache:
-        """An all-zero cache for ``batch`` rows on the model's device."""
+    def init_cache(self, batch: int) -> KVCache | PagedKVCache:
+        """A cache for ``batch`` rows on the model's device: values 0 and
+        int8 scales 1, as the JAX package initialises them. A paged cache
+        starts with an all-zero page table (every position on the scratch
+        block) for its owner to fill."""
         attn = self.block_0.attn
-        shape = (batch, attn.kv_heads, self.max_decode_len, attn.head_dim)
         dev = self.device
+        if self.paged_decode:
+            shape = (attn.kv_heads, self.kv_pool_blocks, self.kv_page_size, attn.head_dim)
+        else:
+            shape = (batch, attn.kv_heads, self.max_decode_len, attn.head_dim)
+        int8 = self.kv_cache_dtype == "int8"
+        store = torch.int8 if int8 else self.dtype
+
+        def per_layer(shape, dtype, fill):
+            return [torch.full(shape, fill, dtype=dtype, device=dev)
+                    for _ in range(self.num_layers)]
+
+        kv = dict(k=per_layer(shape, store, 0), v=per_layer(shape, store, 0))
+        if int8:
+            kv.update(k_scale=per_layer(shape[:3], torch.float32, 1.0),
+                      v_scale=per_layer(shape[:3], torch.float32, 1.0))
+        if self.paged_decode:
+            max_blocks = -(-self.max_decode_len // self.kv_page_size)
+            return PagedKVCache(
+                **kv, pages=torch.zeros((batch, max_blocks), dtype=torch.int32, device=dev),
+                idx=torch.zeros((batch,), dtype=torch.int32, device=dev),
+                max_len=self.max_decode_len,
+            )
         idx_shape = (batch,) if self.ragged_decode else ()
-        return KVCache(
-            k=[torch.zeros(shape, dtype=self.dtype, device=dev) for _ in range(self.num_layers)],
-            v=[torch.zeros(shape, dtype=self.dtype, device=dev) for _ in range(self.num_layers)],
-            idx=torch.zeros(idx_shape, dtype=torch.int32, device=dev),
-        )
+        return KVCache(**kv, idx=torch.zeros(idx_shape, dtype=torch.int32, device=dev))
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """fp32 logits from :meth:`forward`'s ``return_hidden`` output."""
@@ -450,6 +572,9 @@ class TransformerLM(nn.Module):
         if cache is not None:
             if rows is not None and not fresh:
                 raise ValueError("rows= requires fresh=True")
+            if isinstance(cache, PagedKVCache) and fresh:
+                raise ValueError("a paged cache is written at its rows' own indices "
+                                 "through its page table: fresh=/rows= are for a dense cache")
             s = tokens.shape[1]
             if s > cache.capacity:
                 raise ValueError(f"chunk of {s} exceeds cache capacity {cache.capacity}")

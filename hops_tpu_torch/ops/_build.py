@@ -58,6 +58,23 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # sm_scale, window, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
+    "decode_attention_q8": (
+        "decode_attention_q8.cu", "hops_decode_attention_q8",
+        # q, k, v, k_scale, v_scale, valid_len, o, b, hkv, rows, s, cap,
+        # head_dim, is_bf16, sm_scale, window, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "paged_decode_attention": (
+        "paged_decode_attention.cu", "hops_paged_decode_attention",
+        # q, k, v, valid_len, pages, o, b, hkv, rows, s, page, max_blocks,
+        # nblocks, head_dim, is_bf16, sm_scale, window, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "paged_decode_attention_q8": (
+        "paged_decode_attention.cu", "hops_paged_decode_attention_q8",
+        # q, k, v, k_scale, v_scale, valid_len, pages, o, then as above
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
 }
 
 _lock = threading.Lock()
@@ -83,10 +100,10 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s library goes: keyed by its source, the
-    shared header and the flags."""
+    shared headers and the flags (kernels of one source share it)."""
     src, _, _ = KERNELS[name]
     h = hashlib.sha256()
-    for path in (CSRC / src, CSRC / "common.cuh"):
+    for path in (CSRC / src, *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
@@ -94,44 +111,41 @@ def library_path(name: str) -> Path:
 
 def build(names: list[str] | None = None) -> dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet,
-    one ``nvcc`` each, all started together. Returns per kernel the
-    seconds it took (0 when already built) and the compiler's resource
-    report (``-Xptxas=-v``). Raises ``RuntimeError`` with the compiler's
-    output when a build fails."""
+    one ``nvcc`` per source, all started together. Returns per kernel
+    the seconds its source took (0 when already built) and the
+    compiler's resource report (``-Xptxas=-v``). Raises ``RuntimeError``
+    with the compiler's output when a build fails."""
     names = list(KERNELS) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = None
     procs = {}
-    report: dict[str, dict] = {}
-    for name in names:
-        out = library_path(name)
+    done: dict[Path, dict] = {}
+    for out in dict.fromkeys(library_path(n) for n in names):
         if out.exists():
             log = out.with_suffix(".log")
-            report[name] = {
-                "seconds": 0.0, "path": str(out),
-                "ptxas": log.read_text() if log.exists() else "",
-            }
+            done[out] = {"seconds": 0.0, "path": str(out),
+                         "ptxas": log.read_text() if log.exists() else ""}
             continue
         exe = exe or nvcc()
+        src = next(KERNELS[n][0] for n in names if library_path(n) == out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(
+        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        procs[out] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out, time.perf_counter())
+        ), tmp, src, time.perf_counter())
     failures = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for out, (proc, tmp, src, t0) in procs.items():
         text, _ = proc.communicate()
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{text}")
+            failures.append(f"{src}: nvcc exited {proc.returncode}\n{text}")
             continue
         os.replace(tmp, out)
         out.with_suffix(".log").write_text(text)
-        report[name] = {"seconds": secs, "path": str(out), "ptxas": text}
+        done[out] = {"seconds": secs, "path": str(out), "ptxas": text}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return report
+    return {n: done[library_path(n)] for n in names}
 
 
 def kernel(name: str):

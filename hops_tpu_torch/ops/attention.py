@@ -11,12 +11,18 @@ tensors and their plain PyTorch versions on CPU tensors:
   ``csrc/flash_bwd_dkv.cu`` (K3, ``_bwd_dkv_kernel``), the
   flash-attention-2 split of the JAX custom VJP;
 - :func:`decode_attention` -> ``csrc/decode_attention.cu`` (K4,
-  ``_decode_kernel``), the dense, unquantized cache.
+  ``_decode_kernel``), the dense, unquantized cache; with ``k_scale`` /
+  ``v_scale`` (:func:`decode_attention_q8`) ``csrc/decode_attention_q8.cu``
+  (K5, ``_decode_q8_kernel``), the dense int8 cache;
+- :func:`paged_decode_attention` -> ``csrc/paged_decode_attention.cu``:
+  K6 (``_paged_decode_kernel``) over bf16/fp32 block pools, K7
+  (``_paged_decode_q8_kernel``) over int8 pools with fp32 scale pools.
 
 On a CUDA tensor the entry point launches its kernel or raises; it never
 falls back. The kernels mask ragged tails themselves, so every sequence
-length and cache capacity runs on them (no block table, no reference
-routing below a length). Each launch adds one to :data:`LAUNCHES`.
+length, cache capacity and page size runs on them (no block table, no
+reference routing below a length or for a page size). Each launch adds
+one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ NEG_INF = float("-inf")
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
+    "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_q8": 0,
 }
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -214,6 +221,74 @@ def decode_attention_reference(
         q_offset=vl - q.shape[2], window=window,
     )
     return torch.where((vl > 0)[:, None, None, None], out, 0.0)
+
+
+def quantize_kv(x: torch.Tensor, eps: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position symmetric int8 quantization over the head dim:
+    ``(..., seq, d)`` -> (int8 values, fp32 scales ``(..., seq)``) with
+    ``x ≈ values * scales[..., None]``. The same arithmetic as the JAX
+    package (fp32 division, round half to even, clip to ±127), so the
+    int8 values are equal."""
+    scale = torch.clamp_min(x.float().abs().amax(dim=-1) / 127.0, eps)
+    q = torch.round(x.float() / scale[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def dequantize_kv(values: torch.Tensor, scales: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`."""
+    return (values.float() * scales[..., None].float()).to(dtype)
+
+
+def paged_gather_kv(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """The dense ``(b, hkv, max_blocks*page, d)`` view of a ``(hkv,
+    nblocks, page, d)`` block pool under a ``(b, max_blocks)`` page
+    table. Only the plain version gathers; the kernels read each pool
+    block through the table."""
+    hkv, _, ps, d = pool.shape
+    b, mb = pages.shape
+    return pool[:, pages.long()].movedim(1, 0).reshape(b, hkv, mb * ps, d)
+
+
+def paged_gather_scales(pool_s: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_gather_kv` for a ``(hkv, nblocks, page)`` scale pool:
+    the dense ``(b, hkv, max_blocks*page)`` view."""
+    hkv, _, ps = pool_s.shape
+    b, mb = pages.shape
+    return pool_s[:, pages.long()].movedim(1, 0).reshape(b, hkv, mb * ps)
+
+
+def decode_attention_q8_reference(q, k, v, k_scale, v_scale, valid_len, sm_scale=None,
+                                  window=None) -> torch.Tensor:
+    """Plain version of :func:`decode_attention_q8`: dequantize the int8
+    caches, attend in fp32, cast to q's dtype."""
+    return decode_attention_reference(
+        q.float(), dequantize_kv(k, k_scale), dequantize_kv(v, v_scale),
+        valid_len, sm_scale, window,
+    ).to(q.dtype)
+
+
+def paged_decode_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len,
+    pages: torch.Tensor,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`paged_decode_attention`: gather the dense
+    view, then :func:`decode_attention_reference` (int8 pools dequantize
+    first and attend in fp32, cast to q's dtype)."""
+    dk, dv = paged_gather_kv(k, pages), paged_gather_kv(v, pages)
+    if k_scale is not None:
+        return decode_attention_q8_reference(
+            q, dk, dv, paged_gather_scales(k_scale, pages),
+            paged_gather_scales(v_scale, pages), valid_len, sm_scale, window,
+        )
+    return decode_attention_reference(q, dk, dv, valid_len, sm_scale, window)
 
 
 # ---------------------------------------------------------------------------
@@ -405,12 +480,31 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
+def _check_operands(name: str, device, dtype, *tensors: torch.Tensor) -> None:
+    """Caches, scales and page tables the kernels read in place: on
+    ``device``, of ``dtype``, contiguous and 16-byte aligned."""
+    for t in tensors:
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: caches, scales and page tables must be contiguous "
+                             "and 16-byte aligned")
+
+
+def _check_scales(k_scale, v_scale) -> bool:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    return k_scale is not None
+
+
 def decode_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     valid_len,
     *,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     sm_scale: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
@@ -423,10 +517,15 @@ def decode_attention(
     a kv head fold into one row block, so the cache is read once per kv
     head, and only up to ``valid_len``.
 
-    CUDA tensors run ``csrc/decode_attention.cu`` (bf16 or fp32,
-    head_dim 64 or 128); CPU tensors run
-    :func:`decode_attention_reference`.
+    With ``k_scale``/``v_scale`` (both or neither; fp32 ``(b, hkv,
+    capacity)`` from :func:`quantize_kv`) the caches are int8.
+
+    CUDA tensors run ``csrc/decode_attention.cu`` (K4) or, int8,
+    ``csrc/decode_attention_q8.cu`` (K5) (bf16 or fp32 queries, head_dim
+    64 or 128); CPU tensors run :func:`decode_attention_reference`
+    (int8: on the dequantized caches in fp32, cast to q's dtype).
     """
+    quantized = _check_scales(k_scale, v_scale)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     b, h, s, d = q.shape
@@ -438,24 +537,124 @@ def decode_attention(
             f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
         )
+    if quantized and (k_scale.shape != (b, hkv, cap) or v_scale.shape != k_scale.shape):
+        raise ValueError(f"decode_attention: scales must be {(b, hkv, cap)}, got "
+                         f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     vl = _normalize_valid_len(valid_len, b, q.device)
-    if q.device.type == "cpu":
+    if _device_of("decode_attention", q) == "cpu":
+        if quantized:
+            return decode_attention_q8_reference(q, k, v, k_scale, v_scale, vl, sm_scale, window)
         return decode_attention_reference(q, k, v, vl, sm_scale, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
-    if not (k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("decode_attention: k/v caches must be contiguous")
     q = q.contiguous()
-    _check_kernel_inputs("decode_attention", q, k, v)
     o = torch.empty_like(q)
-    fn = _build.kernel("decode_attention")
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(),
-        b, hkv, (h // hkv) * s, s, cap, d, int(q.dtype == torch.bfloat16),
-        float(sm_scale), int(window or 0), _stream(q.device),
+    rows = (h // hkv) * s
+    common = (b, hkv, rows, s, cap, d, int(q.dtype == torch.bfloat16),
+              float(sm_scale), int(window or 0), _stream(q.device))
+    if quantized:
+        name = "decode_attention_q8"
+        _check_kernel_inputs(name, q, o)
+        _check_operands(name, q.device, torch.int8, k, v)
+        _check_operands(name, q.device, torch.float32, k_scale, v_scale)
+        rc = _build.kernel(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
+        )
+    else:
+        name = "decode_attention"
+        if not (k.is_contiguous() and v.is_contiguous()):
+            raise ValueError("decode_attention: k/v caches must be contiguous")
+        _check_kernel_inputs(name, q, k, v)
+        rc = _build.kernel(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
+        )
+    _build.check(name, rc)
+    LAUNCHES[name] += 1
+    return o
+
+
+def decode_attention_q8(q, k, v, k_scale, v_scale, valid_len, **kwargs) -> torch.Tensor:
+    """:func:`decode_attention` over an int8 cache: ``k``/``v`` int8
+    ``(b, hkv, capacity, d)`` with fp32 scales ``(b, hkv, capacity)``
+    from :func:`quantize_kv`."""
+    return decode_attention(q, k, v, valid_len, k_scale=k_scale, v_scale=v_scale, **kwargs)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len,
+    pages: torch.Tensor,
+    *,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """:func:`decode_attention` over a paged KV cache.
+
+    ``k``/``v`` are block pools ``(hkv, nblocks, page, d)`` shared by
+    every batch row, and ``pages`` is the ``(b, max_blocks)`` int32 page
+    table: logical block ``j`` of row ``r`` (positions ``j*page ..
+    (j+1)*page - 1``) is pool block ``pages[r, j]``. ``valid_len`` is as
+    in :func:`decode_attention`. Table entries past a row's valid length
+    are conventionally 0, the scratch block; the kernels never read a
+    key at or past ``valid_len``, so its contents are unreachable. An
+    entry outside ``[0, nblocks)`` below a row's valid length is a caller
+    bug: the plain version raises on it, and the kernel reads nothing
+    through it and leaves its keys out of the softmax. With
+    ``k_scale``/``v_scale`` (both or neither; fp32 ``(hkv, nblocks,
+    page)``) the pools are int8 and each scale is read through the same
+    table entry as its values.
+
+    CUDA tensors run ``csrc/paged_decode_attention.cu`` (K6, or K7 for
+    int8 pools) for every page size; CPU tensors run
+    :func:`paged_decode_attention_reference`.
+    """
+    quantized = _check_scales(k_scale, v_scale)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    b, h, s, d = q.shape
+    hkv, nblocks, page, dk = k.shape
+    if dk != d:
+        raise ValueError(f"pool head_dim {dk} != query head_dim {d}")
+    if h % hkv:
+        raise ValueError(f"{h} query heads not divisible by {hkv} kv heads")
+    if v.shape != k.shape:
+        raise ValueError(f"pools differ: k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if quantized:
+        for sname, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(sc.shape) != (hkv, nblocks, page):
+                raise ValueError(
+                    f"scale pool {sname} shape {tuple(sc.shape)} != {(hkv, nblocks, page)}")
+    if pages.ndim != 2 or pages.shape[0] != b:
+        raise ValueError(f"page table rows {pages.shape[0]} != batch {b}")
+    max_blocks = pages.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    vl = _normalize_valid_len(valid_len, b, q.device)
+    if _device_of("paged_decode_attention", q) == "cpu":
+        return paged_decode_attention_reference(
+            q, k, v, vl, pages, sm_scale, window, k_scale=k_scale, v_scale=v_scale,
+        ).to(q.dtype)
+    name = "paged_decode_attention_q8" if quantized else "paged_decode_attention"
+    q = q.contiguous()
+    pages = pages.to(device=q.device, dtype=torch.int32).contiguous()
+    o = torch.empty_like(q)
+    _check_kernel_inputs(name, q, o)
+    _check_operands(name, q.device, torch.int8 if quantized else q.dtype, k, v)
+    _check_operands(name, q.device, torch.int32, pages)
+    scales = ()
+    if quantized:
+        _check_operands(name, q.device, torch.float32, k_scale, v_scale)
+        scales = (k_scale.data_ptr(), v_scale.data_ptr())
+    rc = _build.kernel(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, vl.data_ptr(), pages.data_ptr(),
+        o.data_ptr(), b, hkv, (h // hkv) * s, s, page, max_blocks, nblocks, d,
+        int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0), _stream(q.device),
     )
-    _build.check("decode_attention", rc)
-    LAUNCHES["decode_attention"] += 1
+    _build.check(name, rc)
+    LAUNCHES[name] += 1
     return o

@@ -1,0 +1,90 @@
+// Decode attention against a paged KV cache, for Hopper (sm_90a): the
+// ports of K6, `_paged_decode_kernel`, and K7, `_paged_decode_q8_kernel`,
+// in hops_tpu/ops/attention.py (both launched by
+// `paged_decode_attention`). The kernel body, its int8 arithmetic and
+// what bounds it are in decode_rows.cuh.
+//
+// The pools are (hkv, nblocks, page, d), shared by every batch row, and
+// a (b, max_blocks) int32 page table maps logical block j of row b to
+// pool block pages[b, j]. On the TPU the translation lived in the
+// BlockSpec index maps and a grid step was one page, so pages had to be
+// a multiple of 8 (else the JAX package routed to its gathered
+// reference). Here each block resolves the storage row of every key of
+// its 64-key tile through the table itself, so a tile may span several
+// pages (page 16, page 24) or part of one (page 128): every page size
+// runs on the kernel. Reads stay O(valid_len) and touch only the pool
+// blocks the table names; for K7 the scale pools (hkv, nblocks, page)
+// are read at the same storage row as the values.
+
+#include "decode_rows.cuh"
+
+namespace {
+
+// Shared argument checks of the two entry points; fills `a`'s paged
+// fields. Returns false when the sizes are out of range.
+bool paged_args(hops::decode::Args& a, const void* q, const void* k, const void* v,
+                const void* valid_len, const void* pages, void* o, int hkv, int rows,
+                int s, int page, int max_blocks, int nblocks, float sm_scale, int window) {
+  const long long cap = (long long)page * max_blocks;
+  if (page < 1 || max_blocks < 1 || nblocks < 1 || cap > INT_MAX) return false;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.valid_len = static_cast<const int*>(valid_len);
+  a.pages = static_cast<const int*>(pages);
+  a.o = o;
+  a.hkv = hkv;
+  a.rows = rows;
+  a.s = s;
+  a.cap = (int)cap;
+  a.page = page;
+  a.max_blocks = max_blocks;
+  a.nblocks = nblocks;
+  a.sm_scale = sm_scale;
+  a.window = window;
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: (b*hkv, rows, head_dim) with rows = g*s, bf16 or fp32 (is_bf16);
+// k, v: (hkv, nblocks, page, head_dim) pools of q's dtype; valid_len:
+// (b,) int32; pages: (b, max_blocks) int32; o like q. All contiguous on
+// the current device. window <= 0 means none. Returns 0 or a
+// cudaError_t code.
+int hops_paged_decode_attention(const void* q, const void* k, const void* v,
+                                const void* valid_len, const void* pages, void* o, int b,
+                                int hkv, int rows, int s, int page, int max_blocks,
+                                int nblocks, int head_dim, int is_bf16, float sm_scale,
+                                int window, void* stream) {
+  hops::decode::Args a{};
+  if (!paged_args(a, q, k, v, valid_len, pages, o, hkv, rows, s, page, max_blocks, nblocks,
+                  sm_scale, window))
+    return (int)cudaErrorInvalidValue;
+  return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
+}
+
+// As above over int8 pools, with fp32 scale pools k_scale, v_scale of
+// shape (hkv, nblocks, page).
+int hops_paged_decode_attention_q8(const void* q, const void* k, const void* v,
+                                   const void* k_scale, const void* v_scale,
+                                   const void* valid_len, const void* pages, void* o, int b,
+                                   int hkv, int rows, int s, int page, int max_blocks,
+                                   int nblocks, int head_dim, int is_bf16, float sm_scale,
+                                   int window, void* stream) {
+  hops::decode::Args a{};
+  if (!paged_args(a, q, k, v, valid_len, pages, o, hkv, rows, s, page, max_blocks, nblocks,
+                  sm_scale, window))
+    return (int)cudaErrorInvalidValue;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
+}
+
+const char* hops_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

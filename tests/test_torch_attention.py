@@ -148,6 +148,12 @@ def test_launch_counts_reset_and_cpu_launches_nothing():
     q, k, v = _t(*_qkv(sq=16, sk=16))
     T.flash_attention(q, k, v, causal=True)
     T.decode_attention(q[:, :, :1], k, v, 16)
+    (kq, ks), (vq, vs) = T.quantize_kv(k), T.quantize_kv(v)
+    T.decode_attention_q8(q[:, :, :1], kq, vq, ks, vs, 16)
+    pages = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    pool = k.reshape(4, 4, 8, 32)  # (hkv, nblocks, page, d)
+    T.paged_decode_attention(q[:, :, :1], pool, pool, torch.tensor([16, 8]), pages)
     assert T.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
+        "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_q8": 0,
     }

@@ -120,10 +120,11 @@ def test_queue_bound_and_later_slices(setup):
         engine.submit(prompts[0], max_new_tokens=2)
     with pytest.raises(ValueError, match="max_decode_len"):
         engine.submit(prompts[0], max_new_tokens=CFG["max_decode_len"])
-    for kw in (dict(decode_horizon=4), dict(kv_page_size=16), dict(draft_model=model),
-               dict(prefill_chunk=8), dict(mesh=object())):
+    for kw in (dict(decode_horizon=4), dict(draft_model=model), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             LMEngine(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="prefill_chunk requires"):
+        LMEngine(model, device="cpu", prefill_chunk=8)
     with pytest.raises(NotImplementedError):
         engine.submit(prompts[0], prefix_id="system")
     with pytest.raises(ValueError, match="ragged_decode"):

@@ -139,6 +139,6 @@ def test_predictor_raises_the_step_failure(lm, tmp_path, monkeypatch):
         monkeypatch.undo()
         assert len(predictor.predict([{"prompt": prompt[0].tolist(), "max_new_tokens": 3}])[0]) == 3
         with pytest.raises(NotImplementedError):
-            LMEnginePredictor(tmp_path / "lm", {"kv_page_size": 16}, device="cpu")
+            LMEnginePredictor(tmp_path / "lm", {"draft_model": "draft"}, device="cpu")
     finally:
         predictor.stop()

@@ -34,6 +34,7 @@ def test_every_module_imports_with_jax_blocked():
     assert "hops_tpu_torch.ops.attention" in mods
     assert "hops_tpu_torch.modelrepo.serving" in mods
     assert {"hops_tpu_torch.ops.xent", "hops_tpu_torch.models.common"} <= set(mods)
+    assert "hops_tpu_torch.modelrepo.paged" in mods
     code = (
         "import sys, importlib, json\n"
         f"for name in {BLOCKED!r}:\n"

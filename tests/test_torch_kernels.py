@@ -8,10 +8,12 @@ machine that has only PyTorch:
 
 Tolerances: bf16 inputs against the fp32 plain version, ``max err <=
 2e-2 + 2e-2 * max|plain|``; fp32 inputs ``atol 1e-5`` for the forward
-and decode kernels and ``1e-4 * max(1, max|plain|)`` for the backward
-kernels, whose outputs grow with the row length (same arithmetic,
-another summation order); gradients and weights of a train step
-``1e-4``.
+and decode kernels, ``atol 1e-4`` for the int8 and paged decode kernels
+at capacity 2048 (the phase-3 rule of ``chip_smoke.py``) and ``1e-4 *
+max(1, max|plain|)`` for the backward kernels, whose outputs grow with
+the row length (same arithmetic, another summation order); gradients
+and weights of a train step ``1e-4``; the scratch-block checks are
+bit-exact.
 """
 
 from __future__ import annotations
@@ -218,3 +220,157 @@ def test_train_step_on_the_card_matches_the_cpu():
                                atol=1e-4, rtol=1e-4)
     for name, g in cpu_g.items():
         assert (gpu_g[name] - g).abs().max() <= 1e-4 * g.abs().max(), name
+
+
+def _pages(page: int, valid: list[int], g: torch.Generator, dev) -> tuple[torch.Tensor, int]:
+    """A shuffled ``(len(valid), max_blocks)`` page table over a pool of
+    ``1 + rows * max_blocks`` blocks for capacity 2048: each row maps
+    distinct nonzero blocks below its valid length, 0 past it."""
+    mb = -(-2048 // page)
+    nblocks = 1 + len(valid) * mb
+    perm = (torch.randperm(nblocks - 1, generator=g) + 1).tolist()
+    table = torch.zeros(len(valid), mb, dtype=torch.int32)
+    for r, n in enumerate(valid):
+        need = -(-n // page)
+        table[r, :need] = torch.tensor(perm[:need], dtype=torch.int32)
+        perm = perm[need:]
+    return table.to(dev), nblocks
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hkv,s,window", [(8, 1, None), (2, 256, None), (2, 1, 256), (8, 5, 100)])
+def test_decode_q8_kernel_matches_plain(dtype, d, hkv, s, window):
+    dev = _card()
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(4, 8, s, d, generator=g).to(dev, dtype)
+    (kq, ks), (vq, vs) = (T.quantize_kv(torch.randn(4, hkv, 2048, d, generator=g).to(dev))
+                          for _ in range(2))
+    vl = torch.tensor([0, 1, 700, 2048], dtype=torch.int32, device=dev)
+    before = T.launch_counts()["decode_attention_q8"]
+    o = T.decode_attention_q8(q, kq, vq, ks, vs, vl, window=window)
+    assert T.launch_counts()["decode_attention_q8"] == before + 1
+    ref = T.decode_attention_q8_reference(q.float(), kq, vq, ks, vs, vl, window=window)
+    if dtype == torch.bfloat16:
+        _close_bf16(o, ref)
+    else:
+        assert (o - torch.nan_to_num(ref, nan=0.0)).abs().max().item() <= 1e-4
+    assert not o[0].any()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16pool", "int8pool"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("page", [64, 16, 24])
+@pytest.mark.parametrize("d,hkv,s", [(128, 8, 1), (64, 2, 256)])
+def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
+    """K6 / K7 on a shuffled table, ragged valid_len (0, 1, a page
+    boundary + 1, full capacity), every page size on the kernel: the
+    launch count proves that page 24 is not routed elsewhere."""
+    dev = _card()
+    g = torch.Generator().manual_seed(12)
+    valid = [0, 1, 3 * page + 1, -(-2048 // page) * page]
+    pages, nblocks = _pages(page, valid, g, dev)
+    q = torch.randn(4, 8, s, d, generator=g).to(dev, dtype)
+    pools = [torch.randn(hkv, nblocks, page, d, generator=g).to(dev) for _ in range(2)]
+    scales = {}
+    if quantized:
+        (k, scales["k_scale"]), (v, scales["v_scale"]) = (T.quantize_kv(p) for p in pools)
+    else:
+        k, v = (p.to(dtype) for p in pools)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    name = "paged_decode_attention_q8" if quantized else "paged_decode_attention"
+    before = T.launch_counts()
+    o = T.paged_decode_attention(q, k, v, vl, pages, window=256, **scales)
+    after = T.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    kf, vf = (k, v) if quantized else (k.float(), v.float())
+    ref = T.paged_decode_attention_reference(q.float(), kf, vf, vl, pages, window=256, **scales)
+    if dtype == torch.bfloat16:
+        _close_bf16(o, ref)
+    else:
+        assert (o - torch.nan_to_num(ref.float(), nan=0.0)).abs().max().item() <= 1e-4
+    assert not o[0].any()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32pool", "int8pool"])
+def test_paged_kernels_never_read_the_scratch_block(quantized):
+    """Block 0 filled with ±1e30 and NaN (int8: ±127 values, NaN and
+    1e30 scales): outputs bit-identical, since no row maps block 0 below
+    its valid length."""
+    dev = _card()
+    g = torch.Generator().manual_seed(13)
+    valid = [0, 17, 63, 1000]
+    pages, nblocks = _pages(16, valid, g, dev)
+    q = torch.randn(4, 8, 1, 128, generator=g).to(dev)
+    pools = [torch.randn(2, nblocks, 16, 128, generator=g).to(dev) for _ in range(2)]
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    scales = {}
+    if quantized:
+        (k, scales["k_scale"]), (v, scales["v_scale"]) = (T.quantize_kv(p) for p in pools)
+    else:
+        k, v = pools
+    clean = T.paged_decode_attention(q, k, v, vl, pages, **scales)
+    if quantized:
+        k[:, 0], v[:, 0] = 127, -127
+        scales["k_scale"][:, 0], scales["v_scale"][:, 0] = float("nan"), 1e30
+    else:
+        k[:, 0], v[:, 0] = 1e30, float("nan")
+    torch.testing.assert_close(T.paged_decode_attention(q, k, v, vl, pages, **scales), clean,
+                               rtol=0, atol=0)
+    assert not clean[0].any()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32pool", "int8pool"])
+def test_paged_kernels_hide_keys_behind_out_of_range_entries(quantized):
+    """A table entry past the pool (or negative) below valid_len is read
+    as no key at all: a one-token query at position 31 whose second page
+    maps nowhere attends to the first page's 16 keys alone."""
+    dev = _card()
+    g = torch.Generator().manual_seed(14)
+    pages, nblocks = _pages(16, [32, 32], g, dev)
+    q = torch.randn(2, 8, 1, 128, generator=g).to(dev)
+    pools = [torch.randn(2, nblocks, 16, 128, generator=g).to(dev) for _ in range(2)]
+    scales = {}
+    if quantized:
+        (k, scales["k_scale"]), (v, scales["v_scale"]) = (T.quantize_kv(p) for p in pools)
+    else:
+        k, v = pools
+    bad = pages.clone()
+    bad[0, 1], bad[1, 1] = nblocks + 5, -1
+    o = T.paged_decode_attention(q, k, v, torch.tensor([32, 32], device=dev), bad, **scales)
+    ref = T.paged_decode_attention_reference(q, k, v, torch.tensor([16, 16], device=dev),
+                                             pages, **scales)
+    assert (o - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("lm_config", [
+    {"kv_cache_dtype": "int8"},
+    {"kv_page_size": 16, "prefill_chunk": 32},
+    {"kv_cache_dtype": "int8", "kv_page_size": 24, "kv_pool_blocks": 7, "prefill_chunk": 32},
+], ids=["int8", "paged", "paged-int8"])
+def test_int8_and_paged_engines_on_the_card_match_the_cpu(lm_config):
+    """A small fp32 model served with the int8 cache, the paged cache and
+    the paged int8 cache (a pool of 6 usable blocks, so admission queues)
+    emits the same greedy tokens on the card (K5, K6, K7) as on the CPU
+    (plain versions)."""
+    from hops_tpu_torch.models.convert import random_params
+    from hops_tpu_torch.models.transformer import TransformerLM
+    from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+
+    dev = _card()
+    cfg = dict(vocab_size=128, d_model=128, num_heads=2, num_layers=2, dtype="float32",
+               max_decode_len=256, ragged_decode=True)
+    params = random_params(**cfg, seed=4)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 128, (n,), generator=g).tolist() for n in (7, 40, 100)]
+    model_kw = {"kv_cache_dtype": lm_config.get("kv_cache_dtype")}
+    engine_kw = {k: v for k, v in lm_config.items() if k != "kv_cache_dtype"}
+    out = []
+    for device in ("cpu", dev):
+        model = TransformerLM(**cfg, **model_kw, device=device).load_flax(params)
+        engine = LMEngine(model, slots=2, device=device, **engine_kw)
+        tickets = [engine.submit(p, max_new_tokens=12) for p in prompts]
+        results = engine.run()
+        out.append([results[t] for t in tickets])
+    assert out[0] == out[1]

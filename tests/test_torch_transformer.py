@@ -162,8 +162,7 @@ def test_npz_roundtrip_loads_the_same_model(pair, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("paged_decode", True), ("kv_cache_dtype", "int8"), ("moe_every", 2),
-    ("tp_shards", 2), ("attention_impl", "ring"), ("attention_impl", "ulysses"),
+    ("moe_every", 2), ("tp_shards", 2), ("attention_impl", "ring"), ("attention_impl", "ulysses"),
 ])
 def test_later_slices_raise(field, value):
     with pytest.raises(NotImplementedError):
