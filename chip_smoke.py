@@ -9,16 +9,22 @@ failure exits non-zero:
 
 1. card     — the card's name and power limit (``nvidia-smi``);
 2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, five sources);
+   (one ``nvcc`` per source, five sources), with the build's wall time;
+   for the bf16 tensor-core bodies of K1 and K3 (head dims 64 and 128)
+   the registers and spills ptxas reports, the dynamic shared memory
+   they launch with and, where ``cuobjdump`` exists, the count of HGMMA
+   instructions in their SASS, which must not be 0;
 3. kernels  — the forward and decode kernels (K1, K4) against their
-   plain PyTorch versions (fp32) on the same seeded inputs: bf16 inputs
-   within ``2e-2 + 2e-2 * max|plain|``, fp32 inputs at the same shapes
-   within 1e-4, and the flash kernel's lse within 1e-4;
+   plain PyTorch versions (fp32) on the same seeded inputs: K1's bf16
+   tensor-core body per element within its rounding bound (below), K4's
+   bf16 inputs within ``2e-2 + 2e-2 * max|plain|``, fp32 inputs at the
+   same shapes within 1e-4, and the flash kernel's lse within 1e-4;
 3b. backward — the flash backward kernels (K2 dq, K3 dk/dv) against
    their plain versions on the same (o, lse) from K1, at the same
    shapes plus a negative offset (rows that see no key) and a window
-   past an offset (keys no query sees): bf16 inputs at the bf16 rule
-   above, fp32 inputs within ``1e-4 * max(1, max|plain|)`` per output,
+   past an offset (keys no query sees): K3's bf16 tensor-core body
+   within its rounding bound, K2's bf16 inputs at the bf16 rule above,
+   fp32 inputs within ``1e-4 * max(1, max|plain|)`` per output,
    and exact zeros in dq for rows that see no key and in dk/dv for keys
    that no query sees (outputs are allocated over freed NaN-filled
    memory first);
@@ -55,7 +61,10 @@ failure exits non-zero:
 7b. grads   — the same widths at 2 layers, fp32 weights and compute,
    batch 2 x 2048: every parameter gradient of the kernel path within
    ``1e-3 * ||ref||inf`` of the same model on the plain attention
-   (``attention_impl="reference"``);
+   (``attention_impl="reference"``); then a bf16 row, fp32 weights and
+   bf16 compute as in phase 7, over 3 token batches: per parameter, the
+   kernel path's 2-norm distance from the plain fp32 gradient at most
+   1.5 times the plain bf16 path's own distance;
 8. caches   — phase 4's artifact and requests served three more times:
    (a) the int8 cache (K5), (b) the paged cache with 256-token prefill
    chunks and the parity pool (K6), (c) the paged int8 cache on 65
@@ -72,6 +81,15 @@ failure exits non-zero:
    a pool of 5 usable blocks that forces a preemption; greedy streams
    identical unless the dense engine's top-2 logit gap at the first
    difference is under ``1e-4 * ||logits||inf`` (printed).
+
+The rounding bound of a bf16 tensor-core body (K1's o, K3's dk and dv)
+is per element ``2**-8 * (mag + |plain|) + slack``: each operand that
+the body rounds to bf16 before a product (K1: p in p·v; K3: p^T in dv,
+ds^T in dk) moves the product by at most 2**-8 (bf16's unit roundoff)
+times the same product over magnitudes, ``mag`` (p·|v|, p^T·|do|,
+|ds|^T·|q|); rounding the output adds ``2**-8 * |plain|``, and ``slack``
+is the fp32 bound of the same kernel. Each case prints its worst ratio
+of error to bound.
 
 Phase 5's rows for K2 and K3 are timed after phase 7, at (8, 8, 2048,
 128) bf16 causal, beside the launches per train step; its rows for K5,
@@ -114,7 +132,19 @@ WARMUP_STEPS, TIMED_STEPS = 2, 6
 GRAD_CHECK = dict(MODEL, num_layers=2, dtype="float32")
 GRAD_BATCH = 2
 GRAD_REL = 1e-3
+# Phase 7b's bf16 row: fp32 weights, bf16 compute (the train step's
+# types), over GRAD_SEEDS token batches. A 2-norm over all of them, not
+# the largest element of one batch, which swings with the rounding noise.
+GRAD_BF16 = dict(dtype="bfloat16", param_dtype="float32")
+GRAD_SEEDS = 3
+# Phase 2: the bf16 tensor-core bodies, by source and ptxas entry name.
+TC_BODIES = {"flash_fwd": "fwd_kernel", "flash_bwd_dkv": "dkv_kernel"}
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The device-kernel names of each, as the profiler reports them (bf16
+# tensor-core bodies and fp32 FMA bodies).
+TRAIN_KERNEL_NAMES = {"flash_fwd": ("tc::fwd_kernel", "flash_fwd_kernel"),
+                      "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+                      "flash_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel")}
 # Phase 8: (name, lm_config, the kernel it runs). (c)'s 64 usable blocks
 # hold 4096 tokens, under the ~5000 the four largest requests reach.
 CACHE_SLICES = (
@@ -142,11 +172,14 @@ def fail(msg: str) -> int:
     return 1
 
 
-# Phase 3 bounds. bf16 inputs: 2e-2 + 2e-2 * max|plain| (the kernels keep
-# probabilities fp32, the plain version rounds them to bf16). fp32 inputs
-# at the same shapes: an absolute 1e-4, tight enough that one dropped key
-# tile of a long row fails. lse: an absolute 1e-4 for both.
+# Phase 3 bounds. bf16 inputs of the kernels that compute in fp32 (K2,
+# K4-K7): 2e-2 + 2e-2 * max|plain|, room for the bf16 output's rounding.
+# The bf16 tensor-core bodies of K1 and K3 round operands too, and are
+# held per element to the bound that rounding allows (rounding_close).
+# fp32 inputs at the same shapes: an absolute 1e-4, tight enough that one
+# dropped key tile of a long row fails. lse: an absolute 1e-4 for both.
 BF16_ATOL, BF16_REL = 2e-2, 2e-2
+BF16_U = 2.0 ** -8  # unit roundoff of bf16 (8 significant bits, to nearest)
 FP32_ATOL = 1e-4
 LSE_ATOL = 1e-4
 # Phase 3b, fp32 inputs: 1e-4 * max(1, max|plain|) per output (gradients
@@ -175,6 +208,21 @@ def close(out, ref, atol: float, rel: float = 0.0) -> tuple[float, float, bool]:
     return err, tol, ok
 
 
+def rounding_close(out, ref, mag, slack: float) -> tuple[float, float, bool]:
+    """``(max |out - ref|, worst |out - ref| / bound, ok)`` for a bf16
+    tensor-core body against fp32 ``ref``, per element ``bound = BF16_U *
+    (mag + |ref|) + slack``: ``mag`` is the product whose operand the
+    body rounds, over magnitudes. Entries where ``ref`` is NaN (a row that
+    sees no key) must be 0 in ``out``."""
+    import torch
+
+    ref = torch.nan_to_num(ref.float(), nan=0.0)
+    mag = torch.nan_to_num(mag.float(), nan=0.0)
+    err = (out.float() - ref).abs()
+    ratio = (err / (BF16_U * (mag + ref.abs()) + slack)).max().item()
+    return err.max().item(), ratio, ratio <= 1.0 and bool(torch.isfinite(out.float()).all())
+
+
 def lse_close(out, ref) -> tuple[float, bool]:
     """Max abs lse error; a row that sees no key must be -inf in both."""
     import torch
@@ -187,17 +235,75 @@ def lse_close(out, ref) -> tuple[float, bool]:
 
 
 def cuda_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn(i)``, over ``iters`` calls. The calls
+    queue up behind a device-side sleep (some 25 ms) before the first
+    event, so a call whose host work outlasts its kernel does not leave
+    the device idle between launches and inflate the time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for i in range(iters):
         fn(i)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_entries(text: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per entry function of a ``-Xptxas=-v``
+    report."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def report_tc_bodies(_build, report) -> None:
+    """Phase 2 for the bf16 tensor-core bodies of K1 and K3: per head dim
+    the registers and spills from ptxas, the dynamic shared memory from
+    the library, and the HGMMA count in the SASS (fails at 0)."""
+    import ctypes
+    import subprocess
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    for name, body in TC_BODIES.items():
+        r = report[name]
+        entries = ptxas_entries(r["ptxas"])
+        lib = ctypes.CDLL(r["path"])
+        smem = getattr(lib, _build.KERNELS[name][1] + "_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        sass = {}
+        if Path(cuobjdump).exists():
+            dump = subprocess.run([cuobjdump, "-sass", r["path"]], capture_output=True,
+                                  text=True, check=True).stdout
+            sass = {fn: text.count("HGMMA") for fn, text in re.findall(
+                r"Function : (\S+)(.*?)(?=Function : |\Z)", dump, re.S)}
+        for d in (64, 128):
+            tag = f"2tc{len(body)}{body}ILi{d}E"
+            fn = next(n for n in entries if tag in n)
+            e = entries[fn]
+            hgmma = sass.get(fn) if sass else None
+            print(f"  {name} bf16 tensor-core body d{d}: {e['registers']} registers, spill "
+                  f"stores {e['spill_stores']} bytes, spill loads {e['spill_loads']} bytes, "
+                  f"dynamic shared memory {smem(d, 1)} bytes, HGMMA instructions "
+                  + ("not counted (no cuobjdump)" if hgmma is None else str(hgmma)), flush=True)
+            if hgmma == 0:
+                raise AssertionError(f"{name} d{d}: the bf16 body has no HGMMA instruction")
 
 
 def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
@@ -223,12 +329,18 @@ def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                 qf, kf, vf = q.float(), k.float(), v.float()
                 ref = A.attention_reference(qf, kf, vf, causal=causal, window=window)
                 ref_lse = A.attention_lse_reference(qf, kf, causal=causal, window=window)
-                err, tol, ok = close(o, ref, atol, rel)
+                if dtype == torch.bfloat16:  # the tensor-core body rounds p for p·v
+                    mag = A.attention_reference(qf, kf, vf.abs(), causal=causal, window=window)
+                    err, ratio, ok = rounding_close(o, ref, mag, FP32_ATOL)
+                    bound_note = f"worst err/rounding bound {ratio:.3f}"
+                else:
+                    err, tol, ok = close(o, ref, atol, rel)
+                    bound_note = f"bound {tol:.3e}"
                 lerr, lok = lse_close(lse, ref_lse)
                 worst["flash_fwd"][dname] = max(worst["flash_fwd"][dname], err)
                 name = (f"flash_fwd {dname} b2 h8 d{d} seq_q {sq} seq_k {sk} "
                         f"causal={causal} window={window}")
-                print(f"  {name}: o err {err:.3e} (bound {tol:.3e}), "
+                print(f"  {name}: o err {err:.3e} ({bound_note}), "
                       f"lse err {lerr:.3e} (bound {LSE_ATOL:.0e})", flush=True)
                 if not (ok and lok):
                     bad.append(name)
@@ -300,20 +412,24 @@ def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                 f = [t.float() for t in (q, k, v, do)]
                 refs = (A.flash_bwd_dq_reference(*f, lse, delta, **kw),
                         *A.flash_bwd_dkv_reference(*f, lse, delta, **kw))
+                mags = bwd_magnitudes(A, torch, f, lse, delta, kw) if dtype == torch.bfloat16 else {}
                 no_key, no_query = unseen(torch, sq, sk, causal, window, q_offset, dev)
                 errs = []
                 for out_name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-                    if dtype == torch.bfloat16:
-                        err, tol, ok = close(out, ref, BF16_ATOL, BF16_REL)
+                    slack = BWD_FP32_REL * max(1.0, ref.abs().max().item())
+                    if out_name in mags:  # K3's tensor-core body
+                        err, ratio, ok = rounding_close(out, ref, mags[out_name], slack)
+                        bound_note = f"worst err/rounding bound {ratio:.3f}"
                     else:
-                        err, tol, ok = close(
-                            out, ref, BWD_FP32_REL * max(1.0, ref.abs().max().item()))
+                        err, tol, ok = (close(out, ref, BF16_ATOL, BF16_REL)
+                                        if dtype == torch.bfloat16 else close(out, ref, slack))
+                        bound_note = f"bound {tol:.3e}"
                     empty = no_key if out_name == "dq" else no_query
                     zeros = int(empty.sum())
                     ok = ok and not out[:, :, empty].any()
                     kname = names[0] if out_name == "dq" else names[1]
                     worst[kname][dname] = max(worst[kname][dname], err)
-                    errs.append(f"{out_name} {err:.3e} (bound {tol:.3e}, {zeros} rows must be 0)")
+                    errs.append(f"{out_name} {err:.3e} ({bound_note}, {zeros} rows must be 0)")
                     if not ok:
                         bad.append(f"{out_name} {dname} d{d} {sq}x{sk} {kw}")
                 print(f"  flash_bwd {dname} b2 h8 d{d} seq_q {sq} seq_k {sk} causal={causal} "
@@ -321,6 +437,16 @@ def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
     if bad:
         raise AssertionError("backward kernel disagrees with its plain version: " + "; ".join(bad))
     return worst
+
+
+def bwd_magnitudes(A, torch, f, lse, delta, kw) -> dict:
+    """The ``mag`` terms of K3's rounding bound, fp32: ``|ds|^T |q|`` for
+    dk (ds^T rounded) and ``p^T |do|`` for dv (p^T rounded)."""
+    q, k, v, do = f
+    sm_scale, q_offset = A._attention_args(q, k, kw["causal"], None, kw["q_offset"], kw["window"])
+    p, ds = A._bwd_probs(q, k, v, do, lse, delta, kw["causal"], sm_scale, q_offset, kw["window"])
+    return {"dk": torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q.abs()),
+            "dv": torch.einsum("bhqk,bhqd->bhkd", p, do.abs())}
 
 
 def shuffled_pages(torch, gen, valid: list[int], page: int, cap: int, dev):
@@ -960,7 +1086,8 @@ def train_slice(A, torch, np, params, dev, seed: int, card_line: str) -> dict:
     wall, busy, kernels = device_profile(torch, lambda: step(state, batch))
     groups = {n: 0.0 for n in (*TRAIN_KERNELS, "matmul", "other")}
     for key, ms, _ in kernels:
-        group = next((n for n in TRAIN_KERNELS if f"{n}_kernel" in key), None)
+        group = next((n for n, names in TRAIN_KERNEL_NAMES.items()
+                      if any(k in key for k in names)), None)
         if group is None:
             group = "matmul" if re.search(r"gemm|nvjet|cutlass|sm90_xmma", key) else "other"
         groups[group] += ms
@@ -973,35 +1100,63 @@ def train_slice(A, torch, np, params, dev, seed: int, card_line: str) -> dict:
     return launches
 
 
-def check_grads(A, torch, np, params, dev, seed: int) -> float:
-    """Phase 7b: per parameter, ``||g_kernel - g_plain||inf <= GRAD_REL *
-    ||g_plain||inf``. Returns the worst ratio ``||Δ||inf / ||ref||inf``."""
+def check_grads(A, torch, np, params, dev, seed: int) -> None:
+    """Phase 7b. fp32: per parameter, ``||g_kernel - g_plain||inf <=
+    GRAD_REL * ||g_plain||inf``. bf16 (``GRAD_BF16``, the same weights),
+    over ``GRAD_SEEDS`` token batches: per parameter, ``||g_kernel -
+    g_ref||_2 <= BF16_VS_PLAIN * ||g_plain - g_ref||_2``, each norm over
+    all the batches, with ``g_ref`` the plain fp32 gradient."""
     from hops_tpu_torch.models.transformer import TransformerLM
     from hops_tpu_torch.ops.xent import chunked_softmax_xent
 
     model = TransformerLM(**GRAD_CHECK, device=dev)
     names = {n.replace(".", "/") for n in model.state_dict()}
     model.load_flax({n: a for n, a in params.items() if n in names})
-    plain = model.clone(attention_impl="reference")  # shares the weights
-    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
-        0, GRAD_CHECK["vocab_size"], (GRAD_BATCH, TRAIN_SEQ + 1))).to(dev)
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    grads = []
-    for m in (model, plain):
-        hidden = m(inputs, train=True, return_hidden=True)
-        loss = chunked_softmax_xent(hidden, m.unembed.kernel, targets, chunk=LOSS_CHUNK)
-        grads.append(torch.autograd.grad(loss, list(m.parameters())))
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads(m, i):
+        tokens = torch.from_numpy(np.random.default_rng(seed + 3 + i).integers(
+            0, GRAD_CHECK["vocab_size"], (GRAD_BATCH, TRAIN_SEQ + 1))).to(dev)
+        hidden = m(tokens[:, :-1], train=True, return_hidden=True)
+        loss = chunked_softmax_xent(hidden, m.unembed.kernel, tokens[:, 1:], chunk=LOSS_CHUNK)
+        return torch.autograd.grad(loss, list(m.parameters()))
+
+    # Both clones share the fp32 weights.
+    plain = model.clone(attention_impl="reference")
+    ref = grads(plain, 0)
+    got = grads(model, 0)
     worst, worst_name = 0.0, ""
-    for (name, _), g, ref in zip(model.named_parameters(), *grads):
-        scale = ref.abs().max().item()
-        ratio = (g - ref).abs().max().item() / scale
+    for name, g, r in zip(names, got, ref):
+        ratio = (g - r).abs().max().item() / r.abs().max().item()
         if not ratio <= GRAD_REL:
             raise AssertionError(f"{name}: ||kernel - plain||inf / ||plain||inf = {ratio:.3e}")
         if ratio >= worst:
             worst, worst_name = ratio, name
-    print(f"phase 7b grads: {len(grads[0])} parameter tensors, worst ||kernel - plain||inf / "
+    print(f"phase 7b grads fp32: {len(got)} parameter tensors, worst ||kernel - plain||inf / "
           f"||plain||inf {worst:.3e} ({worst_name}; bound {GRAD_REL:.0e})", flush=True)
-    return worst
+    del got
+
+    kernel_bf16 = model.clone(**GRAD_BF16)
+    plain_bf16 = kernel_bf16.clone(attention_impl="reference")
+    sums = torch.zeros(3, len(names), dtype=torch.float64)  # kernel, plain bf16, ref
+    for i in range(GRAD_SEEDS):
+        if i:
+            ref = grads(plain, i)
+        for j, (g, p, r) in enumerate(zip(grads(kernel_bf16, i), grads(plain_bf16, i), ref)):
+            sums[:, j] += torch.stack([(g - r).double().square().sum(), (p - r).double().square().sum(),
+                                       r.double().square().sum()]).cpu()
+    dk, dp, norm = sums.sqrt()
+    ratios = [a / b if b else (0.0 if a == 0 else math.inf) for a, b in zip(dk.tolist(), dp.tolist())]
+    j = max(range(len(names)), key=ratios.__getitem__)
+    print(f"phase 7b grads bf16 ({GRAD_BF16}, {GRAD_SEEDS} token batches): {len(names)} parameter "
+          f"tensors, ||kernel - plain fp32||_2 / ||plain bf16 - plain fp32||_2 worst {ratios[j]:.3f} "
+          f"({names[j]}; bound {BF16_VS_PLAIN}), median {sorted(ratios)[len(ratios) // 2]:.3f}, "
+          f"per parameter [{' '.join(f'{x:.3f}' for x in ratios)}]; kernel path's largest "
+          f"distance {(dk / norm).max().item():.3e} of ||plain fp32||_2", flush=True)
+    bad = [f"{n} {x:.3f}" for n, x in zip(names, ratios) if not x <= BF16_VS_PLAIN]
+    if bad:
+        raise AssertionError(f"bf16 gradients over {BF16_VS_PLAIN} x the plain bf16 path's "
+                             f"distance: {', '.join(bad)}")
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1049,6 +1204,7 @@ def main() -> int:
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", r["ptxas"])]
         print(f"  {name}: registers per instantiation {regs}, "
               f"spill stores {max(spills, default=0)} bytes", flush=True)
+    report_tc_bodies(_build, report)
 
     gen = torch.Generator().manual_seed(args.seed)
     print("phase 3 kernels against plain versions (bf16 and fp32 in, fp32 plain):", flush=True)

@@ -6,14 +6,18 @@ machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tolerances: bf16 inputs against the fp32 plain version, ``max err <=
-2e-2 + 2e-2 * max|plain|``; fp32 inputs ``atol 1e-5`` for the forward
+Tolerances: the bf16 tensor-core bodies (K1's o, K3's dk and dv)
+against the fp32 plain version per element within their rounding,
+``2**-8 * (mag + |plain|) + slack`` (``mag``: the product whose operand
+the body rounds to bf16, over magnitudes; ``slack``: the kernel's fp32
+bound), and K1's lse within ``1e-4``; the other kernels' bf16 inputs
+``max err <= 2e-2 + 2e-2 * max|plain|``; fp32 inputs ``atol 1e-5`` for the forward
 and decode kernels, ``atol 1e-4`` for the int8 and paged decode kernels
 at capacity 2048 (the phase-3 rule of ``chip_smoke.py``) and ``1e-4 *
 max(1, max|plain|)`` for the backward kernels, whose outputs grow with
 the row length (same arithmetic, another summation order); gradients
-and weights of a train step ``1e-4``; the scratch-block checks are
-bit-exact.
+and weights of a train step ``1e-4``; the scratch-block checks and two
+launches of the bf16 flash kernels on the same inputs are bit-exact.
 """
 
 from __future__ import annotations
@@ -39,10 +43,31 @@ def _close_bf16(out, ref):
     assert (out.float() - ref).abs().max().item() <= tol
 
 
+def _close_rounded(out, ref, mag, slack):
+    """A bf16 tensor-core body, per element: ``|out - ref| <= 2**-8 * (mag
+    + |ref|) + slack``; a NaN in ``ref`` (a row that sees no key) is 0."""
+    ref, mag = (torch.nan_to_num(t.float(), nan=0.0) for t in (ref, mag))
+    bound = 2.0 ** -8 * (mag + ref.abs()) + slack
+    assert torch.isfinite(out.float()).all()
+    assert ((out.float() - ref).abs() <= bound).all()
+
+
+def _bwd_magnitudes(q, k, v, do, lse, delta, causal, q_offset, window):
+    """``mag`` of K3's dk (``|ds|^T |q|``) and dv (``p^T |do|``), fp32."""
+    sm_scale, q_offset = T._attention_args(q, k, causal, None, q_offset, window)
+    p, ds = T._bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
+    return (torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q.abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.abs()))
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (16, 16, True, None), (1000, 1000, True, None), (300, 300, False, None),
     (512, 512, True, 100), (64, 1024, True, None), (1, 70, True, None),
+    # around the bf16 body's 128-row tiles; one query row; a window
+    # wider than a tile, so its edge crosses tiles
+    (127, 127, True, None), (128, 128, True, None), (129, 129, False, None),
+    (255, 255, True, None), (1, 255, False, None), (300, 300, True, 130),
 ])
 def test_flash_kernel_matches_plain(d, sq, sk, causal, window):
     dev = _card()
@@ -52,8 +77,10 @@ def test_flash_kernel_matches_plain(d, sq, sk, causal, window):
     o, lse = T.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
     assert T.launch_counts()["flash_fwd"] == before + 1
     f = [t.float() for t in (q, k, v)]
-    _close_bf16(o, T.attention_reference(*f, causal=causal, window=window))
-    _close_bf16(lse, T.attention_lse_reference(*f[:2], causal=causal, window=window))
+    mag = T.attention_reference(*f[:2], f[2].abs(), causal=causal, window=window)
+    _close_rounded(o, T.attention_reference(*f, causal=causal, window=window), mag, 1e-4)
+    ref_lse = T.attention_lse_reference(*f[:2], causal=causal, window=window)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -63,6 +90,10 @@ def test_flash_kernel_matches_plain(d, sq, sk, causal, window):
     (512, 512, True, 100, None), (64, 1024, True, None, None),
     (200, 333, True, 64, 150),  # keys 0..86 seen by no query
     (128, 128, True, None, -40),  # rows 0..39 see no key
+    # around the bf16 bodies' 128-key and 64-query tiles; one query row;
+    # a window wider than a tile
+    (127, 127, True, None, None), (128, 128, False, None, None), (129, 129, True, None, None),
+    (255, 255, True, None, None), (1, 255, True, None, None), (300, 300, True, 130, None),
 ])
 def test_flash_bwd_kernels_match_plain(dtype, d, sq, sk, causal, window, q_offset):
     """K2 and K3 against their plain versions on the same (o, lse) from
@@ -83,17 +114,63 @@ def test_flash_bwd_kernels_match_plain(dtype, d, sq, sk, causal, window, q_offse
     f = [t.float() for t in (q, k, v, do)]
     ref_dq = T.flash_bwd_dq_reference(*f, lse, delta, **kw)
     ref_dk, ref_dv = T.flash_bwd_dkv_reference(*f, lse, delta, **kw)
-    for out, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+    mags = (None, *_bwd_magnitudes(*f, lse, delta, **kw))
+    for out, ref, mag in ((dq, ref_dq, mags[0]), (dk, ref_dk, mags[1]), (dv, ref_dv, mags[2])):
         assert out.dtype == dtype
-        if dtype == torch.bfloat16:
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        if dtype == torch.float32:
+            assert (out - ref).abs().max().item() <= tol
+        elif mag is None:  # K2 computes in fp32 whatever the input type
             _close_bf16(out, ref)
         else:
-            tol = 1e-4 * max(1.0, ref.abs().max().item())
-            assert (out - ref).abs().max().item() <= tol
+            _close_rounded(out, ref, mag, tol)
     if q_offset == -40:
         assert not dq[:, :, :40].any()
     if q_offset == 150:
         assert not dk[:, :, :87].any() and not dv[:, :, :87].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,window,q_offset,unseen", [
+    (128, 128, None, -40, 40),  # rows 0..39 see no key
+    (200, 333, 64, 150, 0),  # every row sees a key; keys 0..86 are seen by none
+    (300, 200, 50, -250, 250),  # rows 0..249 see no key: whole 128-row tiles and part of one
+])
+def test_flash_kernel_rows_that_see_no_key(dtype, d, sq, sk, window, q_offset, unseen):
+    """K1 with a q_offset: rows that see no key return lse -inf and
+    o exactly 0; every other row matches the plain version."""
+    dev = _card()
+    g = torch.Generator().manual_seed(15)
+    q, k, v = (torch.randn(2, 4, n, d, generator=g).to(dev, dtype) for n in (sq, sk, sk))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o, lse = T.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.isneginf(lse[:, :, :unseen]).all() and not o[:, :, :unseen].any()
+    assert torch.isfinite(lse[:, :, unseen:]).all()
+    f = [t.float() for t in (q, k, v)]
+    ref, ref_lse = T.attention_reference(*f, **kw), T.attention_lse_reference(*f[:2], **kw)
+    if dtype == torch.bfloat16:
+        _close_rounded(o, ref, T.attention_reference(*f[:2], f[2].abs(), **kw), 1e-4)
+    else:
+        assert (o - torch.nan_to_num(ref, nan=0.0)).abs().max().item() <= 1e-5
+    assert (lse - ref_lse)[:, :, unseen:].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_flash_kernels_are_bit_reproducible(d):
+    """Two launches of K1 and of K3 on the same bf16 inputs give the
+    same bits (no atomics, a fixed summation order)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(16)
+    q, k, v, do = (torch.randn(2, 8, 1000, d, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    runs = []
+    for _ in range(2):
+        o, lse = T.flash_attention(q, k, v, causal=True, window=300, return_lse=True)
+        delta = (o.float() * do.float()).sum(-1)
+        runs.append((o, lse, *T.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=300)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_on_the_card_matches_the_cpu():
