@@ -10,10 +10,11 @@ failure exits non-zero:
 1. card     — the card's name and power limit (``nvidia-smi``);
 2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, five sources), with the build's wall time;
-   for the bf16 tensor-core bodies of K1 and K3 (head dims 64 and 128)
-   the registers and spills ptxas reports, the dynamic shared memory
-   they launch with and, where ``cuobjdump`` exists, the count of HGMMA
-   instructions in their SASS, which must not be 0;
+   for the bf16 tensor-core bodies of K1, K2 and K3 (head dims 64 and
+   128) the registers and spills ptxas reports, the dynamic shared
+   memory they launch with and, where ``cuobjdump`` exists, the count of
+   HGMMA instructions in their SASS, which must not be 0; for K6's
+   split-K body and combine kernel their registers and spills;
 3. kernels  — the forward and decode kernels (K1, K4) against their
    plain PyTorch versions (fp32) on the same seeded inputs: K1's bf16
    tensor-core body per element within its rounding bound (below), K4's
@@ -21,13 +22,13 @@ failure exits non-zero:
    same shapes within 1e-4, and the flash kernel's lse within 1e-4;
 3b. backward — the flash backward kernels (K2 dq, K3 dk/dv) against
    their plain versions on the same (o, lse) from K1, at the same
-   shapes plus a negative offset (rows that see no key) and a window
-   past an offset (keys no query sees): K3's bf16 tensor-core body
-   within its rounding bound, K2's bf16 inputs at the bf16 rule above,
-   fp32 inputs within ``1e-4 * max(1, max|plain|)`` per output,
-   and exact zeros in dq for rows that see no key and in dk/dv for keys
-   that no query sees (outputs are allocated over freed NaN-filled
-   memory first);
+   shapes plus a negative offset (rows that see no key), a window past
+   an offset (keys no query sees) and ragged tails of K2's 128-row and
+   64-key tiles: the bf16 tensor-core bodies of K2 and K3 within their
+   rounding bounds, fp32 inputs within ``1e-4 * max(1, max|plain|)`` per
+   output, and exact zeros in dq for rows that see no key and in dk/dv
+   for keys that no query sees (outputs are allocated over freed
+   NaN-filled memory first);
 3c. caches  — the int8 and paged decode kernels (K5 dense int8, K6 paged
    bf16/fp32 pools, K7 paged int8 pools) against their plain versions:
    d 64/128, MHA and GQA (8 q heads on 2 kv heads), 1 and 256 query
@@ -36,7 +37,14 @@ failure exits non-zero:
    free rows are all zeros, int8 values from ``quantize_kv``; bf16 and
    fp32 queries at the phase-3 bounds, outputs over freed NaN memory,
    and bit-identical outputs when the scratch block 0 holds ±1e30 (NaN
-   in fp32 pools; NaN/1e30 scales for int8);
+   in fp32 pools; NaN/1e30 scales for int8); then K6's split-K body on
+   decode calls across its 128-key split boundaries (valid_len L - 1, L,
+   L + 1, full capacity, 0; a window that empties the leading splits;
+   GQA rows 4, chunks of rows 5 and 8; pages 16 and 24; capacities 2000
+   and 2064, not multiples of L). K6's decode calls (rows <= 16, the
+   split body) with bf16 inputs are held per element to ``2**-8 *
+   |plain| + 1e-4``: the body computes in fp32 and rounds only its
+   output, so that is all the room bf16 gives it;
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
    1024, 8 heads of 128, 12 layers, bf16, max_decode_len 2048) written
    as an artifact, served by ``LMEnginePredictor`` with 4 slots: 8 greedy
@@ -73,30 +81,40 @@ failure exits non-zero:
    kernel must launch and K1/K4 must not, and (c) must use at least 90%
    of its pool at peak. Prints TTFT, decode tokens/s, prefill chunks,
    preemptions, peak blocks, the persistent KV bytes against phase 4's
-   dense cache, and how many streams equal phase 4's; checks the logits
+   dense cache, how many streams equal phase 4's and, on the paged
+   engines, for each stream that does not, the engine's own margin at the
+   first difference: from the logits it drew that token from, its token's
+   logit minus phase 4's token's and minus the runner-up's (a near tie
+   that rounding decides reads far below the bf16 model's distance from
+   fp32); checks the logits
    of two requests as phase 4 does, against the plain attention
-   versions on the same cache type;
+   versions on the same cache type; after (b), a ``torch.profiler``
+   trace of 10 paged decode steps at 4 busy slots (as phase 6: device
+   busy, idle share, launches per step, and K6's share);
 8b. parity  — 2 layers at full width in fp32: the paged engine against
    the dense engine of the same cache dtype (fp32 pools, int8 pools) on
    a pool of 5 usable blocks that forces a preemption; greedy streams
    identical unless the dense engine's top-2 logit gap at the first
    difference is under ``1e-4 * ||logits||inf`` (printed).
 
-The rounding bound of a bf16 tensor-core body (K1's o, K3's dk and dv)
-is per element ``2**-8 * (mag + |plain|) + slack``: each operand that
-the body rounds to bf16 before a product (K1: p in p·v; K3: p^T in dv,
-ds^T in dk) moves the product by at most 2**-8 (bf16's unit roundoff)
-times the same product over magnitudes, ``mag`` (p·|v|, p^T·|do|,
-|ds|^T·|q|); rounding the output adds ``2**-8 * |plain|``, and ``slack``
-is the fp32 bound of the same kernel. Each case prints its worst ratio
-of error to bound.
+The rounding bound of a bf16 tensor-core body (K1's o, K2's dq, K3's dk
+and dv) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
+that the body rounds to bf16 before a product (K1: p in p·v; K2: ds in
+ds·k; K3: p^T in dv, ds^T in dk) moves the product by at most 2**-8
+(bf16's unit roundoff) times the same product over magnitudes, ``mag``
+(p·|v|, |ds|·|k|, p^T·|do|, |ds|^T·|q|); rounding the output adds
+``2**-8 * |plain|``, and ``slack`` is the fp32 bound of the same kernel.
+Each case prints its worst ratio of error to bound.
 
 Phase 5's rows for K2 and K3 are timed after phase 7, at (8, 8, 2048,
 128) bf16 causal, beside the launches per train step; its rows for K5,
 K6 and K7 after phase 8b, at phase 5's decode shape, beside their
-launches in phase 8. The second-to-last line is one JSON object with a
-record per kernel; the last line is ``{"ok": true, "device": {...}}``.
-Nothing of JAX or of the JAX package is imported.
+launches in phase 8, with K6's split count, and K6 once more at the
+width of a 256-token prefill chunk (its 64-row body; printed, not in
+the JSON line). The
+second-to-last line is one JSON object with a record per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
+JAX package is imported.
 """
 
 from __future__ import annotations
@@ -138,13 +156,17 @@ GRAD_REL = 1e-3
 GRAD_BF16 = dict(dtype="bfloat16", param_dtype="float32")
 GRAD_SEEDS = 3
 # Phase 2: the bf16 tensor-core bodies, by source and ptxas entry name.
-TC_BODIES = {"flash_fwd": "fwd_kernel", "flash_bwd_dkv": "dkv_kernel"}
+TC_BODIES = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "dq_kernel",
+             "flash_bwd_dkv": "dkv_kernel"}
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The device-kernel names of each, as the profiler reports them (bf16
 # tensor-core bodies and fp32 FMA bodies).
 TRAIN_KERNEL_NAMES = {"flash_fwd": ("tc::fwd_kernel", "flash_fwd_kernel"),
-                      "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+                      "flash_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
                       "flash_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel")}
+# K6's device kernels: the split-K body and its combine (decode steps),
+# the 64-row body (prefill chunks).
+K6_KERNEL_NAMES = ("split::split_kernel", "split::combine_kernel", "decode_rows_kernel")
 # Phase 8: (name, lm_config, the kernel it runs). (c)'s 64 usable blocks
 # hold 4096 tokens, under the ~5000 the four largest requests reach.
 CACHE_SLICES = (
@@ -154,6 +176,14 @@ CACHE_SLICES = (
                     "kv_pool_blocks": 65, "prefill_chunk": 256}, "paged_decode_attention_q8"),
 )
 PEAK_POOL_SHARE = 0.9
+# Phase 3c, K6's split-K body (128-key splits): (page, capacity, kv
+# heads of 8 query heads, query tokens, valid_len per row, window).
+SPLIT_CASES = (
+    (64, 2048, 8, 1, [127, 128, 129, 2048, 0], None),  # L - 1, L, L + 1, full, empty
+    (64, 2048, 2, 1, [1000, 700, 513, 2048, 1], 100),  # leading splits empty; GQA rows 4
+    (16, 2000, 8, 5, [5, 258, 1531, 2000, 1999], None),  # rows 5; cap not a multiple of L
+    (24, 2064, 2, 2, [2064, 255, 257, 0, 1025], 300),  # page 24; rows 8
+)
 # Phase 8b: two 60-token prompts with 70 new tokens each need 3 blocks
 # of 64 apiece at their deepest write; the pool has 5.
 PARITY = dict(MODEL, num_layers=2, dtype="float32")
@@ -172,10 +202,11 @@ def fail(msg: str) -> int:
     return 1
 
 
-# Phase 3 bounds. bf16 inputs of the kernels that compute in fp32 (K2,
-# K4-K7): 2e-2 + 2e-2 * max|plain|, room for the bf16 output's rounding.
-# The bf16 tensor-core bodies of K1 and K3 round operands too, and are
-# held per element to the bound that rounding allows (rounding_close).
+# Phase 3 bounds. bf16 inputs of the kernels that compute in fp32
+# (K4-K7): 2e-2 + 2e-2 * max|plain|, room for the bf16 output's rounding;
+# K6's split body per element to that rounding (output_rounding_close).
+# The bf16 tensor-core bodies of K1, K2 and K3 round operands too, and
+# are held per element to the bound that rounding allows (rounding_close).
 # fp32 inputs at the same shapes: an absolute 1e-4, tight enough that one
 # dropped key tile of a long row fails. lse: an absolute 1e-4 for both.
 BF16_ATOL, BF16_REL = 2e-2, 2e-2
@@ -221,6 +252,13 @@ def rounding_close(out, ref, mag, slack: float) -> tuple[float, float, bool]:
     err = (out.float() - ref).abs()
     ratio = (err / (BF16_U * (mag + ref.abs()) + slack)).max().item()
     return err.max().item(), ratio, ratio <= 1.0 and bool(torch.isfinite(out.float()).all())
+
+
+def output_rounding_close(out, ref) -> tuple[float, float, bool]:
+    """:func:`rounding_close` for a body that computes in fp32 from bf16
+    inputs and rounds only its output (K6's split body): per element
+    ``BF16_U * |ref| + FP32_ATOL``."""
+    return rounding_close(out, ref, ref.new_zeros(()), FP32_ATOL)
 
 
 def lse_close(out, ref) -> tuple[float, bool]:
@@ -274,9 +312,11 @@ def ptxas_entries(text: str) -> dict[str, dict[str, int]]:
 
 
 def report_tc_bodies(_build, report) -> None:
-    """Phase 2 for the bf16 tensor-core bodies of K1 and K3: per head dim
-    the registers and spills from ptxas, the dynamic shared memory from
-    the library, and the HGMMA count in the SASS (fails at 0)."""
+    """Phase 2 for the bf16 tensor-core bodies of K1, K2 and K3: per head
+    dim the registers and spills from ptxas, the dynamic shared memory
+    from the library, and the HGMMA count in the SASS (fails at 0). Then
+    the registers and spills of K6's split-K body, per (dtype, head dim,
+    rows bucket), and of its combine kernel."""
     import ctypes
     import subprocess
 
@@ -304,6 +344,15 @@ def report_tc_bodies(_build, report) -> None:
                   + ("not counted (no cuobjdump)" if hgmma is None else str(hgmma)), flush=True)
             if hgmma == 0:
                 raise AssertionError(f"{name} d{d}: the bf16 body has no HGMMA instruction")
+    entries = ptxas_entries(report["paged_decode_attention"]["ptxas"])
+    for fn, e in sorted(entries.items()):
+        m = re.search(r"(split_kernel|combine_kernel)I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?", fn)
+        if m:
+            kind, t, d, rows = m.groups()
+            print(f"  paged_decode_attention {kind} {'bf16' if t != 'f' else 'fp32'} d{d}"
+                  + (f" rows<={rows}" if rows else "") + f": {e['registers']} registers, spill "
+                  f"stores {e['spill_stores']} bytes, spill loads {e['spill_loads']} bytes",
+                  flush=True)
 
 
 def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
@@ -389,7 +438,8 @@ def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
     cases = [(s, s, c, None, None) for s in (16, 128, 1000, 2048) for c in (True, False)]
     cases += [(2048, 2048, True, 256, None), (64, 1024, True, None, None),
               (1024, 1024, True, None, -200),  # rows 0..199 see no key
-              (1000, 1000, True, 64, 300)]  # keys 0..236 seen by no query
+              (1000, 1000, True, 64, 300),  # keys 0..236 seen by no query
+              (129, 129, True, None, None), (65, 127, False, None, None)]  # ragged tiles
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).rsplit(".", 1)[-1]
 
@@ -417,12 +467,11 @@ def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                 errs = []
                 for out_name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
                     slack = BWD_FP32_REL * max(1.0, ref.abs().max().item())
-                    if out_name in mags:  # K3's tensor-core body
+                    if out_name in mags:  # the bf16 tensor-core bodies
                         err, ratio, ok = rounding_close(out, ref, mags[out_name], slack)
                         bound_note = f"worst err/rounding bound {ratio:.3f}"
                     else:
-                        err, tol, ok = (close(out, ref, BF16_ATOL, BF16_REL)
-                                        if dtype == torch.bfloat16 else close(out, ref, slack))
+                        err, tol, ok = close(out, ref, slack)
                         bound_note = f"bound {tol:.3e}"
                     empty = no_key if out_name == "dq" else no_query
                     zeros = int(empty.sum())
@@ -440,12 +489,14 @@ def check_bwd_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
 
 
 def bwd_magnitudes(A, torch, f, lse, delta, kw) -> dict:
-    """The ``mag`` terms of K3's rounding bound, fp32: ``|ds|^T |q|`` for
-    dk (ds^T rounded) and ``p^T |do|`` for dv (p^T rounded)."""
+    """The ``mag`` terms of K2's and K3's rounding bounds, fp32: ``|ds|
+    |k|`` for dq (ds rounded), ``|ds|^T |q|`` for dk (ds^T rounded) and
+    ``p^T |do|`` for dv (p^T rounded)."""
     q, k, v, do = f
     sm_scale, q_offset = A._attention_args(q, k, kw["causal"], None, kw["q_offset"], kw["window"])
     p, ds = A._bwd_probs(q, k, v, do, lse, delta, kw["causal"], sm_scale, q_offset, kw["window"])
-    return {"dk": torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q.abs()),
+    return {"dq": torch.einsum("bhqk,bhkd->bhqd", ds.abs(), k.abs()),
+            "dk": torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q.abs()),
             "dv": torch.einsum("bhqk,bhqd->bhkd", p, do.abs())}
 
 
@@ -493,6 +544,10 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                 for s in (1, 256):
                     q = torch.randn(b, h, s, d, generator=gen).to(dev, dtype)
                     errs = {k: 0.0 for k in CACHE_KERNELS}
+                    # K6's bf16 decode calls run the split body: held to
+                    # its output's rounding alone.
+                    split_bf16 = dtype == torch.bfloat16 and (h // hkv) * s <= A.SPLIT_ROWS
+                    split_ratio = 0.0
                     # K5: tile boundary +-1 and full capacity.
                     vl = torch.tensor([0, 1, 63, 65, cap], dtype=torch.int32, device=dev)
                     (kq, ks), (vq, vs) = (A.quantize_kv(torch.randn(b, hkv, cap, d, generator=gen)
@@ -530,11 +585,17 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                                     q, k, v, vl, pages, window=window, **scales), q)
                                 ref = A.paged_decode_attention_reference(
                                     q.float(), *plain_kv, vl, pages, window=window, **scales)
-                                err, tol, ok = close(o, ref, atol, rel)
+                                if split_bf16 and not scales:
+                                    err, ratio, ok = output_rounding_close(o, ref)
+                                    split_ratio = max(split_ratio, ratio)
+                                    miss = f"err/rounding bound {ratio:.3f}"
+                                else:
+                                    err, tol, ok = close(o, ref, atol, rel)
+                                    miss = f"{err:.3e} > {tol:.3e}"
                                 errs[name] = max(errs[name], err)
                                 if not ok:
                                     bad.append(f"{name} {dname} d{d} hkv {hkv} s {s} page {page} "
-                                               f"window={window}: {err:.3e} > {tol:.3e}")
+                                               f"window={window}: {miss}")
                             # The scratch block: garbage there changes nothing.
                             k2, v2 = k.clone(), v.clone()
                             sc2 = {n: t.clone() for n, t in scales.items()}
@@ -554,8 +615,41 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                         worst[name][dname] = max(worst[name][dname], err)
                     print(f"  {dname} b{b} h8 hkv {hkv} d{d} s {s}: worst err " + ", ".join(
                         f"{n} {e:.3e}" for n, e in errs.items())
-                        + f" (bound {atol:.0e}{' + 2e-2*max|plain|' if rel else ''}); "
-                        "scratch block unreachable", flush=True)
+                        + f" (bound {atol:.0e}{' + 2e-2*max|plain|' if rel else ''}"
+                        + (f"; paged_decode_attention's split body per element 2^-8*|plain| + "
+                           f"{FP32_ATOL:.0e}, worst err/bound {split_ratio:.3f}" if split_bf16 else "")
+                        + "); scratch block unreachable", flush=True)
+            # K6's split body across its split boundaries.
+            err_split = ratio_split = 0.0
+            for page, cap, hkv, s, valid, window in SPLIT_CASES:
+                vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+                pages, nblocks = shuffled_pages(torch, gen, valid, page, cap, dev)
+                k, v = (torch.randn(hkv, nblocks, page, d, generator=gen).to(dev, dtype)
+                        for _ in range(2))
+                q = torch.randn(len(valid), h, s, d, generator=gen).to(dev, dtype)
+                o = run("paged_decode_attention", lambda: A.paged_decode_attention(
+                    q, k, v, vl, pages, window=window), q)
+                ref = A.paged_decode_attention_reference(q.float(), k.float(), v.float(), vl,
+                                                         pages, window=window)
+                if dtype == torch.bfloat16:
+                    err, ratio, ok = output_rounding_close(o, ref)
+                    ratio_split = max(ratio_split, ratio)
+                    miss = f"err/rounding bound {ratio:.3f}"
+                else:
+                    err, tol, ok = close(o, ref, atol)
+                    miss = f"{err:.3e} > {tol:.3e}"
+                err_split = max(err_split, err)
+                ok = ok and not o[vl == 0].any()
+                if not ok:
+                    bad.append(f"paged_decode_attention split body {dname} d{d} page {page} "
+                               f"cap {cap} hkv {hkv} s {s} valid_len {valid} window={window}: "
+                               f"{miss}")
+            worst["paged_decode_attention"][dname] = max(
+                worst["paged_decode_attention"][dname], err_split)
+            bound_note = (f"per element 2^-8*|plain| + {FP32_ATOL:.0e}, worst err/bound "
+                          f"{ratio_split:.3f}" if dtype == torch.bfloat16 else f"bound {atol:.0e}")
+            print(f"  {dname} d{d}: paged_decode_attention split body over {len(SPLIT_CASES)} "
+                  f"split-boundary cases: worst err {err_split:.3e} ({bound_note})", flush=True)
     if bad:
         raise AssertionError("cache kernel disagrees with its plain version: " + "; ".join(bad))
     return worst
@@ -714,6 +808,57 @@ def check_cache_logits(model, torch, prompts, answers, dev, chunk) -> None:
                     raise AssertionError(f"request {i} {dname} {step} logits disagree")
 
 
+@contextlib.contextmanager
+def drawn_logits(engine, taps: dict):
+    """Keep the logits the paged ``engine`` draws each token from, in its
+    own batch: ``taps[(ticket, j)]`` is the ``(vocab,)`` row that token j
+    of that ticket came from. Wraps ``logits`` of the engine's model
+    instance while the block runs."""
+    model = engine.model
+    real = model.logits
+
+    def tap(hidden):
+        out = real(hidden)
+        if out.dim() == 2:  # the engine's (slots, vocab) draw
+            for r, st in enumerate(engine._slot_state):
+                if st is None or (st.pending is not None and st.pending.size > engine.prefill_chunk):
+                    continue  # a free row, or a prompt chunk before the last
+                taps[(st.ticket, 0 if st.pending is not None else len(st.emitted))] = out[r]
+        return out
+
+    model.logits = tap
+    try:
+        yield
+    finally:
+        del model.logits
+
+
+def first_difference_margins(torch, taps: dict, answers, dense_answers) -> list[str]:
+    """For each stream that differs from phase 4's, at its first differing
+    token j, from the logits the engine drew token j from
+    (:func:`drawn_logits`): its token's logit minus phase 4's token's, and
+    minus the runner-up's (the top-2 gap), each also over
+    ``||logits||inf``. A gap far below the bf16 model's distance from fp32
+    (phase 4) is a near tie that rounding decides."""
+    tickets = sorted({t for t, _ in taps})
+    if len(tickets) != len(answers):
+        raise AssertionError(f"logits kept for {len(tickets)} tickets, not {len(answers)}")
+    notes = []
+    for i, (a, d) in enumerate(zip(answers, dense_answers)):
+        j = next((k for k, (x, y) in enumerate(zip(a, d)) if x != y), None)
+        if j is None:
+            continue
+        logits = taps[(tickets[i], j)].float()
+        if int(torch.argmax(logits)) != a[j]:
+            raise AssertionError(f"stream {i} token {j}: the kept logits do not give its token")
+        top2 = torch.topk(logits, 2).values
+        gap, top, scale = ((logits[a[j]] - logits[d[j]]).item(), (top2[0] - top2[1]).item(),
+                           logits.abs().max().item())
+        notes.append(f"stream {i} at token {j}: over phase 4's token {gap:.3e}, top-2 gap "
+                     f"{top:.3e} ({gap / scale:.1e}, {top / scale:.1e} of ||logits||inf)")
+    return notes
+
+
 def kv_bytes(cache) -> int:
     """Persistent bytes of a KV cache: values, scales, page table, index."""
     tensors = [*cache.k, *cache.v, *(cache.k_scale or []), *(cache.v_scale or []), cache.idx]
@@ -809,7 +954,9 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     step of 4 slots, 12 layer caches in turn, page 64 on a shuffled
     table. The yardstick is ``scaled_dot_product_attention`` on the
     gathered (paged) and dequantized (int8) bf16 tensors; the gather and
-    the dequantization are not timed."""
+    the dequantization are not timed. A last row (``chunk``) times K6 at
+    the width of a 256-token prefill chunk of every slot (its 64-row
+    body)."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     b, h, d, cap, layers, page = 4, 8, 128, 2048, 12, 64
@@ -875,6 +1022,37 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
                 q, *dense[i % layers], attn_mask=mask), 120),
             **bound(flops, nbytes),
         ))
+    rows[1]["n_splits"] = A.decode_splits(1, cap, b * h)[0]
+
+    # K6 at a prefill chunk's width: 256 query rows per slot, the chunk
+    # at positions valid_len - 256 .. valid_len - 1.
+    sq = 256
+    vlc_host = [max(n, sq) for n in vl_host]
+    vlc = torch.tensor(vlc_host, dtype=torch.int32, device=dev)
+    qc = torch.randn(b, h, sq, d, generator=gen).to(dev, bf16)
+    pos = vlc[:, None] - sq + torch.arange(sq, device=dev)[None, :]
+    maskc = (torch.arange(cap, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
+    pagesc, nblocksc = shuffled_pages(torch, gen, vlc_host, page, cap, dev)
+    poolsc = [[rand(h, nblocksc, page, d).to(bf16) for _ in range(2)] for _ in range(layers)]
+    densec = [tuple(A.paged_gather_kv(p, pagesc) for p in pl) for pl in poolsc]
+    pairs = sum(sq * (n - sq) + sq * (sq + 1) // 2 for n in vlc_host)
+    nbytes = (2 * h * d * 2 * sum(vlc_host) + 2 * b * h * sq * d * 2 + b * 4
+              + sum(-(-n // page) for n in vlc_host) * 4)
+    name = "paged_decode_attention"
+    src, line = CACHE_KERNELS[name]
+    rows.append(dict(
+        name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{src}",
+        replaces=f"hops_tpu/ops/attention.py:{line}", chunk=True,
+        shape=f"q ({b},{h},{sq},{d}) bf16, bf16 pools ({h},{nblocksc},{page},{d}), "
+              f"valid_len {vlc_host}",
+        launches=launches[name], max_abs_err=worst[name]["bfloat16"],
+        ms=cuda_ms(lambda i=0: A.paged_decode_attention(qc, *poolsc[i % layers], vlc, pagesc), 60),
+        plain_ms=cuda_ms(lambda i=0: A.paged_decode_attention_reference(
+            qc, *poolsc[i % layers], vlc, pagesc), 12),
+        library_ms=cuda_ms(lambda i=0: F.scaled_dot_product_attention(
+            qc, *densec[i % layers], attn_mask=maskc), 60),
+        **bound(4 * d * h * pairs, nbytes),
+    ))
     return rows
 
 
@@ -887,16 +1065,18 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
     out = {}
     for name, cfg, kernel in CACHE_SLICES:
         predictor = LMEnginePredictor(art, cfg)
+        engine = predictor.engine
+        taps: dict = {}
         try:
             torch.cuda.synchronize()
             A.reset_launch_counts()
             t0 = time.perf_counter()
-            answers = predictor.predict(instances)
+            with drawn_logits(engine, taps) if "kv_page_size" in cfg else contextlib.nullcontext():
+                answers = predictor.predict(instances)
             wall = time.perf_counter() - t0
             launches = A.launch_counts()
             stats = predictor.stats()
             ttft = predictor.last_ttft_s
-            engine = predictor.engine
             for p, n, ans in zip(PROMPT_LENS, NEW_TOKENS, answers):
                 if len(ans) != n:
                     raise AssertionError(f"{name}: prompt {p} answered {len(ans)} tokens, not {n}")
@@ -929,7 +1109,16 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
             with torch.inference_mode():
                 check_cache_logits(engine.model, torch, prompts, answers, dev,
                                    cfg.get("prefill_chunk"))
+            if paged:
+                notes = first_difference_margins(torch, taps, answers, dense_answers)
+                print("  first differences from phase 4's streams, from the logits the engine "
+                      "drew each token from, its token's logit: " + ("; ".join(notes) or "none"),
+                      flush=True)
+            del taps
             out[name] = launches
+            if name == "paged":
+                predictor.stop()  # the engine is now driven from this thread alone
+                profile_paged_decode(engine, torch, prompts)
         finally:
             predictor.stop()
         del predictor, engine
@@ -1006,6 +1195,38 @@ def profile_decode(engine, torch, prompts, steps: int = 10) -> None:
     print(f"phase 6 profile: {steps} decode steps at 4 busy slots: wall {wall_ms:.3f} ms/step "
           f"(profiled), device busy {busy:.3f} ms/step, idle share {1 - busy / wall_ms:.3f}, "
           f"{sum(n for _, _, n in kernels)} kernel launches/step", flush=True)
+    for name, ms, n in kernels[:8]:
+        print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
+
+
+def profile_paged_decode(engine, torch, prompts, steps: int = 10) -> None:
+    """Phase 8 (b)'s profile: as phase 6, ``steps`` decode steps of the
+    paged engine with all 4 slots busy, taken once every prompt is
+    prefilled, plus K6's share of the device time."""
+    for p in prompts[:4]:
+        engine.submit(p, max_new_tokens=steps + 40)
+    engine.step()  # admission and the first chunks
+    while any(st is not None and st.pending is not None for st in engine._slot_state):
+        engine.step()
+    for _ in range(2):  # warm decode steps
+        engine.step()
+
+    def run():
+        for _ in range(steps):
+            engine.step()
+
+    wall_ms, busy, kernels = device_profile(torch, run, steps)
+    slots_busy = engine.stats()["slots_busy"]
+    engine.run()
+    if slots_busy != 4:
+        raise AssertionError(f"phase 8 (b) profile: {slots_busy} busy slots, not 4")
+    k6 = [(ms, n) for key, ms, n in kernels if any(k in key for k in K6_KERNEL_NAMES)]
+    k6_ms = sum(ms for ms, _ in k6)
+    print(f"phase 8 paged profile: {steps} decode steps at 4 busy slots: wall {wall_ms:.3f} "
+          f"ms/step (profiled), device busy {busy:.3f} ms/step, idle share "
+          f"{1 - busy / wall_ms:.3f}, {sum(n for _, _, n in kernels)} kernel launches/step; "
+          f"K6 {k6_ms:.4f} ms/step ({k6_ms / busy:.1%} of busy, "
+          f"{sum(n for _, n in k6)} launches/step)", flush=True)
     for name, ms, n in kernels[:8]:
         print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
 
@@ -1307,11 +1528,14 @@ def main() -> int:
         with torch.inference_mode():
             cache_rows = time_cache_kernels(A, torch, gen, dev, cache_launches, worst)
         for r in cache_rows:
-            print(f"phase 5 {r['name']} at {r['shape']}: {r['ms']:.4f} ms; "
-                  f"{r['launches']} launches in phase 8; bound {r['bound_ms']:.4f} ms "
+            print(f"phase 5 {r['name']}{' (prefill chunk width)' if r.get('chunk') else ''} at "
+                  f"{r['shape']}: {r['ms']:.4f} ms"
+                  + (f" ({r['n_splits']} splits)" if "n_splits" in r else "")
+                  + f"; {r['launches']} launches in phase 8; bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; scaled_dot_product_attention "
                   f"on the gathered/dequantized bf16 tensors {r['library_ms']:.4f} ms; "
                   f"card {card_line}", flush=True)
+        cache_rows = [r for r in cache_rows if not r.get("chunk")]
         k1 = rows[0]
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"]}
         k1["launches"] += train_launches["flash_fwd"]

@@ -15,8 +15,10 @@ tensors and their plain PyTorch versions on CPU tensors:
   ``v_scale`` (:func:`decode_attention_q8`) ``csrc/decode_attention_q8.cu``
   (K5, ``_decode_q8_kernel``), the dense int8 cache;
 - :func:`paged_decode_attention` -> ``csrc/paged_decode_attention.cu``:
-  K6 (``_paged_decode_kernel``) over bf16/fp32 block pools, K7
-  (``_paged_decode_q8_kernel``) over int8 pools with fp32 scale pools.
+  K6 (``_paged_decode_kernel``) over bf16/fp32 block pools (decode
+  steps on a split-K body and a combine kernel, splits from
+  :func:`decode_splits`), K7 (``_paged_decode_q8_kernel``) over int8
+  pools with fp32 scale pools.
 
 On a CUDA tensor the entry point launches its kernel or raises; it never
 falls back. The kernels mask ragged tails themselves, so every sequence
@@ -43,6 +45,16 @@ LAUNCHES: dict[str, int] = {
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (64, 128)
+
+#: K6's split-K body takes calls of at most this many rows (g query
+#: heads per kv head times s tokens): every decode step.
+SPLIT_ROWS = 16
+#: Keys per split before the cap below: two of the kernel's 64-key tiles
+#: (at the served decode shape 128 beat 256 and 512 on an H100; PERF.md).
+SPLIT_KEYS = 128
+_SPLIT_TILE = 64
+#: At most this many blocks per call (4 waves of the H100's 132 SMs).
+SPLIT_MAX_BLOCKS = 4 * 132
 
 
 def reset_launch_counts() -> None:
@@ -266,6 +278,66 @@ def decode_attention_q8_reference(q, k, v, k_scale, v_scale, valid_len, sm_scale
         q.float(), dequantize_kv(k, k_scale), dequantize_kv(v, v_scale),
         valid_len, sm_scale, window,
     ).to(q.dtype)
+
+
+def decode_splits(rows: int, capacity: int, bhkv: int) -> tuple[int, int]:
+    """``(n_splits, split_keys)`` of a paged decode call on K6's split-K
+    body, chosen from the shape alone: ``capacity`` (``max_blocks *
+    page``), never ``valid_len``, which stays on the device.
+
+    ``split_keys`` is a multiple of the 64-key tile, ``SPLIT_KEYS`` unless
+    the cap of ``SPLIT_MAX_BLOCKS`` blocks (``n_splits * bhkv``, ``bhkv``
+    the batch times the kv heads) makes each split longer, and
+    ``n_splits * split_keys`` covers the capacity. A call wider than
+    ``SPLIT_ROWS`` rows takes the 64-row body instead: ``(1, capacity)``.
+    """
+    if rows < 1 or capacity < 1 or bhkv < 1:
+        raise ValueError(f"decode_splits: rows {rows}, capacity {capacity}, bhkv {bhkv}")
+    if rows > SPLIT_ROWS:
+        return 1, capacity
+    keys, most = SPLIT_KEYS, max(1, SPLIT_MAX_BLOCKS // bhkv)
+    if math.ceil(capacity / keys) > most:  # longer splits, still whole tiles
+        keys = math.ceil(math.ceil(capacity / most) / _SPLIT_TILE) * _SPLIT_TILE
+    return math.ceil(capacity / keys), keys
+
+
+def paged_decode_split_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len,
+    pages: torch.Tensor,
+    sm_scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Plain version of K6's split-K body and its combine, in fp32: the
+    splits of :func:`decode_splits`, each split's ``(m, l, acc)`` by the
+    online softmax's arithmetic over its keys, merged as the combine
+    kernel merges them (``M = max m_i``, ``o = sum e^(m_i - M) acc_i /
+    sum e^(m_i - M) l_i``, with ``-inf`` guards and ``l_safe``). Equal
+    to :func:`paged_decode_attention_reference` up to rounding; for the
+    tests, which pin the combine arithmetic against JAX on the CPU."""
+    b, h, s, d = q.shape
+    hkv = k.shape[0]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    vl = _normalize_valid_len(valid_len, b, q.device)
+    kd, vd = repeat_kv(q, *(paged_gather_kv(t, pages).float() for t in (k, v)))
+    cap = kd.shape[2]
+    n_splits, keys = decode_splits((h // hkv) * s, cap, b * hkv)
+    sc = _masked_scores(q.float(), kd, True, sm_scale, vl - s, window)  # (b, h, s, cap)
+    parts = []
+    for i in range(n_splits):
+        si = sc[..., i * keys:(i + 1) * keys]
+        m = si.amax(-1, keepdim=True)
+        p = torch.exp(si - torch.where(torch.isneginf(m), 0.0, m))
+        parts.append((m, p.sum(-1, keepdim=True), p @ vd[:, :, i * keys:(i + 1) * keys]))
+    m = torch.stack([pt[0] for pt in parts])
+    big = m.amax(0)
+    w = torch.where(torch.isneginf(m), 0.0, torch.exp(m - torch.where(torch.isneginf(big), 0.0, big)))
+    num = (w * torch.stack([pt[2] for pt in parts])).sum(0)
+    den = (w * torch.stack([pt[1] for pt in parts])).sum(0)
+    return (num / torch.where(den == 0, 1.0, den)).to(q.dtype)
 
 
 def paged_decode_attention_reference(
@@ -610,8 +682,11 @@ def paged_decode_attention(
     table entry as its values.
 
     CUDA tensors run ``csrc/paged_decode_attention.cu`` (K6, or K7 for
-    int8 pools) for every page size; CPU tensors run
-    :func:`paged_decode_attention_reference`.
+    int8 pools) for every page size: K6 takes a call of at most
+    ``SPLIT_ROWS`` rows (``g * s``, every decode step) on its split-K
+    body, ``decode_splits`` splits of the capacity merged by a combine
+    kernel, and a wider call (a prefill chunk) on its 64-row body. CPU
+    tensors run :func:`paged_decode_attention_reference`.
     """
     quantized = _check_scales(k_scale, v_scale)
     if window is not None and window < 1:
@@ -646,15 +721,28 @@ def paged_decode_attention(
     _check_kernel_inputs(name, q, o)
     _check_operands(name, q.device, torch.int8 if quantized else q.dtype, k, v)
     _check_operands(name, q.device, torch.int32, pages)
-    scales = ()
+    rows = (h // hkv) * s
+    shape = (b, hkv, rows, s, page, max_blocks, nblocks, d, int(q.dtype == torch.bfloat16),
+             float(sm_scale), int(window or 0))
     if quantized:
         _check_operands(name, q.device, torch.float32, k_scale, v_scale)
-        scales = (k_scale.data_ptr(), v_scale.data_ptr())
-    rc = _build.kernel(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, vl.data_ptr(), pages.data_ptr(),
-        o.data_ptr(), b, hkv, (h // hkv) * s, s, page, max_blocks, nblocks, d,
-        int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0), _stream(q.device),
-    )
+        rc = _build.kernel(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            vl.data_ptr(), pages.data_ptr(), o.data_ptr(), *shape, _stream(q.device),
+        )
+    else:
+        # Decode calls (rows <= SPLIT_ROWS) run the split-K body; with
+        # several splits, its fp32 partials go to a workspace.
+        n_splits, split_keys = decode_splits(rows, max_blocks * page, b * hkv)
+        work = None
+        if n_splits > 1:
+            work = torch.empty(n_splits * b * hkv * rows * (d + 2), dtype=torch.float32,
+                               device=q.device)
+        rc = _build.kernel(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), pages.data_ptr(),
+            o.data_ptr(), None if work is None else work.data_ptr(), *shape, n_splits,
+            split_keys, _stream(q.device),
+        )
     _build.check(name, rc)
     LAUNCHES[name] += 1
     return o

@@ -2,7 +2,10 @@
 // (sm_90a): the body shared by
 //   K4 decode_attention.cu         (`_decode_kernel`, dense bf16/fp32 cache),
 //   K5 decode_attention_q8.cu      (`_decode_q8_kernel`, dense int8 cache),
-//   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, bf16/fp32 pools),
+//   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, bf16/fp32 pools;
+//                                   only calls wider than split::MAX_ROWS
+//                                   rows, the prefill chunks: decode calls take
+//                                   the split-K body of decode_split.cuh),
 //   K7 paged_decode_attention.cu   (`_paged_decode_q8_kernel`, int8 pools),
 // all in hops_tpu/ops/attention.py: one block per (batch*kv_head, 64-row
 // query tile), the g query heads of a kv head folded into g*s rows,
@@ -38,10 +41,12 @@
 // What bounds it on this card: a decode step does ~4*d operations per
 // visible key and query row against 4*d bytes of bf16 K/V per key (2*d
 // int8 plus 8 bytes of scales), far below the card's ~295 operations per
-// byte: bound by the bytes it reads, which are O(valid_len). This first
-// version is simple (fp32 FMAs from shared memory, one block walking its
-// key range alone); split-K (flash-decoding) to fill all SMs at small
-// batch, cp.async/TMA staging and wgmma are later steps.
+// byte: bound by the bytes it reads, which are O(valid_len). This body
+// is simple (fp32 FMAs from shared memory, one block walking its key
+// range alone). Split-K (flash-decoding), which fills all SMs at small
+// batch, exists for K6's decode calls in decode_split.cuh and is still to
+// come for K4, K5 and K7; a tensor-core body for wide (prefill-chunk)
+// calls is a later step.
 
 #pragma once
 
@@ -79,15 +84,25 @@ constexpr size_t smem_bytes() {
          (size_t)(BQ * D + BK * (D + 1) + BK * D + BQ * BK + 3 * BQ + 2 * BK) * sizeof(float);
 }
 
+// Paged: the table entry of logical page pg of row bi, read only for a
+// key below kv_len (`in_range`); -1 otherwise.
+__device__ __forceinline__ int page_entry(const Args& a, int bi, int pg, bool in_range) {
+  return in_range ? a.pages[(size_t)bi * a.max_blocks + pg] : -1;
+}
+
+// Paged: the storage row of offset off in table entry blk, or -1 for an
+// entry outside [0, nblocks). Apart from `page_entry`, so a thread can
+// read several entries before it tests the first.
+__device__ __forceinline__ long long block_row(const Args& a, int hk, int blk, int off) {
+  return blk >= 0 && blk < a.nblocks ? ((long long)hk * a.nblocks + blk) * a.page + off : -1;
+}
+
 // Storage row of key position kpos, or -1 when it must not be read.
 template <bool PAGED>
 __device__ __forceinline__ long long key_row(const Args& a, int bi, int hk, int kpos,
                                              int kv_len) {
-  if (kpos >= kv_len) return -1;
-  if (!PAGED) return ((long long)bi * a.hkv + hk) * a.cap + kpos;
-  const int blk = a.pages[(size_t)bi * a.max_blocks + kpos / a.page];
-  if (blk < 0 || blk >= a.nblocks) return -1;
-  return ((long long)hk * a.nblocks + blk) * a.page + kpos % a.page;
+  if (!PAGED) return kpos < kv_len ? ((long long)bi * a.hkv + hk) * a.cap + kpos : -1;
+  return block_row(a, hk, page_entry(a, bi, kpos / a.page, kpos < kv_len), kpos % a.page);
 }
 
 // Copy BK rows of D elements into fp32 shared memory with row stride

@@ -1,8 +1,15 @@
 // Decode attention against a paged KV cache, for Hopper (sm_90a): the
 // ports of K6, `_paged_decode_kernel`, and K7, `_paged_decode_q8_kernel`,
 // in hops_tpu/ops/attention.py (both launched by
-// `paged_decode_attention`). The kernel body, its int8 arithmetic and
-// what bounds it are in decode_rows.cuh.
+// `paged_decode_attention`).
+//
+// K6 has two bodies, chosen by the call's shape: a call of rows = g*s
+// <= 16 (every decode step) runs the split-K body of decode_split.cuh
+// and, when it has more than one split, its combine kernel; a wider call
+// (the 256-token prefill chunk fused into a paged step) runs the 64-row
+// body of decode_rows.cuh, which already has several row tiles per
+// (batch, kv head) there. K7 runs the 64-row body. The bodies, their
+// int8 arithmetic and what bounds them are in the two headers.
 //
 // The pools are (hkv, nblocks, page, d), shared by every batch row, and
 // a (b, max_blocks) int32 page table maps logical block j of row b to
@@ -16,7 +23,7 @@
 // blocks the table names; for K7 the scale pools (hkv, nblocks, page)
 // are read at the same storage row as the values.
 
-#include "decode_rows.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -52,17 +59,26 @@ extern "C" {
 // q: (b*hkv, rows, head_dim) with rows = g*s, bf16 or fp32 (is_bf16);
 // k, v: (hkv, nblocks, page, head_dim) pools of q's dtype; valid_len:
 // (b,) int32; pages: (b, max_blocks) int32; o like q. All contiguous on
-// the current device. window <= 0 means none. Returns 0 or a
-// cudaError_t code.
+// the current device. window <= 0 means none. rows <= 16 takes the
+// split body with n_splits splits of split_keys keys (a multiple of 64,
+// n_splits * split_keys >= max_blocks * page) and, for n_splits > 1, an
+// fp32 workspace of n_splits * b*hkv * rows * (head_dim + 2) values;
+// wider calls take the 64-row body and need n_splits == 1. Returns 0 or
+// a cudaError_t code.
 int hops_paged_decode_attention(const void* q, const void* k, const void* v,
-                                const void* valid_len, const void* pages, void* o, int b,
-                                int hkv, int rows, int s, int page, int max_blocks,
-                                int nblocks, int head_dim, int is_bf16, float sm_scale,
-                                int window, void* stream) {
+                                const void* valid_len, const void* pages, void* o,
+                                void* workspace, int b, int hkv, int rows, int s, int page,
+                                int max_blocks, int nblocks, int head_dim, int is_bf16,
+                                float sm_scale, int window, int n_splits, int split_keys,
+                                void* stream) {
   hops::decode::Args a{};
   if (!paged_args(a, q, k, v, valid_len, pages, o, hkv, rows, s, page, max_blocks, nblocks,
                   sm_scale, window))
     return (int)cudaErrorInvalidValue;
+  if (rows <= hops::split::MAX_ROWS)
+    return hops::split::dispatch(a, b, head_dim, is_bf16, static_cast<float*>(workspace),
+                                 n_splits, split_keys, stream);
+  if (n_splits != 1) return (int)cudaErrorInvalidValue;
   return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
 }
 

@@ -6,8 +6,8 @@ machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tolerances: the bf16 tensor-core bodies (K1's o, K3's dk and dv)
-against the fp32 plain version per element within their rounding,
+Tolerances: the bf16 tensor-core bodies (K1's o, K2's dq, K3's dk and
+dv) against the fp32 plain version per element within their rounding,
 ``2**-8 * (mag + |plain|) + slack`` (``mag``: the product whose operand
 the body rounds to bf16, over magnitudes; ``slack``: the kernel's fp32
 bound), and K1's lse within ``1e-4``; the other kernels' bf16 inputs
@@ -53,10 +53,12 @@ def _close_rounded(out, ref, mag, slack):
 
 
 def _bwd_magnitudes(q, k, v, do, lse, delta, causal, q_offset, window):
-    """``mag`` of K3's dk (``|ds|^T |q|``) and dv (``p^T |do|``), fp32."""
+    """``mag`` of K2's dq (``|ds| |k|``: dS rounded), K3's dk (``|ds|^T
+    |q|``: dS^T rounded) and dv (``p^T |do|``: P^T rounded), fp32."""
     sm_scale, q_offset = T._attention_args(q, k, causal, None, q_offset, window)
     p, ds = T._bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
-    return (torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q.abs()),
+    return (torch.einsum("bhqk,bhkd->bhqd", ds.abs(), k.abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q.abs()),
             torch.einsum("bhqk,bhqd->bhkd", p, do.abs()))
 
 
@@ -90,10 +92,12 @@ def test_flash_kernel_matches_plain(d, sq, sk, causal, window):
     (512, 512, True, 100, None), (64, 1024, True, None, None),
     (200, 333, True, 64, 150),  # keys 0..86 seen by no query
     (128, 128, True, None, -40),  # rows 0..39 see no key
-    # around the bf16 bodies' 128-key and 64-query tiles; one query row;
-    # a window wider than a tile
+    # around the bf16 bodies' tiles (K2: 128 queries x 64 keys; K3: 128
+    # keys x 64 queries); one query row; a window wider than a tile
     (127, 127, True, None, None), (128, 128, False, None, None), (129, 129, True, None, None),
     (255, 255, True, None, None), (1, 255, True, None, None), (300, 300, True, 130, None),
+    (63, 63, True, None, None), (64, 64, False, None, None), (65, 65, True, None, None),
+    (1, 1, True, None, None), (65, 129, True, None, None),
 ])
 def test_flash_bwd_kernels_match_plain(dtype, d, sq, sk, causal, window, q_offset):
     """K2 and K3 against their plain versions on the same (o, lse) from
@@ -114,14 +118,12 @@ def test_flash_bwd_kernels_match_plain(dtype, d, sq, sk, causal, window, q_offse
     f = [t.float() for t in (q, k, v, do)]
     ref_dq = T.flash_bwd_dq_reference(*f, lse, delta, **kw)
     ref_dk, ref_dv = T.flash_bwd_dkv_reference(*f, lse, delta, **kw)
-    mags = (None, *_bwd_magnitudes(*f, lse, delta, **kw))
-    for out, ref, mag in ((dq, ref_dq, mags[0]), (dk, ref_dk, mags[1]), (dv, ref_dv, mags[2])):
+    mags = _bwd_magnitudes(*f, lse, delta, **kw)
+    for out, ref, mag in zip((dq, dk, dv), (ref_dq, ref_dk, ref_dv), mags):
         assert out.dtype == dtype
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         if dtype == torch.float32:
             assert (out - ref).abs().max().item() <= tol
-        elif mag is None:  # K2 computes in fp32 whatever the input type
-            _close_bf16(out, ref)
         else:
             _close_rounded(out, ref, mag, tol)
     if q_offset == -40:
@@ -158,7 +160,7 @@ def test_flash_kernel_rows_that_see_no_key(dtype, d, sq, sk, window, q_offset, u
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_bf16_flash_kernels_are_bit_reproducible(d):
-    """Two launches of K1 and of K3 on the same bf16 inputs give the
+    """Two launches of K1, K2 and K3 on the same bf16 inputs give the
     same bits (no atomics, a fixed summation order)."""
     dev = _card()
     g = torch.Generator().manual_seed(16)
@@ -168,7 +170,8 @@ def test_bf16_flash_kernels_are_bit_reproducible(d):
     for _ in range(2):
         o, lse = T.flash_attention(q, k, v, causal=True, window=300, return_lse=True)
         delta = (o.float() * do.float()).sum(-1)
-        runs.append((o, lse, *T.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=300)))
+        runs.append((o, lse, T.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=300),
+                     *T.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=300)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -363,23 +366,27 @@ def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
     assert sum(after.values()) == sum(before.values()) + 1
     kf, vf = (k, v) if quantized else (k.float(), v.float())
     ref = T.paged_decode_attention_reference(q.float(), kf, vf, vl, pages, window=256, **scales)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and not quantized and (8 // hkv) * s <= T.SPLIT_ROWS:
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # K6's split body: output rounding
+    elif dtype == torch.bfloat16:
         _close_bf16(o, ref)
     else:
         assert (o - torch.nan_to_num(ref.float(), nan=0.0)).abs().max().item() <= 1e-4
     assert not o[0].any()
 
 
+@pytest.mark.parametrize("s", [1, 40], ids=["decode", "chunk"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32pool", "int8pool"])
-def test_paged_kernels_never_read_the_scratch_block(quantized):
+def test_paged_kernels_never_read_the_scratch_block(quantized, s):
     """Block 0 filled with ±1e30 and NaN (int8: ±127 values, NaN and
     1e30 scales): outputs bit-identical, since no row maps block 0 below
-    its valid length."""
+    its valid length. One token (rows 4: K6's split body, 8 splits) and a
+    40-token chunk (rows 160: the 64-row body)."""
     dev = _card()
     g = torch.Generator().manual_seed(13)
     valid = [0, 17, 63, 1000]
     pages, nblocks = _pages(16, valid, g, dev)
-    q = torch.randn(4, 8, 1, 128, generator=g).to(dev)
+    q = torch.randn(4, 8, s, 128, generator=g).to(dev)
     pools = [torch.randn(2, nblocks, 16, 128, generator=g).to(dev) for _ in range(2)]
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
     scales = {}
@@ -402,7 +409,8 @@ def test_paged_kernels_never_read_the_scratch_block(quantized):
 def test_paged_kernels_hide_keys_behind_out_of_range_entries(quantized):
     """A table entry past the pool (or negative) below valid_len is read
     as no key at all: a one-token query at position 31 whose second page
-    maps nowhere attends to the first page's 16 keys alone."""
+    maps nowhere attends to the first page's 16 keys alone (K6: the split
+    body, whose later splits are empty)."""
     dev = _card()
     g = torch.Generator().manual_seed(14)
     pages, nblocks = _pages(16, [32, 32], g, dev)
@@ -419,6 +427,63 @@ def test_paged_kernels_hide_keys_behind_out_of_range_entries(quantized):
     ref = T.paged_decode_attention_reference(q, k, v, torch.tensor([16, 16], device=dev),
                                              pages, **scales)
     assert (o - ref).abs().max().item() <= 1e-4
+
+
+# K6's split body: (page, capacity, hkv, s, valid_len per row, window);
+# 128-key splits, so valid_len 127/128/129 straddle the first boundary.
+SPLIT_CASES = {
+    "boundaries": (64, 2048, 8, 1, [127, 128, 129, 2048], None),
+    "later_splits_empty": (64, 2048, 8, 1, [1, 64, 300, 0], None),
+    "window_empties_leading": (64, 2048, 2, 1, [1000, 700, 513, 2048], 100),
+    "gqa_rows_4": (16, 2048, 2, 1, [1023, 1024, 1025, 17], None),
+    "gqa_chunk_rows_16": (16, 2048, 2, 4, [4, 512, 767, 2048], 300),
+    "rows_5": (64, 2048, 8, 5, [5, 258, 1531, 2048], None),
+    "page_24": (24, 2064, 2, 1, [2064, 255, 257, 0], None),
+    "capacity_not_a_multiple": (16, 2000, 8, 1, [2000, 1999, 1793, 1], 600),
+    "one_split": (16, 128, 8, 1, [128, 65, 64, 1], None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(SPLIT_CASES), ids=list(SPLIT_CASES))
+def test_paged_split_body_matches_plain(dtype, d, case):
+    """K6 on decode calls (rows <= 16: the split body and its combine)
+    against the plain version, and against the split-and-merge plain
+    version; a row with valid_len 0 is exactly 0."""
+    page, cap, hkv, s, valid, window = SPLIT_CASES[case]
+    dev = _card()
+    g = torch.Generator().manual_seed(17)
+    mb = cap // page
+    nblocks = 1 + len(valid) * mb
+    perm = (torch.randperm(nblocks - 1, generator=g) + 1).tolist()
+    pages = torch.zeros(len(valid), mb, dtype=torch.int32)
+    for r, n in enumerate(valid):
+        need = -(-n // page)
+        pages[r, :need] = torch.tensor(perm[:need], dtype=torch.int32)
+        perm = perm[need:]
+    pages = pages.to(dev)
+    q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(hkv, nblocks, page, d, generator=g).to(dev, dtype) for _ in range(2))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    assert (8 // hkv) * s <= T.SPLIT_ROWS
+    before = T.launch_counts()
+    o = T.paged_decode_attention(q, k, v, vl, pages, window=window)
+    after = T.launch_counts()
+    assert after["paged_decode_attention"] == before["paged_decode_attention"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    f = [t.float() for t in (q, k, v)]
+    ref = T.paged_decode_attention_reference(*f, vl, pages, window=window)
+    split = T.paged_decode_split_reference(*f, vl, pages, window=window)
+    torch.testing.assert_close(split, torch.nan_to_num(ref, nan=0.0), atol=1e-5, rtol=0)
+    if dtype == torch.bfloat16:
+        # fp32 arithmetic on the bf16 inputs: only the output is rounded.
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)
+    else:
+        assert (o - torch.nan_to_num(ref, nan=0.0)).abs().max().item() <= 1e-4
+    for r, n in enumerate(valid):
+        if n == 0:
+            assert not o[r].any()
 
 
 @pytest.mark.parametrize("lm_config", [
