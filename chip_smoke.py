@@ -10,15 +10,19 @@ failure exits non-zero:
 1. card     — the card's name and power limit (``nvidia-smi``);
 2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, five sources), with the build's wall time;
-   for the bf16 tensor-core bodies of K1, K2 and K3 (head dims 64 and
-   128) the registers and spills ptxas reports, the dynamic shared
-   memory they launch with and, where ``cuobjdump`` exists, the count of
-   HGMMA instructions in their SASS, which must not be 0; for K6's
-   split-K body and combine kernel their registers and spills;
+   for the bf16 tensor-core bodies of K1, K2, K3 and K6's prefill chunks
+   (head dims 64 and 128) the registers and spills ptxas reports, the
+   dynamic shared memory they launch with and, where ``cuobjdump``
+   exists, the count of HGMMA instructions in their SASS, which must not
+   be 0; for the split-K body of K4 (dense) and K6 (paged) and its
+   combine kernel their registers and spills;
 3. kernels  — the forward and decode kernels (K1, K4) against their
    plain PyTorch versions (fp32) on the same seeded inputs: K1's bf16
-   tensor-core body per element within its rounding bound (below), K4's
-   bf16 inputs within ``2e-2 + 2e-2 * max|plain|``, fp32 inputs at the
+   tensor-core body per element within its rounding bound (below); K4's
+   decode calls (rows <= 16, its split-K body) with bf16 inputs per
+   element within ``2**-8 * |plain| + 1e-4``, also across its 128-key
+   split boundaries (``DENSE_SPLIT_CASES``), and its wider calls (the
+   64-row body) within ``2e-2 + 2e-2 * max|plain|``; fp32 inputs at the
    same shapes within 1e-4, and the flash kernel's lse within 1e-4;
 3b. backward — the flash backward kernels (K2 dq, K3 dk/dv) against
    their plain versions on the same (o, lse) from K1, at the same
@@ -41,10 +45,16 @@ failure exits non-zero:
    decode calls across its 128-key split boundaries (valid_len L - 1, L,
    L + 1, full capacity, 0; a window that empties the leading splits;
    GQA rows 4, chunks of rows 5 and 8; pages 16 and 24; capacities 2000
-   and 2064, not multiples of L). K6's decode calls (rows <= 16, the
-   split body) with bf16 inputs are held per element to ``2**-8 *
-   |plain| + 1e-4``: the body computes in fp32 and rounds only its
-   output, so that is all the room bf16 gives it;
+   and 2064, not multiples of L), then K6's bf16 prefill-chunk body
+   (``WIDE_CASES``: rows 17, 100 and 256, GQA rows 20 and 100; pages 64,
+   16 and 24; valid_len 0, below s, a page boundary + 1, past the row's
+   allocated blocks (its pad positions read the scratch block) and full
+   capacity; window 256; the scratch block at ±1e30 changes no bit of a
+   row that does not reach it). K6's decode calls (rows <= 16, the split
+   body) with bf16 inputs are held per element to ``2**-8 * |plain| +
+   1e-4``: the body computes in fp32 and rounds only its output, so that
+   is all the room bf16 gives it; its bf16 prefill chunks to the
+   tensor-core rounding bound below (p rounded for p·v);
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
    1024, 8 heads of 128, 12 layers, bf16, max_decode_len 2048) written
    as an artifact, served by ``LMEnginePredictor`` with 4 slots: 8 greedy
@@ -57,7 +67,9 @@ failure exits non-zero:
 5. timing   — each kernel at the serving path's shapes beside its bound,
    its plain version and one PyTorch library call;
 6. profile  — a ``torch.profiler`` trace of 10 engine decode steps:
-   device busy time, idle share, and the kernels that take the time;
+   device busy time, idle share, the kernels that take the time, and
+   K4's share (its split body and combine must launch, the 64-row body
+   must not);
 7. train    — the training slice at full width: the same LM with fp32
    master weights and bf16 compute, ``create_train_state`` (Adam 1e-3)
    and ``make_lm_train_step(loss_chunk=512)`` on one seeded batch of
@@ -89,8 +101,11 @@ failure exits non-zero:
    fp32); checks the logits
    of two requests as phase 4 does, against the plain attention
    versions on the same cache type; after (b), a ``torch.profiler``
-   trace of 10 paged decode steps at 4 busy slots (as phase 6: device
-   busy, idle share, launches per step, and K6's share);
+   trace of one fused prefill-chunk step (device busy, and the share of
+   K6's tensor-core chunk body, which must launch where the 64-row body
+   must not) and of 10 paged decode steps at 4 busy slots (as phase 6:
+   device busy, idle share, launches per step, and K6's share). (b) must
+   launch K6's split body (decode) and its chunk body (prefill chunks);
 8b. parity  — 2 layers at full width in fp32: the paged engine against
    the dense engine of the same cache dtype (fp32 pools, int8 pools) on
    a pool of 5 usable blocks that forces a preemption; greedy streams
@@ -110,8 +125,9 @@ Phase 5's rows for K2 and K3 are timed after phase 7, at (8, 8, 2048,
 128) bf16 causal, beside the launches per train step; its rows for K5,
 K6 and K7 after phase 8b, at phase 5's decode shape, beside their
 launches in phase 8, with K6's split count, and K6 once more at the
-width of a 256-token prefill chunk (its 64-row body; printed, not in
-the JSON line). The
+width of a 256-token prefill chunk of every slot (its tensor-core chunk
+body, a record of its own, ``paged_decode_attention_chunk``, beside its
+launches in phase 8 (b)). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -158,22 +174,30 @@ GRAD_SEEDS = 3
 # Phase 2: the bf16 tensor-core bodies, by source and ptxas entry name.
 TC_BODIES = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "dq_kernel",
              "flash_bwd_dkv": "dkv_kernel"}
+# ... and K6's prefill-chunk body, in the paged source.
+CHUNK_BODY = "chunk_kernel"
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The device-kernel names of each, as the profiler reports them (bf16
 # tensor-core bodies and fp32 FMA bodies).
 TRAIN_KERNEL_NAMES = {"flash_fwd": ("tc::fwd_kernel", "flash_fwd_kernel"),
                       "flash_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
                       "flash_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel")}
-# K6's device kernels: the split-K body and its combine (decode steps),
-# the 64-row body (prefill chunks).
-K6_KERNEL_NAMES = ("split::split_kernel", "split::combine_kernel", "decode_rows_kernel")
-# Phase 8: (name, lm_config, the kernel it runs). (c)'s 64 usable blocks
-# hold 4096 tokens, under the ~5000 the four largest requests reach.
+# The device kernels of K4's and K6's split-K body and its combine
+# (decode steps), K6's tensor-core chunk body (bf16 prefill chunks) and
+# the 64-row body (wider fp32 calls; K5, K7), as the profiler names them.
+SPLIT_KERNEL_NAMES = ("split::split_kernel", "split::combine_kernel")
+CHUNK_KERNEL_NAME = "chunk::chunk_kernel"
+ROWS_KERNEL_NAME = "decode_rows_kernel"
+K6_KERNEL_NAMES = (*SPLIT_KERNEL_NAMES, CHUNK_KERNEL_NAME, ROWS_KERNEL_NAME)
+# Phase 8: (name, lm_config, the kernels it runs, every one of which must
+# launch). (c)'s 64 usable blocks hold 4096 tokens, under the ~5000 the
+# four largest requests reach.
 CACHE_SLICES = (
-    ("int8", {"slots": 4, "kv_cache_dtype": "int8"}, "decode_attention_q8"),
-    ("paged", {"slots": 4, "kv_page_size": 64, "prefill_chunk": 256}, "paged_decode_attention"),
+    ("int8", {"slots": 4, "kv_cache_dtype": "int8"}, ("decode_attention_q8",)),
+    ("paged", {"slots": 4, "kv_page_size": 64, "prefill_chunk": 256},
+     ("paged_decode_attention", "paged_decode_attention_chunk")),
     ("paged-int8", {"slots": 4, "kv_cache_dtype": "int8", "kv_page_size": 64,
-                    "kv_pool_blocks": 65, "prefill_chunk": 256}, "paged_decode_attention_q8"),
+                    "kv_pool_blocks": 65, "prefill_chunk": 256}, ("paged_decode_attention_q8",)),
 )
 PEAK_POOL_SHARE = 0.9
 # Phase 3c, K6's split-K body (128-key splits): (page, capacity, kv
@@ -184,6 +208,19 @@ SPLIT_CASES = (
     (16, 2000, 8, 5, [5, 258, 1531, 2000, 1999], None),  # rows 5; cap not a multiple of L
     (24, 2064, 2, 2, [2064, 255, 257, 0, 1025], 300),  # page 24; rows 8
 )
+# Phase 3, K4's split-K body (128-key splits) on the dense cache:
+# (capacity, kv heads of 8 query heads, query tokens, valid_len per row,
+# window).
+DENSE_SPLIT_CASES = (
+    (2048, 8, 1, [127, 128, 129, 2048, 0], None),  # L - 1, L, L + 1, full, empty
+    (2048, 2, 1, [1000, 700, 513, 2048, 1], 100),  # leading splits empty; GQA rows 4
+    (2000, 8, 5, [5, 258, 1531, 2000, 1999], None),  # rows 5; cap not a multiple of L
+    (2048, 8, 8, [3, 255, 257, 0, 1025], 300),  # rows 8, valid_len 3 < s
+)
+# Phase 3c, K6's bf16 prefill-chunk body: (kv heads of 8 query heads,
+# query tokens), rows 17, 100, 256, GQA 20 and 100 (64-row tiles that
+# span heads).
+WIDE_CASES = ((8, 17), (8, 100), (8, 256), (2, 5), (2, 25))
 # Phase 8b: two 60-token prompts with 70 new tokens each need 3 blocks
 # of 64 apiece at their deepest write; the pool has 5.
 PARITY = dict(MODEL, num_layers=2, dtype="float32")
@@ -193,6 +230,7 @@ TIE_REL = 1e-4
 CACHE_KERNELS = {
     "decode_attention_q8": ("decode_attention_q8.cu", 1211),
     "paged_decode_attention": ("paged_decode_attention.cu", 916),
+    "paged_decode_attention_chunk": ("decode_chunk.cuh", 916),
     "paged_decode_attention_q8": ("paged_decode_attention.cu", 965),
 }
 
@@ -204,9 +242,10 @@ def fail(msg: str) -> int:
 
 # Phase 3 bounds. bf16 inputs of the kernels that compute in fp32
 # (K4-K7): 2e-2 + 2e-2 * max|plain|, room for the bf16 output's rounding;
-# K6's split body per element to that rounding (output_rounding_close).
-# The bf16 tensor-core bodies of K1, K2 and K3 round operands too, and
-# are held per element to the bound that rounding allows (rounding_close).
+# the split body of K4 and K6 per element to that rounding
+# (output_rounding_close). The bf16 tensor-core bodies of K1, K2, K3 and
+# K6's chunks round operands too, and are held per element to the bound
+# that rounding allows (rounding_close).
 # fp32 inputs at the same shapes: an absolute 1e-4, tight enough that one
 # dropped key tile of a long row fails. lse: an absolute 1e-4 for both.
 BF16_ATOL, BF16_REL = 2e-2, 2e-2
@@ -292,8 +331,8 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def ptxas_entries(text: str) -> dict[str, dict[str, int]]:
-    """Registers and spill bytes per entry function of a ``-Xptxas=-v``
-    report."""
+    """Registers, stack frame and spill bytes per entry function of a
+    ``-Xptxas=-v`` report."""
     out: dict[str, dict[str, int]] = {}
     name = None
     for line in text.splitlines():
@@ -302,6 +341,9 @@ def ptxas_entries(text: str) -> dict[str, dict[str, int]]:
             name = m.group(1)
             out[name] = {}
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name]["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
@@ -311,48 +353,68 @@ def ptxas_entries(text: str) -> dict[str, dict[str, int]]:
     return out
 
 
-def report_tc_bodies(_build, report) -> None:
-    """Phase 2 for the bf16 tensor-core bodies of K1, K2 and K3: per head
-    dim the registers and spills from ptxas, the dynamic shared memory
-    from the library, and the HGMMA count in the SASS (fails at 0). Then
-    the registers and spills of K6's split-K body, per (dtype, head dim,
-    rows bucket), and of its combine kernel."""
-    import ctypes
+def hgmma_counts(cuobjdump: str, path: str) -> dict[str, int]:
+    """HGMMA instructions per function in a library's SASS ({} without
+    ``cuobjdump``)."""
     import subprocess
+
+    if not Path(cuobjdump).exists():
+        return {}
+    dump = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    return {fn: text.count("HGMMA") for fn, text in re.findall(
+        r"Function : (\S+)(.*?)(?=Function : |\Z)", dump, re.S)}
+
+
+def report_tc_body(name: str, fn: str, e: dict, smem: int, sass: dict, label: str) -> None:
+    hgmma = sass.get(fn) if sass else None
+    print(f"  {name} {label}: {e['registers']} registers, stack frame {e['stack']} bytes, "
+          f"spill stores {e['spill_stores']} bytes, "
+          f"spill loads {e['spill_loads']} bytes, dynamic shared memory {smem} bytes, HGMMA "
+          "instructions " + ("not counted (no cuobjdump)" if hgmma is None else str(hgmma)),
+          flush=True)
+    if hgmma == 0:
+        raise AssertionError(f"{name} {label}: the bf16 body has no HGMMA instruction")
+
+
+def report_tc_bodies(_build, report) -> None:
+    """Phase 2 for the bf16 tensor-core bodies of K1, K2, K3 and K6's
+    prefill chunks: per head dim the registers and spills from ptxas, the
+    dynamic shared memory from the library, and the HGMMA count in the
+    SASS (fails at 0). Then the registers and spills of the split-K body
+    of K4 (dense) and K6 (paged), per (dtype, head dim, rows bucket), and
+    of its combine kernel."""
+    import ctypes
 
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
     for name, body in TC_BODIES.items():
         r = report[name]
         entries = ptxas_entries(r["ptxas"])
-        lib = ctypes.CDLL(r["path"])
-        smem = getattr(lib, _build.KERNELS[name][1] + "_smem_bytes")
+        smem = getattr(ctypes.CDLL(r["path"]), _build.KERNELS[name][1] + "_smem_bytes")
         smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        sass = {}
-        if Path(cuobjdump).exists():
-            dump = subprocess.run([cuobjdump, "-sass", r["path"]], capture_output=True,
-                                  text=True, check=True).stdout
-            sass = {fn: text.count("HGMMA") for fn, text in re.findall(
-                r"Function : (\S+)(.*?)(?=Function : |\Z)", dump, re.S)}
+        sass = hgmma_counts(cuobjdump, r["path"])
         for d in (64, 128):
-            tag = f"2tc{len(body)}{body}ILi{d}E"
-            fn = next(n for n in entries if tag in n)
-            e = entries[fn]
-            hgmma = sass.get(fn) if sass else None
-            print(f"  {name} bf16 tensor-core body d{d}: {e['registers']} registers, spill "
-                  f"stores {e['spill_stores']} bytes, spill loads {e['spill_loads']} bytes, "
-                  f"dynamic shared memory {smem(d, 1)} bytes, HGMMA instructions "
-                  + ("not counted (no cuobjdump)" if hgmma is None else str(hgmma)), flush=True)
-            if hgmma == 0:
-                raise AssertionError(f"{name} d{d}: the bf16 body has no HGMMA instruction")
-    entries = ptxas_entries(report["paged_decode_attention"]["ptxas"])
-    for fn, e in sorted(entries.items()):
-        m = re.search(r"(split_kernel|combine_kernel)I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?", fn)
-        if m:
-            kind, t, d, rows = m.groups()
-            print(f"  paged_decode_attention {kind} {'bf16' if t != 'f' else 'fp32'} d{d}"
-                  + (f" rows<={rows}" if rows else "") + f": {e['registers']} registers, spill "
-                  f"stores {e['spill_stores']} bytes, spill loads {e['spill_loads']} bytes",
-                  flush=True)
+            fn = next(n for n in entries if f"2tc{len(body)}{body}ILi{d}E" in n)
+            report_tc_body(name, fn, entries[fn], smem(d, 1), sass, f"bf16 tensor-core body d{d}")
+    r = report["paged_decode_attention"]
+    entries = ptxas_entries(r["ptxas"])
+    smem = ctypes.CDLL(r["path"]).hops_paged_decode_attention_chunk_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    sass = hgmma_counts(cuobjdump, r["path"])
+    for d in (64, 128):
+        fn = next(n for n in entries if f"{CHUNK_BODY}ILi{d}E" in n)
+        report_tc_body("paged_decode_attention", fn, entries[fn], smem(d), sass,
+                       f"bf16 tensor-core chunk body d{d}")
+    for name in ("decode_attention", "paged_decode_attention"):
+        for fn, e in sorted(ptxas_entries(report[name]["ptxas"]).items()):
+            m = re.search(r"(split_kernel|combine_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
+                          r"(?:Li(\d+)ELb[01]E)?", fn)
+            if m:
+                kind, t, d, rows = m.groups()
+                print(f"  {name} {kind} {'bf16' if t != 'f' else 'fp32'} d{d}"
+                      + (f" rows<={rows}" if rows else "") + f": {e['registers']} registers, "
+                      f"stack frame {e['stack']} bytes, spill stores {e['spill_stores']} bytes, "
+                      f"spill loads {e['spill_loads']} bytes", flush=True)
 
 
 def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
@@ -404,13 +466,47 @@ def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                         torch.cuda.synchronize()
                         ref = A.decode_attention_reference(
                             q.float(), kc.float(), vc.float(), vl, window=window)
-                        err, tol, ok = close(o, ref, atol, rel)
+                        if dtype == torch.bfloat16 and (8 // hkv) * s <= A.SPLIT_ROWS:
+                            err, ratio, ok = output_rounding_close(o, ref)  # the split body
+                            bound_note = f"split body, worst err/rounding bound {ratio:.3f}"
+                        else:
+                            err, tol, ok = close(o, ref, atol, rel)
+                            bound_note = f"bound {tol:.3e}"
                         worst["decode_attention"][dname] = max(worst["decode_attention"][dname], err)
                         name = (f"decode_attention {dname} b4 h8 hkv {hkv} d{d} s {s} cap 2048 "
                                 f"valid_len [0,1,700,2048] window={window}")
-                        print(f"  {name}: err {err:.3e} (bound {tol:.3e})", flush=True)
+                        print(f"  {name}: err {err:.3e} ({bound_note})", flush=True)
                         if not ok:
                             bad.append(name)
+            # K4's split body across its split boundaries.
+            err_split = ratio_split = 0.0
+            for cap, hkv, s, valid, window in DENSE_SPLIT_CASES:
+                vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+                q = rand(len(valid), 8, s, d)
+                kc, vc = rand(len(valid), hkv, cap, d), rand(len(valid), hkv, cap, d)
+                before = A.launch_counts()["decode_attention"]
+                o = A.decode_attention(q, kc, vc, vl, window=window)
+                torch.cuda.synchronize()
+                ref = A.decode_attention_reference(q.float(), kc.float(), vc.float(), vl,
+                                                   window=window)
+                if dtype == torch.bfloat16:
+                    err, ratio, ok = output_rounding_close(o, ref)
+                    ratio_split = max(ratio_split, ratio)
+                    miss = f"err/rounding bound {ratio:.3f}"
+                else:
+                    err, tol, ok = close(o, ref, atol)
+                    miss = f"{err:.3e} > {tol:.3e}"
+                err_split = max(err_split, err)
+                ok = ok and not o[vl == 0].any()
+                ok = ok and A.launch_counts()["decode_attention"] == before + 1
+                if not ok:
+                    bad.append(f"decode_attention split body {dname} d{d} cap {cap} hkv {hkv} "
+                               f"s {s} valid_len {valid} window={window}: {miss}")
+            worst["decode_attention"][dname] = max(worst["decode_attention"][dname], err_split)
+            bound_note = (f"per element 2^-8*|plain| + {FP32_ATOL:.0e}, worst err/bound "
+                          f"{ratio_split:.3f}" if dtype == torch.bfloat16 else f"bound {atol:.0e}")
+            print(f"  {dname} d{d}: decode_attention split body over {len(DENSE_SPLIT_CASES)} "
+                  f"split-boundary cases: worst err {err_split:.3e} ({bound_note})", flush=True)
     if bad:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(bad))
     return worst
@@ -547,7 +643,9 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                     # K6's bf16 decode calls run the split body: held to
                     # its output's rounding alone.
                     split_bf16 = dtype == torch.bfloat16 and (h // hkv) * s <= A.SPLIT_ROWS
-                    split_ratio = 0.0
+                    # Its bf16 prefill chunks run the tensor-core chunk body.
+                    chunk_bf16 = dtype == torch.bfloat16 and not split_bf16
+                    split_ratio = chunk_ratio = 0.0
                     # K5: tile boundary +-1 and full capacity.
                     vl = torch.tensor([0, 1, 63, 65, cap], dtype=torch.int32, device=dev)
                     (kq, ks), (vq, vs) = (A.quantize_kv(torch.randn(b, hkv, cap, d, generator=gen)
@@ -572,6 +670,8 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                                  for _ in range(2)]
                         quant = [A.quantize_kv(p) for p in pools]
                         for name in ("paged_decode_attention", "paged_decode_attention_q8"):
+                            if name == "paged_decode_attention" and chunk_bf16:
+                                name = "paged_decode_attention_chunk"
                             if name.endswith("q8"):
                                 (k, ksc), (v, vsc) = quant
                                 scales = dict(k_scale=ksc, v_scale=vsc)
@@ -588,6 +688,13 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                                 if split_bf16 and not scales:
                                     err, ratio, ok = output_rounding_close(o, ref)
                                     split_ratio = max(split_ratio, ratio)
+                                    miss = f"err/rounding bound {ratio:.3f}"
+                                elif name == "paged_decode_attention_chunk":
+                                    mag = A.paged_decode_attention_reference(
+                                        q.float(), plain_kv[0], plain_kv[1].abs(), vl, pages,
+                                        window=window)
+                                    err, ratio, ok = rounding_close(o, ref, mag, FP32_ATOL)
+                                    chunk_ratio = max(chunk_ratio, ratio)
                                     miss = f"err/rounding bound {ratio:.3f}"
                                 else:
                                     err, tol, ok = close(o, ref, atol, rel)
@@ -618,6 +725,8 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                         + f" (bound {atol:.0e}{' + 2e-2*max|plain|' if rel else ''}"
                         + (f"; paged_decode_attention's split body per element 2^-8*|plain| + "
                            f"{FP32_ATOL:.0e}, worst err/bound {split_ratio:.3f}" if split_bf16 else "")
+                        + (f"; paged_decode_attention_chunk per element 2^-8*(p|v| + |plain|) + "
+                           f"{FP32_ATOL:.0e}, worst err/bound {chunk_ratio:.3f}" if chunk_bf16 else "")
                         + "); scratch block unreachable", flush=True)
             # K6's split body across its split boundaries.
             err_split = ratio_split = 0.0
@@ -650,9 +759,60 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                           f"{ratio_split:.3f}" if dtype == torch.bfloat16 else f"bound {atol:.0e}")
             print(f"  {dname} d{d}: paged_decode_attention split body over {len(SPLIT_CASES)} "
                   f"split-boundary cases: worst err {err_split:.3e} ({bound_note})", flush=True)
+            if dtype == torch.bfloat16:
+                bad += check_chunk_body(A, torch, gen, dev, d, run, worst)
     if bad:
         raise AssertionError("cache kernel disagrees with its plain version: " + "; ".join(bad))
     return worst
+
+
+def check_chunk_body(A, torch, gen, dev, d: int, run, worst) -> list[str]:
+    """Phase 3c for K6's bf16 prefill-chunk body at head dim ``d``: the
+    ``WIDE_CASES`` on pages 64, 16 and 24, windows none and 256, against
+    the plain version per element within ``2**-8 * (p|v| + |plain|) +
+    1e-4``; rows with valid_len 0 and rows before position 0 exactly 0;
+    then the scratch block at ±1e30 and the outputs of every row that
+    does not reach it bit-identical. Returns the cases that missed."""
+    bad = []
+    cap, b, h = 2048, 5, 8
+    name = "paged_decode_attention_chunk"
+    for page in (64, 16, 24):
+        err_max = ratio_max = 0.0
+        mb = -(-cap // page)
+        for hkv, s in WIDE_CASES:
+            # valid_len 0, below s, a page boundary + 1, past the blocks
+            # row 3 holds (its last two pages map the scratch block), full.
+            valid = [0, max(s - 3, 1), 5 * page + 1, 1300, mb * page]
+            alloc = [*valid[:3], 1300 - 2 * page, valid[4]]
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+            pages, nblocks = shuffled_pages(torch, gen, alloc, page, cap, dev)
+            q = torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16)
+            k, v = (torch.randn(hkv, nblocks, page, d, generator=gen).to(dev, torch.bfloat16)
+                    for _ in range(2))
+            kf, vf = k.float(), v.float()
+            for window in (None, 256):
+                o = run(name, lambda: A.paged_decode_attention(q, k, v, vl, pages, window=window), q)
+                ref = A.paged_decode_attention_reference(q.float(), kf, vf, vl, pages, window=window)
+                mag = A.paged_decode_attention_reference(q.float(), kf, vf.abs(), vl, pages,
+                                                         window=window)
+                err, ratio, ok = rounding_close(o, ref, mag, FP32_ATOL)
+                err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
+                ok = ok and not o[0].any() and not o[1, :, :s - valid[1]].any()
+                if not ok:
+                    bad.append(f"{name} d{d} page {page} hkv {hkv} s {s} window={window}: "
+                               f"err/rounding bound {ratio:.3f}")
+            clean = A.paged_decode_attention(q, k, v, vl, pages)
+            k[:, 0], v[:, 0] = 1e30, -1e30
+            dirty = run(name, lambda: A.paged_decode_attention(q, k, v, vl, pages), q)
+            if not torch.equal(dirty[[0, 1, 2, 4]], clean[[0, 1, 2, 4]]):
+                bad.append(f"{name} d{d} page {page} hkv {hkv} s {s}: the scratch block reached "
+                           "a row that does not map it")
+        worst[name]["bfloat16"] = max(worst[name]["bfloat16"], err_max)
+        print(f"  bfloat16 d{d} page {page}: paged_decode_attention_chunk over {len(WIDE_CASES)} "
+              f"shapes (rows {', '.join(str(8 // hkv * s) for hkv, s in WIDE_CASES)}) x windows "
+              f"none/256: worst err {err_max:.3e}, worst err/rounding bound {ratio_max:.3f}; "
+              "scratch block reaches only the row that maps it", flush=True)
+    return bad
 
 
 def check_logits(model, torch, prompts, answers, dev) -> None:
@@ -909,7 +1069,7 @@ def time_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
         plain_ms=cuda_ms(lambda i=0: A.decode_attention_reference(q, *caches[i % layers], vl), 24),
         library_ms=cuda_ms(
             lambda i=0: F.scaled_dot_product_attention(q, *caches[i % layers], attn_mask=mask), 120),
-        **bound(flops, nbytes),
+        n_splits=A.decode_splits(1, cap, b * h)[0], **bound(flops, nbytes),
     ))
     return rows
 
@@ -954,9 +1114,9 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     step of 4 slots, 12 layer caches in turn, page 64 on a shuffled
     table. The yardstick is ``scaled_dot_product_attention`` on the
     gathered (paged) and dequantized (int8) bf16 tensors; the gather and
-    the dequantization are not timed. A last row (``chunk``) times K6 at
-    the width of a 256-token prefill chunk of every slot (its 64-row
-    body)."""
+    the dequantization are not timed. A last row times K6 at the width of
+    a 256-token prefill chunk of every slot (its tensor-core chunk body,
+    ``paged_decode_attention_chunk``)."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     b, h, d, cap, layers, page = 4, 8, 128, 2048, 12, 64
@@ -1015,7 +1175,7 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
             name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{src}",
             replaces=f"hops_tpu/ops/attention.py:{line}",
             shape=f"q ({b},{h},1,{d}) bf16, {what}, valid_len {vl_host}",
-            launches=launches[name], max_abs_err=worst[name]["bfloat16"],
+            launches=launches.get(name, 0), max_abs_err=worst[name]["bfloat16"],
             ms=cuda_ms(lambda i=0, fn=fn: fn(i % layers), 120),
             plain_ms=cuda_ms(lambda i=0, plain=plain: plain(i % layers), 24),
             library_ms=cuda_ms(lambda i=0, dense=dense: F.scaled_dot_product_attention(
@@ -1038,14 +1198,14 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     pairs = sum(sq * (n - sq) + sq * (sq + 1) // 2 for n in vlc_host)
     nbytes = (2 * h * d * 2 * sum(vlc_host) + 2 * b * h * sq * d * 2 + b * 4
               + sum(-(-n // page) for n in vlc_host) * 4)
-    name = "paged_decode_attention"
+    name = "paged_decode_attention_chunk"
     src, line = CACHE_KERNELS[name]
     rows.append(dict(
         name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{src}",
-        replaces=f"hops_tpu/ops/attention.py:{line}", chunk=True,
+        replaces=f"hops_tpu/ops/attention.py:{line}",
         shape=f"q ({b},{h},{sq},{d}) bf16, bf16 pools ({h},{nblocksc},{page},{d}), "
               f"valid_len {vlc_host}",
-        launches=launches[name], max_abs_err=worst[name]["bfloat16"],
+        launches=launches.get(name, 0), max_abs_err=worst[name]["bfloat16"],
         ms=cuda_ms(lambda i=0: A.paged_decode_attention(qc, *poolsc[i % layers], vlc, pagesc), 60),
         plain_ms=cuda_ms(lambda i=0: A.paged_decode_attention_reference(
             qc, *poolsc[i % layers], vlc, pagesc), 12),
@@ -1063,7 +1223,7 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
     from hops_tpu_torch.modelrepo.serving import LMEnginePredictor
 
     out = {}
-    for name, cfg, kernel in CACHE_SLICES:
+    for name, cfg, kernels in CACHE_SLICES:
         predictor = LMEnginePredictor(art, cfg)
         engine = predictor.engine
         taps: dict = {}
@@ -1080,10 +1240,10 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
             for p, n, ans in zip(PROMPT_LENS, NEW_TOKENS, answers):
                 if len(ans) != n:
                     raise AssertionError(f"{name}: prompt {p} answered {len(ans)} tokens, not {n}")
-            others = {k: n for k, n in launches.items() if k != kernel and n}
-            if not launches[kernel] or others:
-                raise AssertionError(f"{name}: {kernel} must launch and no other attention "
-                                     f"kernel: {launches}")
+            others = {k: n for k, n in launches.items() if k not in kernels and n}
+            if not all(launches[k] for k in kernels) or others:
+                raise AssertionError(f"{name}: {', '.join(kernels)} must launch and no other "
+                                     f"attention kernel: {launches}")
             paged = stats["cache_layout"] == "paged"
             if paged and name == "paged-int8" and (
                     stats["blocks_peak_used"] < PEAK_POOL_SHARE * stats["blocks_total"]):
@@ -1093,7 +1253,7 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
                     for a, b in zip(answers, dense_answers)]
             nbytes = kv_bytes(engine._cache)
             print(f"phase 8 {name} {cfg}: answers {[len(a) for a in answers]} tokens; "
-                  f"launches {kernel} {launches[kernel]}, others none; "
+                  f"launches {', '.join(f'{k} {launches[k]}' for k in kernels)}, others none; "
                   f"{sum(n == len(a) for n, a in zip(same, answers))} of {len(answers)} streams "
                   f"equal phase 4's (equal leading tokens {same})", flush=True)
             pool = (f"; prefill chunks {stats['prefill_chunks']}, preemptions "
@@ -1192,20 +1352,43 @@ def profile_decode(engine, torch, prompts, steps: int = 10) -> None:
 
     wall_ms, busy, kernels = device_profile(torch, run, steps)
     engine.run()
+    k4 = [(ms, n) for key, ms, n in kernels if any(k in key for k in SPLIT_KERNEL_NAMES)]
+    k4_ms = sum(ms for ms, _ in k4)
     print(f"phase 6 profile: {steps} decode steps at 4 busy slots: wall {wall_ms:.3f} ms/step "
           f"(profiled), device busy {busy:.3f} ms/step, idle share {1 - busy / wall_ms:.3f}, "
-          f"{sum(n for _, _, n in kernels)} kernel launches/step", flush=True)
+          f"{sum(n for _, _, n in kernels)} kernel launches/step; K4 (split body and combine) "
+          f"{k4_ms:.4f} ms/step ({k4_ms / busy:.1%} of busy, {sum(n for _, n in k4)} "
+          "launches/step)", flush=True)
+    if not k4 or any(ROWS_KERNEL_NAME in key for key, _, _ in kernels):
+        raise AssertionError("phase 6: K4's decode steps must run its split body, not the 64-row body")
     for name, ms, n in kernels[:8]:
         print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
 
 
 def profile_paged_decode(engine, torch, prompts, steps: int = 10) -> None:
-    """Phase 8 (b)'s profile: as phase 6, ``steps`` decode steps of the
-    paged engine with all 4 slots busy, taken once every prompt is
-    prefilled, plus K6's share of the device time."""
+    """Phase 8 (b)'s profiles: one fused prefill-chunk step (the second
+    step after admission: two slots take their next 256-token chunk, two
+    decode), with the share of K6's tensor-core chunk body; then, as
+    phase 6, ``steps`` decode steps of the paged engine with all 4 slots
+    busy, taken once every prompt is prefilled, plus K6's share of the
+    device time."""
     for p in prompts[:4]:
         engine.submit(p, max_new_tokens=steps + 40)
     engine.step()  # admission and the first chunks
+    pending = sum(st is not None and st.pending is not None for st in engine._slot_state)
+    wall_ms, busy, kernels = device_profile(torch, engine.step)
+    chunk = [(ms, n) for key, ms, n in kernels if CHUNK_KERNEL_NAME in key]
+    chunk_ms = sum(ms for ms, _ in chunk)
+    print(f"phase 8 paged profile: one fused prefill-chunk step ({pending} slots prefilling, "
+          f"{4 - pending} decoding): wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / wall_ms:.3f}, {sum(n for _, _, n in kernels)} kernel launches; "
+          f"K6's chunk body {chunk_ms:.4f} ms ({chunk_ms / busy:.1%} of busy, "
+          f"{sum(n for _, n in chunk)} launches)", flush=True)
+    for name, ms, n in kernels[:8]:
+        print(f"  {ms:.4f} ms ({ms / busy:.1%} of busy, {n}) {name[:90]}", flush=True)
+    if not pending or not chunk or any(ROWS_KERNEL_NAME in key for key, _, _ in kernels):
+        raise AssertionError("phase 8 (b): a bf16 prefill-chunk step must run K6's chunk body, "
+                             "not the 64-row body")
     while any(st is not None and st.pending is not None for st in engine._slot_state):
         engine.step()
     for _ in range(2):  # warm decode steps
@@ -1492,7 +1675,9 @@ def main() -> int:
         with torch.inference_mode():
             rows = time_kernels(A, torch, gen, dev, launches, worst)
         for r in rows:
-            print(f"phase 5 {r['name']} at {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            print(f"phase 5 {r['name']} at {r['shape']}: {r['ms']:.4f} ms"
+                  + (f" ({r['n_splits']} splits)" if "n_splits" in r else "")
+                  + f"; bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; "
                   f"scaled_dot_product_attention {r['library_ms']:.4f} ms; card {card_line}", flush=True)
         predictor.stop()  # the engine is now driven from this thread alone
@@ -1528,14 +1713,12 @@ def main() -> int:
         with torch.inference_mode():
             cache_rows = time_cache_kernels(A, torch, gen, dev, cache_launches, worst)
         for r in cache_rows:
-            print(f"phase 5 {r['name']}{' (prefill chunk width)' if r.get('chunk') else ''} at "
-                  f"{r['shape']}: {r['ms']:.4f} ms"
+            print(f"phase 5 {r['name']} at {r['shape']}: {r['ms']:.4f} ms"
                   + (f" ({r['n_splits']} splits)" if "n_splits" in r else "")
                   + f"; {r['launches']} launches in phase 8; bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; scaled_dot_product_attention "
                   f"on the gathered/dequantized bf16 tensors {r['library_ms']:.4f} ms; "
                   f"card {card_line}", flush=True)
-        cache_rows = [r for r in cache_rows if not r.get("chunk")]
         k1 = rows[0]
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"]}
         k1["launches"] += train_launches["flash_fwd"]

@@ -54,9 +54,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     ),
     "decode_attention": (
         "decode_attention.cu", "hops_decode_attention",
-        # q, k, v, valid_len, o, b, hkv, rows, s, cap, head_dim, is_bf16,
-        # sm_scale, window, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, valid_len, o, workspace, b, hkv, rows, s, cap, head_dim,
+        # is_bf16, sm_scale, window, n_splits, split_keys, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     ),
     "decode_attention_q8": (
         "decode_attention_q8.cu", "hops_decode_attention_q8",

@@ -11,14 +11,16 @@ tensors and their plain PyTorch versions on CPU tensors:
   ``csrc/flash_bwd_dkv.cu`` (K3, ``_bwd_dkv_kernel``), the
   flash-attention-2 split of the JAX custom VJP;
 - :func:`decode_attention` -> ``csrc/decode_attention.cu`` (K4,
-  ``_decode_kernel``), the dense, unquantized cache; with ``k_scale`` /
-  ``v_scale`` (:func:`decode_attention_q8`) ``csrc/decode_attention_q8.cu``
-  (K5, ``_decode_q8_kernel``), the dense int8 cache;
+  ``_decode_kernel``), the dense, unquantized cache (decode steps on a
+  split-K body and a combine kernel, splits from :func:`decode_splits`);
+  with ``k_scale`` / ``v_scale`` (:func:`decode_attention_q8`)
+  ``csrc/decode_attention_q8.cu`` (K5, ``_decode_q8_kernel``), the dense
+  int8 cache;
 - :func:`paged_decode_attention` -> ``csrc/paged_decode_attention.cu``:
   K6 (``_paged_decode_kernel``) over bf16/fp32 block pools (decode
-  steps on a split-K body and a combine kernel, splits from
-  :func:`decode_splits`), K7 (``_paged_decode_q8_kernel``) over int8
-  pools with fp32 scale pools.
+  steps on the split-K body, bf16 prefill chunks on a tensor-core body,
+  counted apart as ``paged_decode_attention_chunk``), K7
+  (``_paged_decode_q8_kernel``) over int8 pools with fp32 scale pools.
 
 On a CUDA tensor the entry point launches its kernel or raises; it never
 falls back. The kernels mask ragged tails themselves, so every sequence
@@ -40,17 +42,19 @@ NEG_INF = float("-inf")
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-    "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_q8": 0,
+    "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_chunk": 0,
+    "paged_decode_attention_q8": 0,
 }
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (64, 128)
 
-#: K6's split-K body takes calls of at most this many rows (g query
-#: heads per kv head times s tokens): every decode step.
+#: The split-K body of K4 and K6 takes calls of at most this many rows
+#: (g query heads per kv head times s tokens): every decode step.
 SPLIT_ROWS = 16
 #: Keys per split before the cap below: two of the kernel's 64-key tiles
-#: (at the served decode shape 128 beat 256 and 512 on an H100; PERF.md).
+#: (at the served decode shape K6 read 128 faster than 256 and 512 on an
+#: H100; PERF.md).
 SPLIT_KEYS = 128
 _SPLIT_TILE = 64
 #: At most this many blocks per call (4 waves of the H100's 132 SMs).
@@ -281,15 +285,16 @@ def decode_attention_q8_reference(q, k, v, k_scale, v_scale, valid_len, sm_scale
 
 
 def decode_splits(rows: int, capacity: int, bhkv: int) -> tuple[int, int]:
-    """``(n_splits, split_keys)`` of a paged decode call on K6's split-K
-    body, chosen from the shape alone: ``capacity`` (``max_blocks *
-    page``), never ``valid_len``, which stays on the device.
+    """``(n_splits, split_keys)`` of a decode call on the split-K body of
+    K4 or K6, chosen from the shape alone: ``capacity`` (the dense cache's
+    length, or a paged call's ``max_blocks * page``), never
+    ``valid_len``, which stays on the device.
 
     ``split_keys`` is a multiple of the 64-key tile, ``SPLIT_KEYS`` unless
     the cap of ``SPLIT_MAX_BLOCKS`` blocks (``n_splits * bhkv``, ``bhkv``
     the batch times the kv heads) makes each split longer, and
     ``n_splits * split_keys`` covers the capacity. A call wider than
-    ``SPLIT_ROWS`` rows takes the 64-row body instead: ``(1, capacity)``.
+    ``SPLIT_ROWS`` rows takes another body instead: ``(1, capacity)``.
     """
     if rows < 1 or capacity < 1 or bhkv < 1:
         raise ValueError(f"decode_splits: rows {rows}, capacity {capacity}, bhkv {bhkv}")
@@ -301,29 +306,28 @@ def decode_splits(rows: int, capacity: int, bhkv: int) -> tuple[int, int]:
     return math.ceil(capacity / keys), keys
 
 
-def paged_decode_split_reference(
+def decode_split_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     valid_len,
-    pages: torch.Tensor,
     sm_scale: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Plain version of K6's split-K body and its combine, in fp32: the
-    splits of :func:`decode_splits`, each split's ``(m, l, acc)`` by the
-    online softmax's arithmetic over its keys, merged as the combine
-    kernel merges them (``M = max m_i``, ``o = sum e^(m_i - M) acc_i /
-    sum e^(m_i - M) l_i``, with ``-inf`` guards and ``l_safe``). Equal
-    to :func:`paged_decode_attention_reference` up to rounding; for the
-    tests, which pin the combine arithmetic against JAX on the CPU."""
+    """Plain version of the split-K body and its combine, in fp32, on
+    dense ``(b, hkv, capacity, d)`` caches (K4's layout): the splits of
+    :func:`decode_splits`, each split's ``(m, l, acc)`` by the online
+    softmax's arithmetic over its keys, merged as the combine kernel
+    merges them (``M = max m_i``, ``o = sum e^(m_i - M) acc_i / sum
+    e^(m_i - M) l_i``, with ``-inf`` guards and ``l_safe``). Equal to
+    :func:`decode_attention_reference` up to rounding; for the tests,
+    which pin the combine arithmetic against JAX on the CPU."""
     b, h, s, d = q.shape
-    hkv = k.shape[0]
+    hkv, cap = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     vl = _normalize_valid_len(valid_len, b, q.device)
-    kd, vd = repeat_kv(q, *(paged_gather_kv(t, pages).float() for t in (k, v)))
-    cap = kd.shape[2]
+    kd, vd = repeat_kv(q, k.float(), v.float())
     n_splits, keys = decode_splits((h // hkv) * s, cap, b * hkv)
     sc = _masked_scores(q.float(), kd, True, sm_scale, vl - s, window)  # (b, h, s, cap)
     parts = []
@@ -338,6 +342,22 @@ def paged_decode_split_reference(
     num = (w * torch.stack([pt[2] for pt in parts])).sum(0)
     den = (w * torch.stack([pt[1] for pt in parts])).sum(0)
     return (num / torch.where(den == 0, 1.0, den)).to(q.dtype)
+
+
+def paged_decode_split_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len,
+    pages: torch.Tensor,
+    sm_scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """:func:`decode_split_reference` through a page table (K6's split-K
+    body and its combine): the gathered dense view of the pools, split
+    over its ``max_blocks * page`` positions."""
+    return decode_split_reference(q, paged_gather_kv(k, pages), paged_gather_kv(v, pages),
+                                  valid_len, sm_scale, window)
 
 
 def paged_decode_attention_reference(
@@ -569,6 +589,18 @@ def _check_scales(k_scale, v_scale) -> bool:
     return k_scale is not None
 
 
+def _split_workspace(rows: int, capacity: int, bhkv: int, d: int, device):
+    """``(n_splits, split_keys, workspace or None)`` of a decode call:
+    :func:`decode_splits`, and for several splits an fp32 workspace for
+    the split body's partials (m, l and acc per split, row and kv head).
+    Calls wider than ``SPLIT_ROWS`` get ``(1, capacity, None)``."""
+    n_splits, split_keys = decode_splits(rows, capacity, bhkv)
+    if n_splits == 1:
+        return n_splits, split_keys, None
+    work = torch.empty(n_splits * bhkv * rows * (d + 2), dtype=torch.float32, device=device)
+    return n_splits, split_keys, work
+
+
 def decode_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -594,7 +626,10 @@ def decode_attention(
 
     CUDA tensors run ``csrc/decode_attention.cu`` (K4) or, int8,
     ``csrc/decode_attention_q8.cu`` (K5) (bf16 or fp32 queries, head_dim
-    64 or 128); CPU tensors run :func:`decode_attention_reference`
+    64 or 128): K4 takes a call of at most ``SPLIT_ROWS`` rows (``g *
+    s``, every decode step) on its split-K body, ``decode_splits``
+    splits of the capacity merged by a combine kernel, and a wider call
+    on its 64-row body. CPU tensors run :func:`decode_attention_reference`
     (int8: on the dequantized caches in fp32, cast to q's dtype).
     """
     quantized = _check_scales(k_scale, v_scale)
@@ -623,7 +658,8 @@ def decode_attention(
     o = torch.empty_like(q)
     rows = (h // hkv) * s
     common = (b, hkv, rows, s, cap, d, int(q.dtype == torch.bfloat16),
-              float(sm_scale), int(window or 0), _stream(q.device))
+              float(sm_scale), int(window or 0))
+    stream = _stream(q.device)
     if quantized:
         name = "decode_attention_q8"
         _check_kernel_inputs(name, q, o)
@@ -631,15 +667,17 @@ def decode_attention(
         _check_operands(name, q.device, torch.float32, k_scale, v_scale)
         rc = _build.kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
+            v_scale.data_ptr(), vl.data_ptr(), o.data_ptr(), *common, stream,
         )
     else:
         name = "decode_attention"
         if not (k.is_contiguous() and v.is_contiguous()):
             raise ValueError("decode_attention: k/v caches must be contiguous")
         _check_kernel_inputs(name, q, k, v)
+        n_splits, split_keys, work = _split_workspace(rows, cap, b * hkv, d, q.device)
         rc = _build.kernel(name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(),
+            None if work is None else work.data_ptr(), *common, n_splits, split_keys, stream,
         )
     _build.check(name, rc)
     LAUNCHES[name] += 1
@@ -685,8 +723,9 @@ def paged_decode_attention(
     int8 pools) for every page size: K6 takes a call of at most
     ``SPLIT_ROWS`` rows (``g * s``, every decode step) on its split-K
     body, ``decode_splits`` splits of the capacity merged by a combine
-    kernel, and a wider call (a prefill chunk) on its 64-row body. CPU
-    tensors run :func:`paged_decode_attention_reference`.
+    kernel; a wider call (a prefill chunk) runs on its tensor-core body in
+    bf16 (counted as ``paged_decode_attention_chunk``) and on its 64-row
+    body in fp32. CPU tensors run :func:`paged_decode_attention_reference`.
     """
     quantized = _check_scales(k_scale, v_scale)
     if window is not None and window < 1:
@@ -731,18 +770,15 @@ def paged_decode_attention(
             vl.data_ptr(), pages.data_ptr(), o.data_ptr(), *shape, _stream(q.device),
         )
     else:
-        # Decode calls (rows <= SPLIT_ROWS) run the split-K body; with
-        # several splits, its fp32 partials go to a workspace.
-        n_splits, split_keys = decode_splits(rows, max_blocks * page, b * hkv)
-        work = None
-        if n_splits > 1:
-            work = torch.empty(n_splits * b * hkv * rows * (d + 2), dtype=torch.float32,
-                               device=q.device)
+        n_splits, split_keys, work = _split_workspace(rows, max_blocks * page, b * hkv, d,
+                                                      q.device)
         rc = _build.kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), pages.data_ptr(),
             o.data_ptr(), None if work is None else work.data_ptr(), *shape, n_splits,
             split_keys, _stream(q.device),
         )
     _build.check(name, rc)
-    LAUNCHES[name] += 1
+    # A wide bf16 call ran the tensor-core chunk body: counted on its own.
+    wide_bf16 = not quantized and rows > SPLIT_ROWS and q.dtype == torch.bfloat16
+    LAUNCHES["paged_decode_attention_chunk" if wide_bf16 else name] += 1
     return o

@@ -1,11 +1,15 @@
 // Decode attention that reads each key through a row index, for Hopper
-// (sm_90a): the body shared by
-//   K4 decode_attention.cu         (`_decode_kernel`, dense bf16/fp32 cache),
+// (sm_90a): the 64-row FMA body of
+//   K4 decode_attention.cu         (`_decode_kernel`, dense bf16/fp32 cache;
+//                                   only calls wider than split::MAX_ROWS
+//                                   rows: decode steps take the split-K
+//                                   body of decode_split.cuh),
 //   K5 decode_attention_q8.cu      (`_decode_q8_kernel`, dense int8 cache),
 //   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, bf16/fp32 pools;
-//                                   only calls wider than split::MAX_ROWS
-//                                   rows, the prefill chunks: decode calls take
-//                                   the split-K body of decode_split.cuh),
+//                                   only fp32 calls wider than
+//                                   split::MAX_ROWS rows: decode calls take
+//                                   the split-K body, bf16 prefill chunks
+//                                   the tensor-core body of decode_chunk.cuh),
 //   K7 paged_decode_attention.cu   (`_paged_decode_q8_kernel`, int8 pools),
 // all in hops_tpu/ops/attention.py: one block per (batch*kv_head, 64-row
 // query tile), the g query heads of a kv head folded into g*s rows,
@@ -43,10 +47,11 @@
 // int8 plus 8 bytes of scales), far below the card's ~295 operations per
 // byte: bound by the bytes it reads, which are O(valid_len). This body
 // is simple (fp32 FMAs from shared memory, one block walking its key
-// range alone). Split-K (flash-decoding), which fills all SMs at small
-// batch, exists for K6's decode calls in decode_split.cuh and is still to
-// come for K4, K5 and K7; a tensor-core body for wide (prefill-chunk)
-// calls is a later step.
+// range alone), and fills only b*hkv SMs at one row tile. It stays for
+// the calls above and for fp32 checks; K4's and K6's decode calls moved
+// to the split-K body (flash-decoding), which fills all SMs at small
+// batch, and K6's bf16 prefill chunks to the tensor-core body. K5 and K7
+// are still to move.
 
 #pragma once
 

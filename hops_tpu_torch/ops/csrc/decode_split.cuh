@@ -1,8 +1,11 @@
-// Split-K (flash-decoding) body of K6, `_paged_decode_kernel` in
-// hops_tpu/ops/attention.py, for the decode step: a paged call whose g
-// query heads per kv head times s query tokens give rows = g*s <= 16
-// (every decode step; the 256-token prefill chunk keeps the 64-row body
-// of decode_rows.cuh), bf16 or fp32 pools.
+// Split-K (flash-decoding) body of K4, `_decode_kernel`, and K6,
+// `_paged_decode_kernel`, in hops_tpu/ops/attention.py, for the decode
+// step: a call whose g query heads per kv head times s query tokens give
+// rows = g*s <= 16 (every decode step), bf16 or fp32. The PAGED template
+// parameter picks the layout: K6's pools through a page table, or K4's
+// dense (b*hkv, cap, d) cache. Wider calls take other bodies: K6's bf16
+// prefill chunks the tensor-core body of decode_chunk.cuh, K4's and
+// K6's fp32 wide calls the 64-row body of decode_rows.cuh.
 //
 // Why: the 64-row body runs one block per (64-row tile, batch*kv_head),
 // so a decode step of 4 slots and 8 kv heads fills 32 of the 132 SMs,
@@ -15,17 +18,20 @@
 // - The grid is (n_splits, batch*kv_head). Split i covers keys
 //   [i*L, (i+1)*L) of the row's logical positions, L a multiple of the
 //   64-key tile; the host chooses n_splits and L from the capacity
-//   (max_blocks * page), never from valid_len, which stays on the
-//   device (ops/attention.py `decode_splits`). A block visits the tiles
-//   of its split that `_decode_block_range` keeps (valid_len and the
-//   window), so reads stay O(valid_len); a block whose range is empty
-//   writes the sentinel m = -inf, l = 0, acc = 0 and exits (a split at
-//   or past valid_len, which the combine never reads, writes nothing).
+//   (dense: cap; paged: max_blocks * page), never from valid_len, which
+//   stays on the device (ops/attention.py `decode_splits`). A block
+//   visits the tiles of its split that `_decode_block_range` keeps
+//   (valid_len and the window), so reads stay O(valid_len); a block whose
+//   range is empty writes the sentinel m = -inf, l = 0, acc = 0 and exits
+//   (a split at or past valid_len, which the combine never reads, writes
+//   nothing).
 // - Every key's storage row comes from decode_rows.cuh's `key_row` rule
-//   (`page_entry`, then `block_row`): a key at or past valid_len, or
-//   behind a table entry outside [0, nblocks), is never read (its 16-byte copies are zero-fills) and
-//   scores -inf, so the scratch block 0 stays unreachable.
-// - K and V tiles go from the pool to shared memory in their own dtype
+//   (`tile_rows` below): dense, row (b*hkv + h) * cap + kpos; paged,
+//   `page_entry`, then `block_row`. A key at or past valid_len, or behind
+//   a table entry outside [0, nblocks), is never read (its 16-byte copies
+//   are zero-fills) and scores -inf, so the scratch block 0 stays
+//   unreachable.
+// - K and V tiles go from the cache to shared memory in their own dtype
 //   by 16-byte cp.async, double-buffered: the copies of a split's first
 //   two tiles, and the page-table reads that place them, are issued
 //   together at the start, and those of tile t + 2 as soon as tile t is
@@ -50,7 +56,7 @@
 //   (griddepcontrol), so its launch does not follow the split grid's
 //   drain.
 //
-// K7 (int8 pools) does not take this body yet.
+// K5 and K7 (int8) do not take this body yet.
 
 #pragma once
 
@@ -100,25 +106,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start the copies of the key tile at logical position k0 into ks/vs
-// (BK x D each); kok[r] says whether key r has a storage row. Each
-// thread copies one 16-byte column of every (NT / chunks-per-row)-th
-// key and resolves those keys' rows itself (`key_row`'s rule:
-// `page_entry`, then `block_row`), so no barrier separates the
-// page-table reads from the copies. A thread reads all its table
-// entries before it tests any, so the reads overlap, and steps its keys'
-// page and offset instead of dividing each position by the page size.
-template <typename T, int D>
-__device__ __forceinline__ void issue_tile(T* ks, T* vs, int* kok, const decode::Args& a,
-                                           const T* k, const T* v, int bi, int hk, int k0,
-                                           int kv_len, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;       // 16-byte chunks per key row
-  constexpr int NR = BK * CPR / NT;  // key rows per thread
-  constexpr int STEP = NT / CPR;     // keys between a thread's rows
-  static_assert(NT % CPR == 0, "a thread keeps one column of chunks");
-  const int c = (tid % CPR) * VEC;
-  const int kpos0 = k0 + tid / CPR;
+// Storage rows ri[j] of the keys kpos0 + j * STEP (j < NR), or -1 for a
+// key that must not be read (`key_row`'s rule). Dense: rows of the
+// (b*hkv, cap) cache. Paged: a thread reads all its table entries before
+// it tests any, so the reads overlap, and steps its keys' page and
+// offset instead of dividing each position by the page size.
+template <bool PAGED, int NR, int STEP>
+__device__ __forceinline__ void tile_rows(long long (&ri)[NR], const decode::Args& a, int bi,
+                                          int hk, int kpos0, int kv_len) {
+  if (!PAGED) {
+#pragma unroll
+    for (int j = 0; j < NR; ++j) ri[j] = decode::key_row<false>(a, bi, hk, kpos0 + j * STEP, kv_len);
+    return;
+  }
   int pg = kpos0 / a.page, off = kpos0 % a.page;
   int blk[NR], offs[NR];
 #pragma unroll
@@ -128,11 +128,31 @@ __device__ __forceinline__ void issue_tile(T* ks, T* vs, int* kok, const decode:
     for (off += STEP; off >= a.page; off -= a.page) ++pg;
   }
 #pragma unroll
+  for (int j = 0; j < NR; ++j) ri[j] = decode::block_row(a, hk, blk[j], offs[j]);
+}
+
+// Start the copies of the key tile at logical position k0 into ks/vs
+// (BK x D each); kok[r] says whether key r has a storage row. Each
+// thread copies one 16-byte column of every (NT / chunks-per-row)-th
+// key and resolves those keys' rows itself (`tile_rows`), so no barrier
+// separates the page-table reads from the copies.
+template <typename T, int D, bool PAGED>
+__device__ __forceinline__ void issue_tile(T* ks, T* vs, int* kok, const decode::Args& a,
+                                           const T* k, const T* v, int bi, int hk, int k0,
+                                           int kv_len, int tid) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = D / VEC;       // 16-byte chunks per key row
+  constexpr int NR = BK * CPR / NT;  // key rows per thread
+  constexpr int STEP = NT / CPR;     // keys between a thread's rows
+  static_assert(NT % CPR == 0, "a thread keeps one column of chunks");
+  const int c = (tid % CPR) * VEC;
+  long long ri[NR];
+  tile_rows<PAGED, NR, STEP>(ri, a, bi, hk, k0 + tid / CPR, kv_len);
+#pragma unroll
   for (int j = 0; j < NR; ++j) {
     const int r = tid / CPR + j * STEP;
-    const long long ri = decode::block_row(a, hk, blk[j], offs[j]);
-    const bool ok = ri >= 0;
-    const size_t at = ok ? static_cast<size_t>(ri) * D + c : 0;
+    const bool ok = ri[j] >= 0;
+    const size_t at = ok ? static_cast<size_t>(ri[j]) * D + c : 0;
     cp_async16(ks + r * D + c, k + at, ok);
     cp_async16(vs + r * D + c, v + at, ok);
     if (c == 0) kok[r] = ok;
@@ -176,7 +196,7 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
 // R: the call's rows rounded up to 1, 4 or 16 (registers per query row).
 // Launch bounds (NT, 1): under (NT) alone ptxas caps the bf16 d-64
 // rows-16 instantiation at 128 registers, and it spills.
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool PAGED>
 __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, const Part part) {
   constexpr int G = D / EPL;   // lanes per key in the score pass (16 or 32)
   constexpr int KPW = 32 / G;  // keys a warp scores at once (2 or 1)
@@ -234,7 +254,7 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
   // issued once tile t is done (one copy group per tile, maybe empty).
   for (int i = 0; i < STAGES; ++i) {
     if (t_lo + i < t_hi)
-      issue_tile<T, D>(ks + i * BK * D, vs + i * BK * D, kok + i * BK, a, k, v, bi, hk,
+      issue_tile<T, D, PAGED>(ks + i * BK * D, vs + i * BK * D, kok + i * BK, a, k, v, bi, hk,
                        (t_lo + i) * BK, kv_len, tid);
     cp_async_commit();
   }
@@ -354,7 +374,7 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
     }
     __syncthreads();  // every reader of stage st and of ps is done
     if (t + STAGES < t_hi)
-      issue_tile<T, D>(ks + st * BK * D, vs + st * BK * D, kok + st * BK, a, k, v, bi, hk,
+      issue_tile<T, D, PAGED>(ks + st * BK * D, vs + st * BK * D, kok + st * BK, a, k, v, bi, hk,
                        k0 + STAGES * BK, kv_len, tid);
     cp_async_commit();
   }
@@ -424,13 +444,13 @@ __global__ void __launch_bounds__(NT) combine_kernel(const decode::Args a, const
   }
 }
 
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool PAGED>
 int launch(const decode::Args& a, const Part& part, int bhkv, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D, R>();
   cudaError_t err = cudaFuncSetAttribute(
-      split_kernel<T, D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      split_kernel<T, D, R, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  split_kernel<T, D, R><<<dim3(part.n_splits, bhkv), NT, smem, stream>>>(a, part);
+  split_kernel<T, D, R, PAGED><<<dim3(part.n_splits, bhkv), NT, smem, stream>>>(a, part);
   err = cudaGetLastError();
   if (err != cudaSuccess || part.n_splits == 1) return (int)err;
   // A programmatic dependent launch: the combine's blocks are placed while
@@ -449,18 +469,19 @@ int launch(const decode::Args& a, const Part& part, int bhkv, cudaStream_t strea
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAGED>
 int launch_rows(const decode::Args& a, const Part& part, int bhkv, cudaStream_t stream) {
-  if (a.rows <= 1) return launch<T, D, 1>(a, part, bhkv, stream);
-  if (a.rows <= 4) return launch<T, D, 4>(a, part, bhkv, stream);
-  return launch<T, D, MAX_ROWS>(a, part, bhkv, stream);
+  if (a.rows <= 1) return launch<T, D, 1, PAGED>(a, part, bhkv, stream);
+  if (a.rows <= 4) return launch<T, D, 4, PAGED>(a, part, bhkv, stream);
+  return launch<T, D, MAX_ROWS, PAGED>(a, part, bhkv, stream);
 }
 
 // Check the split arguments and launch the split body (and, for
-// n_splits > 1, the combine) for (query dtype, head_dim). `workspace`
-// holds n_splits * b*hkv * rows * (head_dim + 2) floats when n_splits >
-// 1. Returns 0 or a cudaError_t code.
-inline int dispatch(const decode::Args& a, int b, int head_dim, int is_bf16, float* workspace,
+// n_splits > 1, the combine) for (layout, query dtype, head_dim).
+// `workspace` holds n_splits * b*hkv * rows * (head_dim + 2) floats when
+// n_splits > 1. Returns 0 or a cudaError_t code.
+template <bool PAGED>
+int dispatch(const decode::Args& a, int b, int head_dim, int is_bf16, float* workspace,
                     int n_splits, int split_keys, void* stream) {
   const long long bhkv = (long long)b * a.hkv;
   if (b < 1 || a.hkv < 1 || bhkv > 65535 || a.rows < 1 || a.rows > MAX_ROWS || a.s < 1 ||
@@ -477,11 +498,11 @@ inline int dispatch(const decode::Args& a, int b, int head_dim, int is_bf16, flo
   const int nb = (int)bhkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (head_dim == 64) return launch_rows<__nv_bfloat16, 64>(a, part, nb, st);
-    if (head_dim == 128) return launch_rows<__nv_bfloat16, 128>(a, part, nb, st);
+    if (head_dim == 64) return launch_rows<__nv_bfloat16, 64, PAGED>(a, part, nb, st);
+    if (head_dim == 128) return launch_rows<__nv_bfloat16, 128, PAGED>(a, part, nb, st);
   } else {
-    if (head_dim == 64) return launch_rows<float, 64>(a, part, nb, st);
-    if (head_dim == 128) return launch_rows<float, 128>(a, part, nb, st);
+    if (head_dim == 64) return launch_rows<float, 64, PAGED>(a, part, nb, st);
+    if (head_dim == 128) return launch_rows<float, 128, PAGED>(a, part, nb, st);
   }
   return (int)cudaErrorInvalidValue;
 }

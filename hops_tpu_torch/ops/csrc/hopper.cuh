@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks of the tensor-core bodies of K1, K2 and
-// K3 (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors, the bf16 wgmma shapes the
-// three kernels issue, and the host-side encoding of their tensor maps.
+// K3 (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu) and of K6's
+// prefill-chunk body (decode_chunk.cuh): mbarriers, TMA tile loads,
+// wgmma shared-memory descriptors, the bf16 wgmma shapes the kernels
+// issue, and the host-side encoding of their tensor maps.
 //
 // Tiles live in shared memory as the TMA writes them with 128-byte
-// swizzle: a (rows x D) bf16 tile is D / 64 panels of (rows x 64), each
-// row 128 bytes, rows in 8-row atoms of 1024 bytes, every panel
-// 1024-byte aligned. A K-major wgmma operand (the reduction dimension is
+// swizzle (`sw128` gives the same placement to copies made by threads):
+// a (rows x D) bf16 tile is D / 64 panels of (rows x 64), each row 128
+// bytes, rows in 8-row atoms of 1024 bytes, every panel 1024-byte
+// aligned; 16-byte chunk c of a panel's row r sits at chunk c ^ (r % 8)
+// of that row. A K-major wgmma operand (the reduction dimension is
 // the tile's columns) steps 16 columns by adding 32 bytes to the
 // descriptor's address inside a panel; an MN-major operand (the
 // reduction dimension is the tile's rows) steps 16 rows by adding 2048
@@ -91,6 +94,12 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
 
 // ---- wgmma ----
 
+// Element offset of 16-byte chunk c (columns 8c .. 8c + 7) of row r in a
+// 128-byte-swizzled bf16 tile of `rows` rows.
+__device__ __forceinline__ int sw128(int r, int c, int rows) {
+  return (c / 8) * rows * 64 + r * 64 + ((c % 8) ^ (r % 8)) * 8;
+}
+
 // Descriptor of a 128-byte-swizzled operand at `p` (8-row atoms 1024
 // bytes apart). `lbo` is the byte stride between 64-column panels for an
 // MN-major operand; a K-major operand never crosses a panel in one
@@ -100,6 +109,13 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo) {
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Order this thread's earlier generic-proxy writes to shared memory
+// (st.shared, completed cp.async copies) before later async-proxy reads
+// of it, such as a wgmma operand.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }

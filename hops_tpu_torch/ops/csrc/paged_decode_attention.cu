@@ -3,13 +3,16 @@
 // in hops_tpu/ops/attention.py (both launched by
 // `paged_decode_attention`).
 //
-// K6 has two bodies, chosen by the call's shape: a call of rows = g*s
-// <= 16 (every decode step) runs the split-K body of decode_split.cuh
-// and, when it has more than one split, its combine kernel; a wider call
-// (the 256-token prefill chunk fused into a paged step) runs the 64-row
-// body of decode_rows.cuh, which already has several row tiles per
-// (batch, kv head) there. K7 runs the 64-row body. The bodies, their
-// int8 arithmetic and what bounds them are in the two headers.
+// K6 has three bodies, chosen by the call's shape and dtype: a call of
+// rows = g*s <= 16 (every decode step) runs the split-K body of
+// decode_split.cuh and, when it has more than one split, its combine
+// kernel (bf16 and fp32); a wider bf16 call (the 256-token prefill chunk
+// fused into a paged step) runs the tensor-core body of
+// decode_chunk.cuh; a wider fp32 call runs the 64-row FMA body of
+// decode_rows.cuh. K7 runs the 64-row body at every width. Decode calls
+// are bound by the bytes of K and V they read, prefill chunks by those
+// bytes with their operations close behind; the bodies, their int8
+// arithmetic and what they do about their bounds are in the headers.
 //
 // The pools are (hkv, nblocks, page, d), shared by every batch row, and
 // a (b, max_blocks) int32 page table maps logical block j of row b to
@@ -23,12 +26,12 @@
 // blocks the table names; for K7 the scale pools (hkv, nblocks, page)
 // are read at the same storage row as the values.
 
-#include "decode_split.cuh"
+#include "decode_chunk.cuh"
 
 namespace {
 
-// Shared argument checks of the two entry points; fills `a`'s paged
-// fields. Returns false when the sizes are out of range.
+// Shared argument checks of the entry points; fills `a`'s paged fields.
+// Returns false when the sizes are out of range.
 bool paged_args(hops::decode::Args& a, const void* q, const void* k, const void* v,
                 const void* valid_len, const void* pages, void* o, int hkv, int rows,
                 int s, int page, int max_blocks, int nblocks, float sm_scale, int window) {
@@ -63,8 +66,8 @@ extern "C" {
 // split body with n_splits splits of split_keys keys (a multiple of 64,
 // n_splits * split_keys >= max_blocks * page) and, for n_splits > 1, an
 // fp32 workspace of n_splits * b*hkv * rows * (head_dim + 2) values;
-// wider calls take the 64-row body and need n_splits == 1. Returns 0 or
-// a cudaError_t code.
+// wider calls take the tensor-core body (bf16) or the 64-row body (fp32)
+// and need n_splits == 1. Returns 0 or a cudaError_t code.
 int hops_paged_decode_attention(const void* q, const void* k, const void* v,
                                 const void* valid_len, const void* pages, void* o,
                                 void* workspace, int b, int hkv, int rows, int s, int page,
@@ -76,10 +79,20 @@ int hops_paged_decode_attention(const void* q, const void* k, const void* v,
                   sm_scale, window))
     return (int)cudaErrorInvalidValue;
   if (rows <= hops::split::MAX_ROWS)
-    return hops::split::dispatch(a, b, head_dim, is_bf16, static_cast<float*>(workspace),
-                                 n_splits, split_keys, stream);
+    return hops::split::dispatch</*PAGED=*/true>(a, b, head_dim, is_bf16,
+                                                 static_cast<float*>(workspace), n_splits,
+                                                 split_keys, stream);
   if (n_splits != 1) return (int)cudaErrorInvalidValue;
+  if (is_bf16) return hops::chunk::dispatch(a, b, head_dim, stream);
   return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
+}
+
+// Dynamic shared memory (bytes) of the tensor-core body at head_dim, or
+// -1 for a head_dim it does not take.
+int hops_paged_decode_attention_chunk_smem_bytes(int head_dim) {
+  if (head_dim == 64) return static_cast<int>(hops::chunk::smem_bytes<64>());
+  if (head_dim == 128) return static_cast<int>(hops::chunk::smem_bytes<128>());
+  return -1;
 }
 
 // As above over int8 pools, with fp32 scale pools k_scale, v_scale of

@@ -153,7 +153,10 @@ def test_launch_counts_reset_and_cpu_launches_nothing():
     pages = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
     pool = k.reshape(4, 4, 8, 32)  # (hkv, nblocks, page, d)
     T.paged_decode_attention(q[:, :, :1], pool, pool, torch.tensor([16, 8]), pages)
+    gqa = k.reshape(2, 8, 8, 32)  # 2 kv heads: rows 2 * 16, a wide (prefill-chunk) call
+    T.paged_decode_attention(q, gqa, gqa, torch.tensor([16, 16]), pages)
     assert T.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-        "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_q8": 0,
+        "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_chunk": 0,
+        "paged_decode_attention_q8": 0,
     }

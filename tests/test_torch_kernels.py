@@ -7,11 +7,14 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: the bf16 tensor-core bodies (K1's o, K2's dq, K3's dk and
-dv) against the fp32 plain version per element within their rounding,
-``2**-8 * (mag + |plain|) + slack`` (``mag``: the product whose operand
-the body rounds to bf16, over magnitudes; ``slack``: the kernel's fp32
-bound), and K1's lse within ``1e-4``; the other kernels' bf16 inputs
-``max err <= 2e-2 + 2e-2 * max|plain|``; fp32 inputs ``atol 1e-5`` for the forward
+dv, K6's prefill-chunk o) against the fp32 plain version per element
+within their rounding, ``2**-8 * (mag + |plain|) + slack`` (``mag``: the
+product whose operand the body rounds to bf16, over magnitudes;
+``slack``: the kernel's fp32 bound), and K1's lse within ``1e-4``; the
+split-K body of K4 and K6, which computes in fp32 and rounds only its
+output, per element within ``2**-8 * |plain| + 1e-4``; the other
+kernels' bf16 inputs ``max err <= 2e-2 + 2e-2 * max|plain|``; fp32
+inputs ``atol 1e-5`` for the forward
 and decode kernels, ``atol 1e-4`` for the int8 and paged decode kernels
 at capacity 2048 (the phase-3 rule of ``chip_smoke.py``) and ``1e-4 *
 max(1, max|plain|)`` for the backward kernels, whose outputs grow with
@@ -205,7 +208,11 @@ def test_decode_kernel_matches_plain(d, hkv, s, window):
     before = T.launch_counts()["decode_attention"]
     o = T.decode_attention(q, k, v, vl, window=window)
     assert T.launch_counts()["decode_attention"] == before + 1
-    _close_bf16(o, T.decode_attention_reference(q.float(), k.float(), v.float(), vl, window=window))
+    ref = T.decode_attention_reference(q.float(), k.float(), v.float(), vl, window=window)
+    if (8 // hkv) * s <= T.SPLIT_ROWS:
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # the split body: output rounding
+    else:
+        _close_bf16(o, ref)
     assert not o[0].any()
 
 
@@ -358,7 +365,10 @@ def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
     else:
         k, v = (p.to(dtype) for p in pools)
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-    name = "paged_decode_attention_q8" if quantized else "paged_decode_attention"
+    wide = (8 // hkv) * s > T.SPLIT_ROWS
+    name = ("paged_decode_attention_q8" if quantized else
+            "paged_decode_attention_chunk" if wide and dtype == torch.bfloat16 else
+            "paged_decode_attention")
     before = T.launch_counts()
     o = T.paged_decode_attention(q, k, v, vl, pages, window=256, **scales)
     after = T.launch_counts()
@@ -366,8 +376,11 @@ def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
     assert sum(after.values()) == sum(before.values()) + 1
     kf, vf = (k, v) if quantized else (k.float(), v.float())
     ref = T.paged_decode_attention_reference(q.float(), kf, vf, vl, pages, window=256, **scales)
-    if dtype == torch.bfloat16 and not quantized and (8 // hkv) * s <= T.SPLIT_ROWS:
+    if dtype == torch.bfloat16 and not quantized and not wide:
         _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # K6's split body: output rounding
+    elif dtype == torch.bfloat16 and not quantized:  # K6's chunk body rounds p for p·v
+        mag = T.paged_decode_attention_reference(q.float(), kf, vf.abs(), vl, pages, window=256)
+        _close_rounded(o, ref, mag, 1e-4)
     elif dtype == torch.bfloat16:
         _close_bf16(o, ref)
     else:
@@ -484,6 +497,124 @@ def test_paged_split_body_matches_plain(dtype, d, case):
     for r, n in enumerate(valid):
         if n == 0:
             assert not o[r].any()
+
+
+# K4's split body on the dense cache: (capacity, hkv of 8 query heads,
+# query tokens, valid_len per row, window); 128-key splits.
+DENSE_SPLIT_CASES = {
+    "boundaries": (2048, 8, 1, [127, 128, 129, 2048], None),
+    "later_splits_empty": (2048, 8, 1, [1, 64, 300, 0], None),
+    "window_empties_leading": (2048, 2, 1, [1000, 700, 513, 2048], 100),
+    "gqa_rows_4": (2048, 2, 1, [1023, 1024, 1025, 17], None),
+    "gqa_chunk_rows_16": (2048, 2, 4, [4, 512, 767, 2048], 300),
+    "rows_5": (2048, 8, 5, [5, 258, 1531, 2048], None),
+    "rows_8": (2048, 8, 8, [3, 130, 1024, 2048], 200),  # valid_len 3 < s: rows that see no key
+    "capacity_not_a_multiple": (2000, 8, 1, [2000, 1999, 1793, 1], 600),
+    "one_split": (128, 8, 1, [128, 65, 64, 1], None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(DENSE_SPLIT_CASES), ids=list(DENSE_SPLIT_CASES))
+def test_dense_split_body_matches_plain(dtype, d, case):
+    """K4 on decode calls (rows <= 16: the split body and its combine on
+    the dense layout) against the plain version, and against the
+    split-and-merge plain version; a row with valid_len 0 is exactly 0."""
+    cap, hkv, s, valid, window = DENSE_SPLIT_CASES[case]
+    dev = _card()
+    g = torch.Generator().manual_seed(18)
+    q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(len(valid), hkv, cap, d, generator=g).to(dev, dtype) for _ in range(2))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    assert (8 // hkv) * s <= T.SPLIT_ROWS
+    before = T.launch_counts()
+    o = T.decode_attention(q, k, v, vl, window=window)
+    after = T.launch_counts()
+    assert after["decode_attention"] == before["decode_attention"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    f = [t.float() for t in (q, k, v)]
+    ref = T.decode_attention_reference(*f, vl, window=window)
+    split = T.decode_split_reference(*f, vl, window=window)
+    torch.testing.assert_close(split, torch.nan_to_num(ref, nan=0.0), atol=1e-5, rtol=0)
+    if dtype == torch.bfloat16:
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # fp32 arithmetic, o rounded
+    else:
+        assert (o - torch.nan_to_num(ref, nan=0.0)).abs().max().item() <= 1e-4
+    for r, n in enumerate(valid):
+        if n == 0:
+            assert not o[r].any()
+
+
+def _wide_pages(page, valid, alloc, g, dev):
+    """A shuffled table for capacity 2048 in which row r maps distinct
+    nonzero blocks below ``alloc[r]`` positions and the scratch block 0
+    past them, below its valid length too where ``alloc[r] < valid[r]``
+    (the engine's pad rows)."""
+    mb = -(-2048 // page)
+    nblocks = 1 + len(valid) * mb
+    perm = (torch.randperm(nblocks - 1, generator=g) + 1).tolist()
+    table = torch.zeros(len(valid), mb, dtype=torch.int32)
+    for r, n in enumerate(alloc):
+        need = -(-n // page)
+        table[r, :need] = torch.tensor(perm[:need], dtype=torch.int32)
+        perm = perm[need:]
+    return table.to(dev), nblocks
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("page", [64, 16, 24])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hkv,s", [(8, 17), (8, 100), (8, 256), (2, 5), (2, 25)],
+                         ids=["rows17", "rows100", "rows256", "gqa_rows20", "gqa_rows100"])
+def test_paged_chunk_body_matches_plain(hkv, s, d, page, window):
+    """K6 on wide bf16 calls (rows > 16: the tensor-core chunk body)
+    against the plain version per element within its rounding bound
+    (``mag = p·|v|``): ragged valid_len with 0, a length below s (rows
+    before position 0 see no key and write 0), a page boundary + 1, a
+    row whose last pages map the scratch block below its valid length,
+    and full capacity, on a shuffled table."""
+    dev = _card()
+    g = torch.Generator().manual_seed(19)
+    valid = [0, max(s - 3, 1), 5 * page + 1, 1300, -(-2048 // page) * page]
+    alloc = [*valid[:3], 1300 - 2 * page, valid[4]]
+    pages, nblocks = _wide_pages(page, valid, alloc, g, dev)
+    q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(hkv, nblocks, page, d, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    assert (8 // hkv) * s > T.SPLIT_ROWS
+    before = T.launch_counts()
+    o = T.paged_decode_attention(q, k, v, vl, pages, window=window)
+    after = T.launch_counts()
+    assert after["paged_decode_attention_chunk"] == before["paged_decode_attention_chunk"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    f = [t.float() for t in (q, k, v)]
+    ref = T.paged_decode_attention_reference(*f, vl, pages, window=window)
+    mag = T.paged_decode_attention_reference(*f[:2], f[2].abs(), vl, pages, window=window)
+    _close_rounded(o, ref, mag, 1e-4)
+    assert not o[0].any()
+    assert not o[1, :, :s - valid[1]].any()  # positions below 0
+
+
+@pytest.mark.parametrize("page", [64, 16, 24])
+def test_paged_chunk_body_never_reads_the_scratch_block(page):
+    """The chunk body with block 0 at ±1e30: every row whose valid_len
+    stops before the scratch block is bit-identical; the last row maps
+    the scratch block below its valid length and reads it."""
+    dev = _card()
+    g = torch.Generator().manual_seed(20)
+    valid = [0, 40, 700, 2048, 900]
+    pages, nblocks = _wide_pages(page, valid, [*valid[:4], 900 - page], g, dev)
+    q = torch.randn(len(valid), 8, 64, 128, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(2, nblocks, page, 128, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    clean = T.paged_decode_attention(q, k, v, vl, pages)
+    k[:, 0], v[:, 0] = 1e30, -1e30
+    dirty = T.paged_decode_attention(q, k, v, vl, pages)
+    torch.testing.assert_close(dirty[:4], clean[:4], rtol=0, atol=0)
+    assert not clean[0].any()
 
 
 @pytest.mark.parametrize("lm_config", [
