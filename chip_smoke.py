@@ -9,13 +9,15 @@ failure exits non-zero:
 
 1. card     — the card's name and power limit (``nvidia-smi``);
 2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, five sources), with the build's wall time;
+   (one ``nvcc`` per source, six sources), with the build's wall time;
    for the bf16 tensor-core bodies of K1, K2, K3 and K6's prefill chunks
    (head dims 64 and 128) the registers and spills ptxas reports, the
    dynamic shared memory they launch with and, where ``cuobjdump``
    exists, the count of HGMMA instructions in their SASS, which must not
-   be 0; for the split-K body of K4 (dense) and K6 (paged) and its
-   combine kernel their registers and spills;
+   be 0; the same for the tensor-core chunk body over int8 K/V (K5
+   dense, K7 paged), which must not spill; for the split-K body of K4,
+   K5 (dense) and K6, K7 (paged), over bf16/fp32 and int8 caches, and its
+   combine kernel their registers, stack frame, spills and shared memory;
 3. kernels  — the forward and decode kernels (K1, K4) against their
    plain PyTorch versions (fp32) on the same seeded inputs: K1's bf16
    tensor-core body per element within its rounding bound (below); K4's
@@ -46,7 +48,8 @@ failure exits non-zero:
    L + 1, full capacity, 0; a window that empties the leading splits;
    GQA rows 4, chunks of rows 5 and 8; pages 16 and 24; capacities 2000
    and 2064, not multiples of L), then K6's bf16 prefill-chunk body
-   (``WIDE_CASES``: rows 17, 100 and 256, GQA rows 20 and 100; pages 64,
+   (``WIDE_CASES``: rows 17, 100 and 256, GQA rows 20 and 100, and s =
+   capacity 512; pages 64,
    16 and 24; valid_len 0, below s, a page boundary + 1, past the row's
    allocated blocks (its pad positions read the scratch block) and full
    capacity; window 256; the scratch block at ±1e30 changes no bit of a
@@ -54,7 +57,22 @@ failure exits non-zero:
    body) with bf16 inputs are held per element to ``2**-8 * |plain| +
    1e-4``: the body computes in fp32 and rounds only its output, so that
    is all the room bf16 gives it; its bf16 prefill chunks to the
-   tensor-core rounding bound below (p rounded for p·v);
+   tensor-core rounding bound below (p rounded for p·v). Then the int8
+   bodies of K5 (dense) and K7 (paged): the split body on decode calls
+   (``Q8_SPLIT_CASES``: valid_len L - 1, L, L + 1, full, 0; a window that
+   empties the leading splits; GQA rows 4 and 16; a chunk of rows 5;
+   pages 64, 16, 24) with
+   bf16 queries per element within ``2**-8 * |plain| + 1e-4`` and fp32
+   within 1e-4, and the keys that no row may read (K7: scratch block 0;
+   K5: positions past valid_len) poisoned, values at ±127 and scales at
+   NaN/1e30, changing no bit; the chunk body on wide bf16 calls
+   (``WIDE_CASES``, dense and on pages 64, 16, 24; valid_len 0, below s,
+   full; s = capacity 512, full causal) within the tensor-core rounding
+   bound with ``mag`` from the dequantized |v|, and K5's chunk body at
+   the int8 engine's admission prefill as phase 5 times it (q (4, 8,
+   2048, d), valid_len 2048, causal: 32 row tiles per head). The cases
+   and operands come from ``hops_tpu_torch/ops/kernel_checks.py``, which
+   the card tests share;
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
    1024, 8 heads of 128, 12 layers, bf16, max_decode_len 2048) written
    as an artifact, served by ``LMEnginePredictor`` with 4 slots: 8 greedy
@@ -93,19 +111,23 @@ failure exits non-zero:
    kernel must launch and K1/K4 must not, and (c) must use at least 90%
    of its pool at peak. Prints TTFT, decode tokens/s, prefill chunks,
    preemptions, peak blocks, the persistent KV bytes against phase 4's
-   dense cache, how many streams equal phase 4's and, on the paged
-   engines, for each stream that does not, the engine's own margin at the
-   first difference: from the logits it drew that token from, its token's
-   logit minus phase 4's token's and minus the runner-up's (a near tie
-   that rounding decides reads far below the bf16 model's distance from
-   fp32); checks the logits
+   dense cache and how many streams equal phase 4's; then serves the
+   same requests again, outside the timed pass, keeping the logits the
+   engine draws each token from, and prints that pass's decode tokens/s
+   (the cost of keeping them), whether its streams equal the timed
+   pass's and, for each stream that differs from phase 4's, the engine's
+   own margin at the first difference: its token's logit minus phase 4's
+   token's and minus the runner-up's (a near tie that rounding decides
+   reads far below the bf16 model's distance from fp32); checks the logits
    of two requests as phase 4 does, against the plain attention
    versions on the same cache type; after (b), a ``torch.profiler``
    trace of one fused prefill-chunk step (device busy, and the share of
    K6's tensor-core chunk body, which must launch where the 64-row body
    must not) and of 10 paged decode steps at 4 busy slots (as phase 6:
-   device busy, idle share, launches per step, and K6's share). (b) must
-   launch K6's split body (decode) and its chunk body (prefill chunks);
+   device busy, idle share, launches per step, and K6's share), and the
+   same two profiles of (c) with K7's share. (a) and (c) must launch
+   their int8 split body (decode) and chunk body (prefill), (b) K6's
+   split body and chunk body;
 8b. parity  — 2 layers at full width in fp32: the paged engine against
    the dense engine of the same cache dtype (fp32 pools, int8 pools) on
    a pool of 5 usable blocks that forces a preemption; greedy streams
@@ -124,10 +146,13 @@ Each case prints its worst ratio of error to bound.
 Phase 5's rows for K2 and K3 are timed after phase 7, at (8, 8, 2048,
 128) bf16 causal, beside the launches per train step; its rows for K5,
 K6 and K7 after phase 8b, at phase 5's decode shape, beside their
-launches in phase 8, with K6's split count, and K6 once more at the
-width of a 256-token prefill chunk of every slot (its tensor-core chunk
-body, a record of its own, ``paged_decode_attention_chunk``, beside its
-launches in phase 8 (b)). The
+launches in phase 8, with their split counts; then the wide calls, each
+a record of its own beside its launches in phase 8: K6 and K7 at the
+width of a 256-token prefill chunk of every slot (their tensor-core
+chunk body, ``paged_decode_attention_chunk`` and
+``paged_decode_attention_q8_chunk``), and K5 at the int8 engine's
+admission prefill, 4 prompts in the 2048 bucket causal over their own
+int8 keys (``decode_attention_q8_chunk``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -174,7 +199,8 @@ GRAD_SEEDS = 3
 # Phase 2: the bf16 tensor-core bodies, by source and ptxas entry name.
 TC_BODIES = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "dq_kernel",
              "flash_bwd_dkv": "dkv_kernel"}
-# ... and K6's prefill-chunk body, in the paged source.
+# ... and the prefill-chunk body (K6 over bf16 pools; K5 and K7 over
+# int8), in the sources of K5, K6 and K7.
 CHUNK_BODY = "chunk_kernel"
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The device-kernel names of each, as the profiler reports them (bf16
@@ -182,23 +208,26 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_KERNEL_NAMES = {"flash_fwd": ("tc::fwd_kernel", "flash_fwd_kernel"),
                       "flash_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
                       "flash_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel")}
-# The device kernels of K4's and K6's split-K body and its combine
-# (decode steps), K6's tensor-core chunk body (bf16 prefill chunks) and
-# the 64-row body (wider fp32 calls; K5, K7), as the profiler names them.
+# The device kernels of the split-K body and its combine (decode steps
+# of K4-K7), the tensor-core chunk body (bf16 prefill of K5-K7) and the
+# 64-row body (wider fp32 calls), as the profiler names them.
 SPLIT_KERNEL_NAMES = ("split::split_kernel", "split::combine_kernel")
 CHUNK_KERNEL_NAME = "chunk::chunk_kernel"
 ROWS_KERNEL_NAME = "decode_rows_kernel"
-K6_KERNEL_NAMES = (*SPLIT_KERNEL_NAMES, CHUNK_KERNEL_NAME, ROWS_KERNEL_NAME)
 # Phase 8: (name, lm_config, the kernels it runs, every one of which must
 # launch). (c)'s 64 usable blocks hold 4096 tokens, under the ~5000 the
 # four largest requests reach.
 CACHE_SLICES = (
-    ("int8", {"slots": 4, "kv_cache_dtype": "int8"}, ("decode_attention_q8",)),
+    ("int8", {"slots": 4, "kv_cache_dtype": "int8"},
+     ("decode_attention_q8", "decode_attention_q8_chunk")),
     ("paged", {"slots": 4, "kv_page_size": 64, "prefill_chunk": 256},
      ("paged_decode_attention", "paged_decode_attention_chunk")),
     ("paged-int8", {"slots": 4, "kv_cache_dtype": "int8", "kv_page_size": 64,
-                    "kv_pool_blocks": 65, "prefill_chunk": 256}, ("paged_decode_attention_q8",)),
+                    "kv_pool_blocks": 65, "prefill_chunk": 256},
+     ("paged_decode_attention_q8", "paged_decode_attention_q8_chunk")),
 )
+# The paged engines profiled in phase 8: slice name -> the kernel's label.
+PROFILED_SLICES = {"paged": "K6", "paged-int8": "K7"}
 PEAK_POOL_SHARE = 0.9
 # Phase 3c, K6's split-K body (128-key splits): (page, capacity, kv
 # heads of 8 query heads, query tokens, valid_len per row, window).
@@ -217,10 +246,6 @@ DENSE_SPLIT_CASES = (
     (2000, 8, 5, [5, 258, 1531, 2000, 1999], None),  # rows 5; cap not a multiple of L
     (2048, 8, 8, [3, 255, 257, 0, 1025], 300),  # rows 8, valid_len 3 < s
 )
-# Phase 3c, K6's bf16 prefill-chunk body: (kv heads of 8 query heads,
-# query tokens), rows 17, 100, 256, GQA 20 and 100 (64-row tiles that
-# span heads).
-WIDE_CASES = ((8, 17), (8, 100), (8, 256), (2, 5), (2, 25))
 # Phase 8b: two 60-token prompts with 70 new tokens each need 3 blocks
 # of 64 apiece at their deepest write; the pool has 5.
 PARITY = dict(MODEL, num_layers=2, dtype="float32")
@@ -229,9 +254,11 @@ TIE_REL = 1e-4
 # Phase 3c and 5: the cache kernels and the TPU kernels they replace.
 CACHE_KERNELS = {
     "decode_attention_q8": ("decode_attention_q8.cu", 1211),
+    "decode_attention_q8_chunk": ("decode_chunk.cuh", 1211),
     "paged_decode_attention": ("paged_decode_attention.cu", 916),
     "paged_decode_attention_chunk": ("decode_chunk.cuh", 916),
-    "paged_decode_attention_q8": ("paged_decode_attention.cu", 965),
+    "paged_decode_attention_q8": ("paged_decode_attention_q8.cu", 965),
+    "paged_decode_attention_q8_chunk": ("decode_chunk.cuh", 965),
 }
 
 
@@ -378,12 +405,14 @@ def report_tc_body(name: str, fn: str, e: dict, smem: int, sass: dict, label: st
 
 
 def report_tc_bodies(_build, report) -> None:
-    """Phase 2 for the bf16 tensor-core bodies of K1, K2, K3 and K6's
-    prefill chunks: per head dim the registers and spills from ptxas, the
-    dynamic shared memory from the library, and the HGMMA count in the
-    SASS (fails at 0). Then the registers and spills of the split-K body
-    of K4 (dense) and K6 (paged), per (dtype, head dim, rows bucket), and
-    of its combine kernel."""
+    """Phase 2 for the bf16 tensor-core bodies of K1, K2, K3 and the
+    prefill-chunk body (K6 over bf16 pools, K5 and K7 over int8): per
+    head dim the registers and spills from ptxas, the dynamic shared
+    memory from the library, and the HGMMA count in the SASS (fails at 0;
+    the chunk body also fails on a spill). Then the registers, stack
+    frame, spills and shared memory of the split-K body of K4, K5 (dense)
+    and K6, K7 (paged), per (query dtype, cache type, head dim, rows
+    bucket), and of its combine kernel."""
     import ctypes
 
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
@@ -396,25 +425,43 @@ def report_tc_bodies(_build, report) -> None:
         for d in (64, 128):
             fn = next(n for n in entries if f"2tc{len(body)}{body}ILi{d}E" in n)
             report_tc_body(name, fn, entries[fn], smem(d, 1), sass, f"bf16 tensor-core body d{d}")
-    r = report["paged_decode_attention"]
-    entries = ptxas_entries(r["ptxas"])
-    smem = ctypes.CDLL(r["path"]).hops_paged_decode_attention_chunk_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    sass = hgmma_counts(cuobjdump, r["path"])
-    for d in (64, 128):
-        fn = next(n for n in entries if f"{CHUNK_BODY}ILi{d}E" in n)
-        report_tc_body("paged_decode_attention", fn, entries[fn], smem(d), sass,
-                       f"bf16 tensor-core chunk body d{d}")
-    for name in ("decode_attention", "paged_decode_attention"):
+    # The chunk body: (kernel, layout, cache type as mangled), in the
+    # kernel's own source, with its `<entry>_chunk_smem_bytes`.
+    for name, paged, kv in (("paged_decode_attention", 1, "13__nv_bfloat16"),
+                            ("paged_decode_attention_q8", 1, "a"), ("decode_attention_q8", 0, "a")):
+        r = report[name]
+        entries = ptxas_entries(r["ptxas"])
+        smem = getattr(ctypes.CDLL(r["path"]), _build.KERNELS[name][1] + "_chunk_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        sass = hgmma_counts(cuobjdump, r["path"])
+        for d in (64, 128):
+            fn = next(n for n in entries if f"{CHUNK_BODY}ILi{d}ELb{paged}E{kv}E" in n)
+            e = entries[fn]
+            label = (f"tensor-core chunk body, {'paged' if paged else 'dense'} "
+                     f"{'int8' if kv == 'a' else 'bf16'} K/V, d{d}")
+            report_tc_body(name, fn, e, smem(d), sass, label)
+            if e["spill_stores"] or e["spill_loads"]:
+                raise AssertionError(f"{name} {label} spills")
+    split_smem = ctypes.CDLL(report["decode_attention"]["path"]).hops_split_smem_bytes
+    split_smem.argtypes, split_smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for name in ("decode_attention", "decode_attention_q8", "paged_decode_attention",
+                 "paged_decode_attention_q8"):
         for fn, e in sorted(ptxas_entries(report[name]["ptxas"]).items()):
-            m = re.search(r"(split_kernel|combine_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
-                          r"(?:Li(\d+)ELb[01]E)?", fn)
+            # The cache type after the query's: int8 (a), or the query's own
+            # (f, or a substitution of __nv_bfloat16); the combine has none.
+            m = re.search(r"(split_kernel|combine_kernel)I(f|13__nv_bfloat16)(f|a|S\d*_)?"
+                          r"Li(\d+)E(?:Li(\d+)ELb[01]E)?", fn)
             if m:
-                kind, t, d, rows = m.groups()
-                print(f"  {name} {kind} {'bf16' if t != 'f' else 'fp32'} d{d}"
+                kind, t, kv, d, rows = m.groups()
+                cache = "" if kv is None else (" int8 K/V" if kv == "a" else " same-type K/V")
+                smem_b = ""
+                if kind == "split_kernel":
+                    elem = 1 if kv == "a" else (4 if t == "f" else 2)
+                    smem_b = f", shared memory {split_smem(elem, int(d), int(rows))} bytes"
+                print(f"  {name} {kind} {'bf16' if t != 'f' else 'fp32'} q{cache} d{d}"
                       + (f" rows<={rows}" if rows else "") + f": {e['registers']} registers, "
                       f"stack frame {e['stack']} bytes, spill stores {e['spill_stores']} bytes, "
-                      f"spill loads {e['spill_loads']} bytes", flush=True)
+                      f"spill loads {e['spill_loads']} bytes{smem_b}", flush=True)
 
 
 def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
@@ -596,25 +643,11 @@ def bwd_magnitudes(A, torch, f, lse, delta, kw) -> dict:
             "dv": torch.einsum("bhqk,bhqd->bhkd", p, do.abs())}
 
 
-def shuffled_pages(torch, gen, valid: list[int], page: int, cap: int, dev):
-    """``(pages, nblocks)``: a ``(len(valid), ceil(cap / page))`` table
-    over a pool of ``1 + rows * max_blocks`` blocks in which each row maps
-    distinct, shuffled nonzero blocks below its valid length and the
-    scratch block 0 past it (a free row is all zeros)."""
-    mb = -(-cap // page)
-    nblocks = 1 + len(valid) * mb
-    free = (torch.randperm(nblocks - 1, generator=gen) + 1).tolist()
-    table = torch.zeros(len(valid), mb, dtype=torch.int32)
-    for r, n in enumerate(valid):
-        need = -(-n // page)
-        table[r, :need] = torch.tensor(free[:need], dtype=torch.int32)
-        free = free[need:]
-    return table.to(dev), nblocks
-
-
 def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
     """Phase 3c. Returns the worst error per kernel and query dtype;
     raises on a miss or when the scratch block changes an output."""
+    from hops_tpu_torch.ops.kernel_checks import shuffled_table
+
     worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in CACHE_KERNELS}
     bad = []
     cap, b, h = 2048, 5, 8
@@ -639,40 +672,56 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
             for hkv in (8, 2):
                 for s in (1, 256):
                     q = torch.randn(b, h, s, d, generator=gen).to(dev, dtype)
-                    errs = {k: 0.0 for k in CACHE_KERNELS}
-                    # K6's bf16 decode calls run the split body: held to
-                    # its output's rounding alone.
+                    errs = {}  # kernel (body) -> worst error of this shape
+                    # bf16 decode calls run the split body: held to its
+                    # output's rounding alone.
                     split_bf16 = dtype == torch.bfloat16 and (h // hkv) * s <= A.SPLIT_ROWS
-                    # Its bf16 prefill chunks run the tensor-core chunk body.
+                    # bf16 prefill calls run the tensor-core chunk body.
                     chunk_bf16 = dtype == torch.bfloat16 and not split_bf16
                     split_ratio = chunk_ratio = 0.0
+
+                    def held(name, o, ref, mag_fn):
+                        """(err, ok, miss) of one output at its body's bound."""
+                        nonlocal split_ratio, chunk_ratio
+                        if split_bf16:
+                            err, ratio, ok = output_rounding_close(o, ref)
+                            split_ratio = max(split_ratio, ratio)
+                            return err, ok, f"err/rounding bound {ratio:.3f}"
+                        if chunk_bf16:
+                            err, ratio, ok = rounding_close(o, ref, mag_fn(), FP32_ATOL)
+                            chunk_ratio = max(chunk_ratio, ratio)
+                            return err, ok, f"err/rounding bound {ratio:.3f}"
+                        err, tol, ok = close(o, ref, atol, rel)
+                        return err, ok, f"{err:.3e} > {tol:.3e}"
+
                     # K5: tile boundary +-1 and full capacity.
                     vl = torch.tensor([0, 1, 63, 65, cap], dtype=torch.int32, device=dev)
                     (kq, ks), (vq, vs) = (A.quantize_kv(torch.randn(b, hkv, cap, d, generator=gen)
                                                         .to(dev)) for _ in range(2))
+                    name = "decode_attention_q8_chunk" if chunk_bf16 else "decode_attention_q8"
                     for window in (None, 256):
-                        o = run("decode_attention_q8", lambda: A.decode_attention_q8(
+                        o = run(name, lambda: A.decode_attention_q8(
                             q, kq, vq, ks, vs, vl, window=window), q)
                         ref = A.decode_attention_q8_reference(q.float(), kq, vq, ks, vs, vl,
                                                               window=window)
-                        err, tol, ok = close(o, ref, atol, rel)
-                        errs["decode_attention_q8"] = max(errs["decode_attention_q8"], err)
+                        err, ok, miss = held(name, o, ref, lambda: A.decode_attention_q8_reference(
+                            q.float(), kq, vq.abs(), ks, vs, vl, window=window))
+                        errs[name] = max(errs.get(name, 0.0), err)
                         if not ok:
-                            bad.append(f"decode_attention_q8 {dname} d{d} hkv {hkv} s {s} "
-                                       f"window={window}: {err:.3e} > {tol:.3e}")
+                            bad.append(f"{name} {dname} d{d} hkv {hkv} s {s} window={window}: {miss}")
                     # K6 and K7: page boundary +-1 and full capacity.
                     for page in (64, 16, 24):
                         mb = -(-cap // page)
                         valid = [0, 1, 5 * page - 1, 5 * page + 1, mb * page]
                         vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-                        pages, nblocks = shuffled_pages(torch, gen, valid, page, cap, dev)
+                        pages, nblocks = shuffled_table(page, cap, valid, gen, dev)
                         pools = [torch.randn(hkv, nblocks, page, d, generator=gen).to(dev)
                                  for _ in range(2)]
                         quant = [A.quantize_kv(p) for p in pools]
                         for name in ("paged_decode_attention", "paged_decode_attention_q8"):
-                            if name == "paged_decode_attention" and chunk_bf16:
-                                name = "paged_decode_attention_chunk"
-                            if name.endswith("q8"):
+                            if chunk_bf16:
+                                name += "_chunk"
+                            if "q8" in name:
                                 (k, ksc), (v, vsc) = quant
                                 scales = dict(k_scale=ksc, v_scale=vsc)
                                 plain_kv = (k, v)
@@ -685,21 +734,11 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                                     q, k, v, vl, pages, window=window, **scales), q)
                                 ref = A.paged_decode_attention_reference(
                                     q.float(), *plain_kv, vl, pages, window=window, **scales)
-                                if split_bf16 and not scales:
-                                    err, ratio, ok = output_rounding_close(o, ref)
-                                    split_ratio = max(split_ratio, ratio)
-                                    miss = f"err/rounding bound {ratio:.3f}"
-                                elif name == "paged_decode_attention_chunk":
-                                    mag = A.paged_decode_attention_reference(
+                                err, ok, miss = held(name, o, ref, lambda: (
+                                    A.paged_decode_attention_reference(
                                         q.float(), plain_kv[0], plain_kv[1].abs(), vl, pages,
-                                        window=window)
-                                    err, ratio, ok = rounding_close(o, ref, mag, FP32_ATOL)
-                                    chunk_ratio = max(chunk_ratio, ratio)
-                                    miss = f"err/rounding bound {ratio:.3f}"
-                                else:
-                                    err, tol, ok = close(o, ref, atol, rel)
-                                    miss = f"{err:.3e} > {tol:.3e}"
-                                errs[name] = max(errs[name], err)
+                                        window=window, **scales)))
+                                errs[name] = max(errs.get(name, 0.0), err)
                                 if not ok:
                                     bad.append(f"{name} {dname} d{d} hkv {hkv} s {s} page {page} "
                                                f"window={window}: {miss}")
@@ -720,19 +759,19 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                                            "the scratch block reached an output")
                     for name, err in errs.items():
                         worst[name][dname] = max(worst[name][dname], err)
+                    body = ("split body per element 2^-8*|plain| + "
+                            f"{FP32_ATOL:.0e}, worst err/bound {split_ratio:.3f}" if split_bf16 else
+                            "chunk body per element 2^-8*(p|v| + |plain|) + "
+                            f"{FP32_ATOL:.0e}, worst err/bound {chunk_ratio:.3f}" if chunk_bf16 else
+                            f"bound {atol:.0e}{' + 2e-2*max|plain|' if rel else ''}")
                     print(f"  {dname} b{b} h8 hkv {hkv} d{d} s {s}: worst err " + ", ".join(
                         f"{n} {e:.3e}" for n, e in errs.items())
-                        + f" (bound {atol:.0e}{' + 2e-2*max|plain|' if rel else ''}"
-                        + (f"; paged_decode_attention's split body per element 2^-8*|plain| + "
-                           f"{FP32_ATOL:.0e}, worst err/bound {split_ratio:.3f}" if split_bf16 else "")
-                        + (f"; paged_decode_attention_chunk per element 2^-8*(p|v| + |plain|) + "
-                           f"{FP32_ATOL:.0e}, worst err/bound {chunk_ratio:.3f}" if chunk_bf16 else "")
-                        + "); scratch block unreachable", flush=True)
+                        + f" ({body}); scratch block unreachable", flush=True)
             # K6's split body across its split boundaries.
             err_split = ratio_split = 0.0
             for page, cap, hkv, s, valid, window in SPLIT_CASES:
                 vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-                pages, nblocks = shuffled_pages(torch, gen, valid, page, cap, dev)
+                pages, nblocks = shuffled_table(page, cap, valid, gen, dev)
                 k, v = (torch.randn(hkv, nblocks, page, d, generator=gen).to(dev, dtype)
                         for _ in range(2))
                 q = torch.randn(len(valid), h, s, d, generator=gen).to(dev, dtype)
@@ -759,8 +798,10 @@ def check_cache_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                           f"{ratio_split:.3f}" if dtype == torch.bfloat16 else f"bound {atol:.0e}")
             print(f"  {dname} d{d}: paged_decode_attention split body over {len(SPLIT_CASES)} "
                   f"split-boundary cases: worst err {err_split:.3e} ({bound_note})", flush=True)
+            bad += check_q8_split_body(A, torch, gen, dev, d, dtype, run, worst)
             if dtype == torch.bfloat16:
                 bad += check_chunk_body(A, torch, gen, dev, d, run, worst)
+                bad += check_q8_chunk_body(A, torch, gen, dev, d, run, worst)
     if bad:
         raise AssertionError("cache kernel disagrees with its plain version: " + "; ".join(bad))
     return worst
@@ -773,19 +814,17 @@ def check_chunk_body(A, torch, gen, dev, d: int, run, worst) -> list[str]:
     1e-4``; rows with valid_len 0 and rows before position 0 exactly 0;
     then the scratch block at ±1e30 and the outputs of every row that
     does not reach it bit-identical. Returns the cases that missed."""
+    from hops_tpu_torch.ops.kernel_checks import WIDE_CASES, shuffled_table, wide_lengths
+
     bad = []
-    cap, b, h = 2048, 5, 8
+    b, h = 5, 8
     name = "paged_decode_attention_chunk"
     for page in (64, 16, 24):
         err_max = ratio_max = 0.0
-        mb = -(-cap // page)
-        for hkv, s in WIDE_CASES:
-            # valid_len 0, below s, a page boundary + 1, past the blocks
-            # row 3 holds (its last two pages map the scratch block), full.
-            valid = [0, max(s - 3, 1), 5 * page + 1, 1300, mb * page]
-            alloc = [*valid[:3], 1300 - 2 * page, valid[4]]
+        for case, (hkv, s, cap) in WIDE_CASES.items():
+            valid, alloc = wide_lengths(s, page, cap)
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-            pages, nblocks = shuffled_pages(torch, gen, alloc, page, cap, dev)
+            pages, nblocks = shuffled_table(page, cap, alloc, gen, dev)
             q = torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16)
             k, v = (torch.randn(hkv, nblocks, page, d, generator=gen).to(dev, torch.bfloat16)
                     for _ in range(2))
@@ -799,19 +838,135 @@ def check_chunk_body(A, torch, gen, dev, d: int, run, worst) -> list[str]:
                 err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
                 ok = ok and not o[0].any() and not o[1, :, :s - valid[1]].any()
                 if not ok:
-                    bad.append(f"{name} d{d} page {page} hkv {hkv} s {s} window={window}: "
+                    bad.append(f"{name} d{d} page {page} {case} window={window}: "
                                f"err/rounding bound {ratio:.3f}")
             clean = A.paged_decode_attention(q, k, v, vl, pages)
             k[:, 0], v[:, 0] = 1e30, -1e30
             dirty = run(name, lambda: A.paged_decode_attention(q, k, v, vl, pages), q)
             if not torch.equal(dirty[[0, 1, 2, 4]], clean[[0, 1, 2, 4]]):
-                bad.append(f"{name} d{d} page {page} hkv {hkv} s {s}: the scratch block reached "
-                           "a row that does not map it")
+                bad.append(f"{name} d{d} page {page} {case}: the scratch block reached a row "
+                           "that does not map it")
         worst[name]["bfloat16"] = max(worst[name]["bfloat16"], err_max)
         print(f"  bfloat16 d{d} page {page}: paged_decode_attention_chunk over {len(WIDE_CASES)} "
-              f"shapes (rows {', '.join(str(8 // hkv * s) for hkv, s in WIDE_CASES)}) x windows "
-              f"none/256: worst err {err_max:.3e}, worst err/rounding bound {ratio_max:.3f}; "
-              "scratch block reaches only the row that maps it", flush=True)
+              f"shapes ({', '.join(WIDE_CASES)}) x windows none/256: worst err {err_max:.3e}, "
+              f"worst err/rounding bound {ratio_max:.3f}; scratch block reaches only the row "
+              "that maps it", flush=True)
+    return bad
+
+
+def check_q8_split_body(A, torch, gen, dev, d: int, dtype, run, worst) -> list[str]:
+    """Phase 3c for the int8 split body of K5 (dense) and K7 (paged) at
+    head dim ``d`` and query dtype ``dtype``: the ``Q8_SPLIT_CASES``
+    against the plain version, bf16 per element within ``2**-8 * |plain| +
+    1e-4`` (fp32 arithmetic, the output rounded), fp32 within 1e-4; rows
+    with valid_len 0 exactly 0; then the keys no row may read poisoned
+    (values and scales) and every output bit-identical. Returns the cases
+    that missed."""
+    from hops_tpu_torch.ops.kernel_checks import (Q8_SPLIT_CASES, q8_call, q8_operands,
+                                                  q8_plain, q8_poisoned)
+
+    bad = []
+    dname = str(dtype).rsplit(".", 1)[-1]
+    err_max = {"decode_attention_q8": 0.0, "paged_decode_attention_q8": 0.0}
+    ratio_max = dict(err_max)
+    for case, (page, cap, hkv, s, valid, window) in Q8_SPLIT_CASES.items():
+        if (8 // hkv) * s > A.SPLIT_ROWS:
+            raise AssertionError(f"Q8_SPLIT_CASES {case}: hkv {hkv} s {s} is not a decode call")
+        vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+        q = torch.randn(len(valid), 8, s, d, generator=gen).to(dev, dtype)
+        for layout, name in (("dense", "decode_attention_q8"), ("paged", "paged_decode_attention_q8")):
+            kv, pages = q8_operands(layout, page, cap, hkv, d, valid, gen, dev)
+            o = run(name, lambda: q8_call(q, kv, vl, pages, window), q)
+            ref = q8_plain(q, kv, vl, pages, window)
+            if dtype == torch.bfloat16:
+                err, ratio, ok = output_rounding_close(o, ref)
+                ratio_max[name] = max(ratio_max[name], ratio)
+                miss = f"err/rounding bound {ratio:.3f}"
+            else:
+                err, tol, ok = close(o, ref, FP32_ATOL)
+                miss = f"{err:.3e} > {tol:.3e}"
+            err_max[name] = max(err_max[name], err)
+            ok = ok and not o[vl == 0].any()
+            dirty = run(name, lambda: q8_call(q, q8_poisoned(kv, vl, pages), vl, pages, window), q)
+            if not torch.equal(dirty, o):
+                ok, miss = False, "a key no row may read (values or scales) reached an output"
+            if not ok:
+                bad.append(f"{name} int8 split body {dname} d{d} {case}: {miss}")
+    for name, err in err_max.items():
+        worst[name][dname] = max(worst[name][dname], err)
+        bound_note = (f"per element 2^-8*|plain| + {FP32_ATOL:.0e}, worst err/bound "
+                      f"{ratio_max[name]:.3f}" if dtype == torch.bfloat16 else
+                      f"bound {FP32_ATOL:.0e}")
+        print(f"  {dname} d{d}: {name} int8 split body over {len(Q8_SPLIT_CASES)} split-boundary "
+              f"cases ({', '.join(Q8_SPLIT_CASES)}): worst err {err:.3e} ({bound_note}); "
+              "poisoned values and scales change no bit", flush=True)
+    return bad
+
+
+def check_q8_chunk_body(A, torch, gen, dev, d: int, run, worst) -> list[str]:
+    """Phase 3c for the int8 tensor-core chunk body at head dim ``d``, bf16
+    queries: K5 on the dense cache and K7 on pages 64, 16 and 24, the
+    ``WIDE_CASES`` at windows none and 256, per element within ``2**-8 *
+    (p|v| + |plain|) + 1e-4`` with ``|v|`` dequantized; rows with
+    valid_len 0 and rows before position 0 exactly 0; then the keys no row
+    may read poisoned (values and scales) and every row that does not map
+    them bit-identical (K7's row 3 maps the scratch block below its
+    valid length, as the engine's pad rows do). Then K5 at the int8
+    engine's admission prefill as phase 5 times it: q (4, 8, 2048, d)
+    causal over its own K/V, valid_len 2048 for every row. Prints the
+    worst ratio per group; returns the cases that missed."""
+    from hops_tpu_torch.ops.kernel_checks import (WIDE_CASES, q8_call, q8_operands, q8_plain,
+                                                  q8_poisoned, wide_lengths)
+
+    bad = []
+    for layout in ("dense", 64, 16, 24):
+        page = 64 if layout == "dense" else layout
+        name = "decode_attention_q8_chunk" if layout == "dense" else "paged_decode_attention_q8_chunk"
+        err_max = ratio_max = 0.0
+        for case, (hkv, s, cap) in WIDE_CASES.items():
+            valid, alloc = wide_lengths(s, page, cap)
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+            kv, pages = q8_operands("dense" if layout == "dense" else "paged", page, cap, hkv, d,
+                                    alloc, gen, dev)
+            q = torch.randn(len(valid), 8, s, d, generator=gen).to(dev, torch.bfloat16)
+            for window in (None, 256):
+                o = run(name, lambda: q8_call(q, kv, vl, pages, window), q)
+                ref = q8_plain(q, kv, vl, pages, window)
+                mag = q8_plain(q, [kv[0], kv[1].abs(), kv[2], kv[3]], vl, pages, window)
+                err, ratio, ok = rounding_close(o, ref, mag, FP32_ATOL)
+                err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
+                ok = ok and not o[0].any() and not o[1, :, :s - valid[1]].any()
+                if not ok:
+                    bad.append(f"{name} d{d} {layout} {case} window={window}: "
+                               f"err/rounding bound {ratio:.3f}")
+            clean = run(name, lambda: q8_call(q, kv, vl, pages), q)
+            dirty = run(name, lambda: q8_call(q, q8_poisoned(kv, vl, pages), vl, pages), q)
+            keep = [0, 1, 2, 4] if layout != "dense" else list(range(len(valid)))
+            if not torch.equal(dirty[keep], clean[keep]):
+                bad.append(f"{name} d{d} {layout} {case}: a key no row may read reached an output")
+        worst[name]["bfloat16"] = max(worst[name]["bfloat16"], err_max)
+        where = "dense cache" if layout == "dense" else f"page {page}"
+        print(f"  bfloat16 d{d} {where}: {name} over {len(WIDE_CASES)} shapes "
+              f"({', '.join(WIDE_CASES)}) x windows none/256: worst err {err_max:.3e}, worst "
+              f"err/rounding bound {ratio_max:.3f}; poisoned values and scales change no row "
+              "that does not map them", flush=True)
+
+    # The admission prefill's own shape: every row full causal at s = cap.
+    name, b, sw = "decode_attention_q8_chunk", 4, 2048
+    vl = torch.full((b,), sw, dtype=torch.int32, device=dev)
+    kv, _ = q8_operands("dense", 64, sw, 8, d, [sw] * b, gen, dev)
+    q = torch.randn(b, 8, sw, d, generator=gen).to(dev, torch.bfloat16)
+    o = run(name, lambda: q8_call(q, kv, vl, None), q)
+    ref = q8_plain(q, kv, vl, None)
+    mag = q8_plain(q, [kv[0], kv[1].abs(), kv[2], kv[3]], vl, None)
+    err, ratio, ok = rounding_close(o, ref, mag, FP32_ATOL)
+    del ref, mag
+    worst[name]["bfloat16"] = max(worst[name]["bfloat16"], err)
+    print(f"  bfloat16 d{d} dense cache: {name} at the admission prefill q ({b},8,{sw},{d}), "
+          f"valid_len {sw} (causal, {sw // 64} row tiles per head): err {err:.3e}, "
+          f"err/rounding bound {ratio:.3f}", flush=True)
+    if not ok:
+        bad.append(f"{name} d{d} admission prefill ({b},8,{sw},{d}): err/rounding bound {ratio:.3f}")
     return bad
 
 
@@ -970,20 +1125,31 @@ def check_cache_logits(model, torch, prompts, answers, dev, chunk) -> None:
 
 @contextlib.contextmanager
 def drawn_logits(engine, taps: dict):
-    """Keep the logits the paged ``engine`` draws each token from, in its
-    own batch: ``taps[(ticket, j)]`` is the ``(vocab,)`` row that token j
-    of that ticket came from. Wraps ``logits`` of the engine's model
-    instance while the block runs."""
+    """Keep the logits the ``engine`` draws each token from, in its own
+    batch: ``taps[(ticket, j)]`` is the ``(vocab,)`` row that token j of
+    that ticket came from. Wraps ``logits`` of the engine's model
+    instance while the block runs. Paged engines draw every token from
+    one ``(slots, vocab)`` call; the dense engine draws a wave's first
+    tokens from ``(wave, vocab)`` and decode tokens from ``(slots, 1,
+    vocab)``."""
     model = engine.model
     real = model.logits
+    paged = engine.stats()["cache_layout"] == "paged"
 
     def tap(hidden):
         out = real(hidden)
-        if out.dim() == 2:  # the engine's (slots, vocab) draw
+        if paged and out.dim() == 2:  # the engine's (slots, vocab) draw
             for r, st in enumerate(engine._slot_state):
                 if st is None or (st.pending is not None and st.pending.size > engine.prefill_chunk):
                     continue  # a free row, or a prompt chunk before the last
                 taps[(st.ticket, 0 if st.pending is not None else len(st.emitted))] = out[r]
+        elif not paged and out.dim() == 2:  # an admission wave, in _admitting's order
+            for i, req in enumerate(engine._admitting):
+                taps[(req.ticket, 0)] = out[i]
+        elif not paged:  # a decode step over every slot
+            for r, st in enumerate(engine._slot_state):
+                if st is not None:
+                    taps[(st.ticket, len(st.emitted))] = out[r, -1]
         return out
 
     model.logits = tap
@@ -1114,9 +1280,13 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     step of 4 slots, 12 layer caches in turn, page 64 on a shuffled
     table. The yardstick is ``scaled_dot_product_attention`` on the
     gathered (paged) and dequantized (int8) bf16 tensors; the gather and
-    the dequantization are not timed. A last row times K6 at the width of
-    a 256-token prefill chunk of every slot (its tensor-core chunk body,
-    ``paged_decode_attention_chunk``)."""
+    the dequantization are not timed. Then the wide calls, each a record
+    of its own: K6 and K7 at the width of a 256-token prefill chunk of
+    every slot (their tensor-core chunk body), and K5 at the int8
+    engine's admission prefill (4 prompts in the 2048 bucket, causal over
+    their own int8 keys, valid_len 2048)."""
+    from hops_tpu_torch.ops.kernel_checks import shuffled_table
+
     F = torch.nn.functional
     bf16 = torch.bfloat16
     b, h, d, cap, layers, page = 4, 8, 128, 2048, 12, 64
@@ -1128,7 +1298,7 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     blocks = sum(-(-n // page) for n in vl_host)
     flops = 4 * d * h * keys
     io = 2 * b * h * d * 2 + b * 4  # q, o and valid_len
-    pages, nblocks = shuffled_pages(torch, gen, vl_host, page, cap, dev)
+    pages, nblocks = shuffled_table(page, cap, vl_host, gen, dev)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
@@ -1180,38 +1350,83 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
             plain_ms=cuda_ms(lambda i=0, plain=plain: plain(i % layers), 24),
             library_ms=cuda_ms(lambda i=0, dense=dense: F.scaled_dot_product_attention(
                 q, *dense[i % layers], attn_mask=mask), 120),
-            **bound(flops, nbytes),
+            n_splits=A.decode_splits(1, cap, b * h)[0], **bound(flops, nbytes),
         ))
-    rows[1]["n_splits"] = A.decode_splits(1, cap, b * h)[0]
 
-    # K6 at a prefill chunk's width: 256 query rows per slot, the chunk
-    # at positions valid_len - 256 .. valid_len - 1.
+    # K6 and K7 at a prefill chunk's width: 256 query rows per slot, the
+    # chunk at positions valid_len - 256 .. valid_len - 1.
     sq = 256
     vlc_host = [max(n, sq) for n in vl_host]
     vlc = torch.tensor(vlc_host, dtype=torch.int32, device=dev)
     qc = torch.randn(b, h, sq, d, generator=gen).to(dev, bf16)
     pos = vlc[:, None] - sq + torch.arange(sq, device=dev)[None, :]
     maskc = (torch.arange(cap, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
-    pagesc, nblocksc = shuffled_pages(torch, gen, vlc_host, page, cap, dev)
+    pagesc, nblocksc = shuffled_table(page, cap, vlc_host, gen, dev)
     poolsc = [[rand(h, nblocksc, page, d).to(bf16) for _ in range(2)] for _ in range(layers)]
-    densec = [tuple(A.paged_gather_kv(p, pagesc) for p in pl) for pl in poolsc]
+    qpoolsc = [[*A.quantize_kv(rand(h, nblocksc, page, d)), *A.quantize_kv(rand(h, nblocksc, page, d))]
+               for _ in range(layers)]
     pairs = sum(sq * (n - sq) + sq * (sq + 1) // 2 for n in vlc_host)
-    nbytes = (2 * h * d * 2 * sum(vlc_host) + 2 * b * h * sq * d * 2 + b * 4
-              + sum(-(-n // page) for n in vlc_host) * 4)
-    name = "paged_decode_attention_chunk"
+    io_c = 2 * b * h * sq * d * 2 + b * 4 + sum(-(-n // page) for n in vlc_host) * 4
+    chunk_cases = {
+        "paged_decode_attention_chunk": (
+            lambda i: A.paged_decode_attention(qc, *poolsc[i], vlc, pagesc),
+            lambda i: A.paged_decode_attention_reference(qc, *poolsc[i], vlc, pagesc),
+            [tuple(A.paged_gather_kv(p, pagesc) for p in pl) for pl in poolsc],
+            f"bf16 pools ({h},{nblocksc},{page},{d})",
+            2 * h * d * 2 * sum(vlc_host) + io_c,
+        ),
+        "paged_decode_attention_q8_chunk": (
+            lambda i: A.paged_decode_attention(qc, qpoolsc[i][0], qpoolsc[i][2], vlc, pagesc,
+                                               k_scale=qpoolsc[i][1], v_scale=qpoolsc[i][3]),
+            lambda i: A.paged_decode_attention_reference(qc, qpoolsc[i][0], qpoolsc[i][2], vlc,
+                                                         pagesc, k_scale=qpoolsc[i][1],
+                                                         v_scale=qpoolsc[i][3]),
+            [(deq(A.paged_gather_kv(c[0], pagesc), A.paged_gather_scales(c[1], pagesc)),
+              deq(A.paged_gather_kv(c[2], pagesc), A.paged_gather_scales(c[3], pagesc)))
+             for c in qpoolsc],
+            f"int8 pools ({h},{nblocksc},{page},{d}) + fp32 scale pools",
+            h * (2 * d + 8) * sum(vlc_host) + io_c,
+        ),
+    }
+    for name, (fn, plain, dense, what, nbytes) in chunk_cases.items():
+        src, line = CACHE_KERNELS[name]
+        rows.append(dict(
+            name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{src}",
+            replaces=f"hops_tpu/ops/attention.py:{line}",
+            shape=f"q ({b},{h},{sq},{d}) bf16, {what}, valid_len {vlc_host}",
+            launches=launches.get(name, 0), max_abs_err=worst[name]["bfloat16"],
+            ms=cuda_ms(lambda i=0, fn=fn: fn(i % layers), 60),
+            plain_ms=cuda_ms(lambda i=0, plain=plain: plain(i % layers), 12),
+            library_ms=cuda_ms(lambda i=0, dense=dense: F.scaled_dot_product_attention(
+                qc, *dense[i % layers], attn_mask=maskc), 60),
+            **bound(4 * d * h * pairs, nbytes),
+        ))
+    del qpoolsc, poolsc
+
+    # K5 at the int8 engine's admission prefill: a wave of 4 prompts in
+    # the 2048 bucket reads its freshly quantized K/V back, causal.
+    sw = 2048
+    qw = torch.randn(b, h, sw, d, generator=gen).to(dev, bf16)
+    wide = [[*A.quantize_kv(rand(b, h, sw, d)), *A.quantize_kv(rand(b, h, sw, d))]
+            for _ in range(2)]
+    dense_w = [(deq(c[0], c[1]), deq(c[2], c[3])) for c in wide]
+    pairs = b * h * sw * (sw + 1) // 2
+    nbytes = b * h * sw * (2 * d + 8) + 2 * b * h * sw * d * 2 + b * 4
+    name = "decode_attention_q8_chunk"
     src, line = CACHE_KERNELS[name]
     rows.append(dict(
         name=name, route="cuda", source=f"hops_tpu_torch/ops/csrc/{src}",
         replaces=f"hops_tpu/ops/attention.py:{line}",
-        shape=f"q ({b},{h},{sq},{d}) bf16, bf16 pools ({h},{nblocksc},{page},{d}), "
-              f"valid_len {vlc_host}",
+        shape=f"q ({b},{h},{sw},{d}) bf16, int8 K/V ({b},{h},{sw},{d}) + fp32 scales, "
+              f"valid_len {sw} (causal)",
         launches=launches.get(name, 0), max_abs_err=worst[name]["bfloat16"],
-        ms=cuda_ms(lambda i=0: A.paged_decode_attention(qc, *poolsc[i % layers], vlc, pagesc), 60),
-        plain_ms=cuda_ms(lambda i=0: A.paged_decode_attention_reference(
-            qc, *poolsc[i % layers], vlc, pagesc), 12),
+        ms=cuda_ms(lambda i=0: A.decode_attention_q8(qw, wide[i % 2][0], wide[i % 2][2],
+                                                     wide[i % 2][1], wide[i % 2][3], sw), 20),
+        plain_ms=cuda_ms(lambda i=0: A.decode_attention_q8_reference(
+            qw, wide[i % 2][0], wide[i % 2][2], wide[i % 2][1], wide[i % 2][3], sw), 3),
         library_ms=cuda_ms(lambda i=0: F.scaled_dot_product_attention(
-            qc, *densec[i % layers], attn_mask=maskc), 60),
-        **bound(4 * d * h * pairs, nbytes),
+            qw, *dense_w[i % 2], is_causal=True), 20),
+        **bound(4 * d * pairs, nbytes),
     ))
     return rows
 
@@ -1231,8 +1446,7 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
             torch.cuda.synchronize()
             A.reset_launch_counts()
             t0 = time.perf_counter()
-            with drawn_logits(engine, taps) if "kv_page_size" in cfg else contextlib.nullcontext():
-                answers = predictor.predict(instances)
+            answers = predictor.predict(instances)
             wall = time.perf_counter() - t0
             launches = A.launch_counts()
             stats = predictor.stats()
@@ -1269,16 +1483,24 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
             with torch.inference_mode():
                 check_cache_logits(engine.model, torch, prompts, answers, dev,
                                    cfg.get("prefill_chunk"))
-            if paged:
-                notes = first_difference_margins(torch, taps, answers, dense_answers)
-                print("  first differences from phase 4's streams, from the logits the engine "
-                      "drew each token from, its token's logit: " + ("; ".join(notes) or "none"),
-                      flush=True)
+            # The logits each token was drawn from, kept in a second pass
+            # of the same requests outside the timed one.
+            with drawn_logits(engine, taps):
+                tapped = predictor.predict(instances)
+            tapped_stats = predictor.stats()
+            tapped_rate = ((tapped_stats["decode_tokens"] - stats["decode_tokens"])
+                           / (tapped_stats["decode_s"] - stats["decode_s"]))
+            notes = first_difference_margins(torch, taps, tapped, dense_answers)
+            print(f"  logit-keeping pass: decode {tapped_rate:.1f} tokens/s; streams "
+                  f"{'identical to' if tapped == answers else 'NOT identical to'} the timed "
+                  "pass's; first differences from phase 4's streams, from the logits the "
+                  "engine drew each token from, its token's logit: "
+                  + ("; ".join(notes) or "none"), flush=True)
             del taps
             out[name] = launches
-            if name == "paged":
+            if name in PROFILED_SLICES:
                 predictor.stop()  # the engine is now driven from this thread alone
-                profile_paged_decode(engine, torch, prompts)
+                profile_paged_decode(engine, torch, prompts, name, PROFILED_SLICES[name])
         finally:
             predictor.stop()
         del predictor, engine
@@ -1365,13 +1587,14 @@ def profile_decode(engine, torch, prompts, steps: int = 10) -> None:
         print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
 
 
-def profile_paged_decode(engine, torch, prompts, steps: int = 10) -> None:
-    """Phase 8 (b)'s profiles: one fused prefill-chunk step (the second
-    step after admission: two slots take their next 256-token chunk, two
-    decode), with the share of K6's tensor-core chunk body; then, as
-    phase 6, ``steps`` decode steps of the paged engine with all 4 slots
-    busy, taken once every prompt is prefilled, plus K6's share of the
-    device time."""
+def profile_paged_decode(engine, torch, prompts, name: str, label: str, steps: int = 10) -> None:
+    """Phase 8's profiles of the paged engine of slice ``name`` (its
+    kernel ``label``: K6 over bf16 pools, K7 over int8): one fused
+    prefill-chunk step (the second step after admission: two slots take
+    their next 256-token chunk, two decode), with the share of the
+    tensor-core chunk body; then, as phase 6, ``steps`` decode steps with
+    all 4 slots busy, taken once every prompt is prefilled, plus the
+    kernel's share of the device time (split body and combine)."""
     for p in prompts[:4]:
         engine.submit(p, max_new_tokens=steps + 40)
     engine.step()  # admission and the first chunks
@@ -1379,16 +1602,16 @@ def profile_paged_decode(engine, torch, prompts, steps: int = 10) -> None:
     wall_ms, busy, kernels = device_profile(torch, engine.step)
     chunk = [(ms, n) for key, ms, n in kernels if CHUNK_KERNEL_NAME in key]
     chunk_ms = sum(ms for ms, _ in chunk)
-    print(f"phase 8 paged profile: one fused prefill-chunk step ({pending} slots prefilling, "
+    print(f"phase 8 {name} profile: one fused prefill-chunk step ({pending} slots prefilling, "
           f"{4 - pending} decoding): wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms, "
           f"idle share {1 - busy / wall_ms:.3f}, {sum(n for _, _, n in kernels)} kernel launches; "
-          f"K6's chunk body {chunk_ms:.4f} ms ({chunk_ms / busy:.1%} of busy, "
+          f"{label}'s chunk body {chunk_ms:.4f} ms ({chunk_ms / busy:.1%} of busy, "
           f"{sum(n for _, n in chunk)} launches)", flush=True)
-    for name, ms, n in kernels[:8]:
-        print(f"  {ms:.4f} ms ({ms / busy:.1%} of busy, {n}) {name[:90]}", flush=True)
+    for kname, ms, n in kernels[:8]:
+        print(f"  {ms:.4f} ms ({ms / busy:.1%} of busy, {n}) {kname[:90]}", flush=True)
     if not pending or not chunk or any(ROWS_KERNEL_NAME in key for key, _, _ in kernels):
-        raise AssertionError("phase 8 (b): a bf16 prefill-chunk step must run K6's chunk body, "
-                             "not the 64-row body")
+        raise AssertionError(f"phase 8 {name}: a bf16 prefill-chunk step must run {label}'s chunk "
+                             "body, not the 64-row body")
     while any(st is not None and st.pending is not None for st in engine._slot_state):
         engine.step()
     for _ in range(2):  # warm decode steps
@@ -1402,16 +1625,19 @@ def profile_paged_decode(engine, torch, prompts, steps: int = 10) -> None:
     slots_busy = engine.stats()["slots_busy"]
     engine.run()
     if slots_busy != 4:
-        raise AssertionError(f"phase 8 (b) profile: {slots_busy} busy slots, not 4")
-    k6 = [(ms, n) for key, ms, n in kernels if any(k in key for k in K6_KERNEL_NAMES)]
-    k6_ms = sum(ms for ms, _ in k6)
-    print(f"phase 8 paged profile: {steps} decode steps at 4 busy slots: wall {wall_ms:.3f} "
+        raise AssertionError(f"phase 8 {name} profile: {slots_busy} busy slots, not 4")
+    split = [(ms, n) for key, ms, n in kernels if any(k in key for k in SPLIT_KERNEL_NAMES)]
+    split_ms = sum(ms for ms, _ in split)
+    print(f"phase 8 {name} profile: {steps} decode steps at 4 busy slots: wall {wall_ms:.3f} "
           f"ms/step (profiled), device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / wall_ms:.3f}, {sum(n for _, _, n in kernels)} kernel launches/step; "
-          f"K6 {k6_ms:.4f} ms/step ({k6_ms / busy:.1%} of busy, "
-          f"{sum(n for _, n in k6)} launches/step)", flush=True)
-    for name, ms, n in kernels[:8]:
-        print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
+          f"{label} (split body and combine) {split_ms:.4f} ms/step ({split_ms / busy:.1%} of busy, "
+          f"{sum(n for _, n in split)} launches/step)", flush=True)
+    for kname, ms, n in kernels[:8]:
+        print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {kname[:90]}", flush=True)
+    if not split or any(ROWS_KERNEL_NAME in key for key, _, _ in kernels):
+        raise AssertionError(f"phase 8 {name}: decode steps must run {label}'s split body, not "
+                             "the 64-row body")
 
 
 def device_profile(torch, run, steps: int = 1) -> tuple[float, float, list]:

@@ -60,9 +60,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     ),
     "decode_attention_q8": (
         "decode_attention_q8.cu", "hops_decode_attention_q8",
-        # q, k, v, k_scale, v_scale, valid_len, o, b, hkv, rows, s, cap,
-        # head_dim, is_bf16, sm_scale, window, stream
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, k_scale, v_scale, valid_len, o, workspace, b, hkv, rows,
+        # s, cap, head_dim, is_bf16, sm_scale, window, n_splits,
+        # split_keys, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     ),
     "paged_decode_attention": (
         "paged_decode_attention.cu", "hops_paged_decode_attention",
@@ -72,11 +73,12 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     ),
     "paged_decode_attention_q8": (
-        "paged_decode_attention.cu", "hops_paged_decode_attention_q8",
-        # q, k, v, k_scale, v_scale, valid_len, pages, o, b, hkv, rows, s,
-        # page, max_blocks, nblocks, head_dim, is_bf16, sm_scale, window,
-        # stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "paged_decode_attention_q8.cu", "hops_paged_decode_attention_q8",
+        # q, k, v, k_scale, v_scale, valid_len, pages, o, workspace, b,
+        # hkv, rows, s, page, max_blocks, nblocks, head_dim, is_bf16,
+        # sm_scale, window, n_splits, split_keys, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+         _I, _P],
     ),
 }
 

@@ -15,12 +15,15 @@ tensors and their plain PyTorch versions on CPU tensors:
   split-K body and a combine kernel, splits from :func:`decode_splits`);
   with ``k_scale`` / ``v_scale`` (:func:`decode_attention_q8`)
   ``csrc/decode_attention_q8.cu`` (K5, ``_decode_q8_kernel``), the dense
-  int8 cache;
-- :func:`paged_decode_attention` -> ``csrc/paged_decode_attention.cu``:
+  int8 cache (decode steps on the split-K body, bf16 prefill on a
+  tensor-core body, counted apart as ``decode_attention_q8_chunk``);
+- :func:`paged_decode_attention` -> ``csrc/paged_decode_attention.cu``,
   K6 (``_paged_decode_kernel``) over bf16/fp32 block pools (decode
   steps on the split-K body, bf16 prefill chunks on a tensor-core body,
-  counted apart as ``paged_decode_attention_chunk``), K7
-  (``_paged_decode_q8_kernel``) over int8 pools with fp32 scale pools.
+  counted apart as ``paged_decode_attention_chunk``), or
+  ``csrc/paged_decode_attention_q8.cu``, K7 (``_paged_decode_q8_kernel``)
+  over int8 pools with fp32 scale pools (the same two bodies; its chunks
+  counted as ``paged_decode_attention_q8_chunk``).
 
 On a CUDA tensor the entry point launches its kernel or raises; it never
 falls back. The kernels mask ragged tails themselves, so every sequence
@@ -40,17 +43,20 @@ from hops_tpu_torch.ops import _build
 NEG_INF = float("-inf")
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
+#: A decode kernel's wide bf16 calls (rows > ``SPLIT_ROWS``: prefill) run
+#: its tensor-core body and count under ``<kernel>_chunk``.
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-    "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_chunk": 0,
-    "paged_decode_attention_q8": 0,
+    "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
+    "paged_decode_attention_chunk": 0, "paged_decode_attention_q8": 0,
+    "paged_decode_attention_q8_chunk": 0,
 }
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (64, 128)
 
-#: The split-K body of K4 and K6 takes calls of at most this many rows
-#: (g query heads per kv head times s tokens): every decode step.
+#: The split-K body of K4-K7 takes calls of at most this many rows (g
+#: query heads per kv head times s tokens): every decode step.
 SPLIT_ROWS = 16
 #: Keys per split before the cap below: two of the kernel's 64-key tiles
 #: (at the served decode shape K6 read 128 faster than 256 and 512 on an
@@ -344,6 +350,53 @@ def decode_split_reference(
     return (num / torch.where(den == 0, 1.0, den)).to(q.dtype)
 
 
+def decode_split_q8_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len,
+    sm_scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """:func:`decode_split_reference` over a dense int8 cache (K5's split-K
+    body and its combine), with the int8 arithmetic of the kernel: scores
+    of the int8 keys times each key's ``k_scale``, then ``sm_scale`` and
+    the mask; each split's ``acc`` sums ``p * v_scale`` times the int8
+    values while its ``l`` sums the unscaled ``p``. In fp32; for the
+    tests."""
+    b, h, s, d = q.shape
+    hkv, cap = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    vl = _normalize_valid_len(valid_len, b, q.device)
+    kd, vd = repeat_kv(q, k.float(), v.float())
+    ks, vs = (t.float().repeat_interleave(h // hkv, dim=1)[:, :, None, :]
+              for t in (k_scale, v_scale))  # (b, h, 1, cap)
+    n_splits, keys = decode_splits((h // hkv) * s, cap, b * hkv)
+    raw = torch.einsum("bhqd,bhkd->bhqk", q.float(), kd) * ks
+    pos = torch.arange(s, device=q.device)[None, :] + (vl - s)[:, None]  # (b, s)
+    kpos = torch.arange(cap, device=q.device)
+    vis = kpos[None, None, :] <= pos[:, :, None]
+    if window is not None:
+        vis = vis & (pos[:, :, None] - kpos[None, None, :] < window)
+    sc = torch.where(vis[:, None], raw * sm_scale, NEG_INF)  # (b, h, s, cap)
+    parts = []
+    for i in range(n_splits):
+        cut = slice(i * keys, (i + 1) * keys)
+        si = sc[..., cut]
+        m = si.amax(-1, keepdim=True)
+        p = torch.exp(si - torch.where(torch.isneginf(m), 0.0, m))
+        parts.append((m, p.sum(-1, keepdim=True), (p * vs[..., cut]) @ vd[:, :, cut]))
+    m = torch.stack([pt[0] for pt in parts])
+    big = m.amax(0)
+    w = torch.where(torch.isneginf(m), 0.0, torch.exp(m - torch.where(torch.isneginf(big), 0.0, big)))
+    num = (w * torch.stack([pt[2] for pt in parts])).sum(0)
+    den = (w * torch.stack([pt[1] for pt in parts])).sum(0)
+    return (num / torch.where(den == 0, 1.0, den)).to(q.dtype)
+
+
 def paged_decode_split_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -358,6 +411,26 @@ def paged_decode_split_reference(
     over its ``max_blocks * page`` positions."""
     return decode_split_reference(q, paged_gather_kv(k, pages), paged_gather_kv(v, pages),
                                   valid_len, sm_scale, window)
+
+
+def paged_decode_split_q8_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len,
+    pages: torch.Tensor,
+    sm_scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """:func:`decode_split_q8_reference` through a page table (K7's
+    split-K body and its combine): the gathered dense views of the int8
+    pools and of their scale pools."""
+    return decode_split_q8_reference(
+        q, paged_gather_kv(k, pages), paged_gather_kv(v, pages),
+        paged_gather_scales(k_scale, pages), paged_gather_scales(v_scale, pages),
+        valid_len, sm_scale, window)
 
 
 def paged_decode_attention_reference(
@@ -626,11 +699,14 @@ def decode_attention(
 
     CUDA tensors run ``csrc/decode_attention.cu`` (K4) or, int8,
     ``csrc/decode_attention_q8.cu`` (K5) (bf16 or fp32 queries, head_dim
-    64 or 128): K4 takes a call of at most ``SPLIT_ROWS`` rows (``g *
-    s``, every decode step) on its split-K body, ``decode_splits``
-    splits of the capacity merged by a combine kernel, and a wider call
-    on its 64-row body. CPU tensors run :func:`decode_attention_reference`
-    (int8: on the dequantized caches in fp32, cast to q's dtype).
+    64 or 128): a call of at most ``SPLIT_ROWS`` rows (``g * s``, every
+    decode step) runs the split-K body, ``decode_splits`` splits of the
+    capacity merged by a combine kernel; a wider call runs the 64-row
+    body, except K5's bf16 ones (the int8 engine's admission prefill),
+    which run a tensor-core body, counted as
+    ``decode_attention_q8_chunk``. CPU tensors run
+    :func:`decode_attention_reference` (int8: on the dequantized caches in
+    fp32, cast to q's dtype).
     """
     quantized = _check_scales(k_scale, v_scale)
     if window is not None and window < 1:
@@ -657,9 +733,10 @@ def decode_attention(
     q = q.contiguous()
     o = torch.empty_like(q)
     rows = (h // hkv) * s
-    common = (b, hkv, rows, s, cap, d, int(q.dtype == torch.bfloat16),
-              float(sm_scale), int(window or 0))
-    stream = _stream(q.device)
+    n_splits, split_keys, work = _split_workspace(rows, cap, b * hkv, d, q.device)
+    common = (None if work is None else work.data_ptr(), b, hkv, rows, s, cap, d,
+              int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0), n_splits,
+              split_keys, _stream(q.device))
     if quantized:
         name = "decode_attention_q8"
         _check_kernel_inputs(name, q, o)
@@ -667,20 +744,20 @@ def decode_attention(
         _check_operands(name, q.device, torch.float32, k_scale, v_scale)
         rc = _build.kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), vl.data_ptr(), o.data_ptr(), *common, stream,
+            v_scale.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
         )
     else:
         name = "decode_attention"
         if not (k.is_contiguous() and v.is_contiguous()):
             raise ValueError("decode_attention: k/v caches must be contiguous")
         _check_kernel_inputs(name, q, k, v)
-        n_splits, split_keys, work = _split_workspace(rows, cap, b * hkv, d, q.device)
         rc = _build.kernel(name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(),
-            None if work is None else work.data_ptr(), *common, n_splits, split_keys, stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
         )
     _build.check(name, rc)
-    LAUNCHES[name] += 1
+    # K5's wide bf16 calls ran its tensor-core body: counted on their own.
+    chunk = quantized and rows > SPLIT_ROWS and q.dtype == torch.bfloat16
+    LAUNCHES[name + "_chunk" if chunk else name] += 1
     return o
 
 
@@ -719,13 +796,15 @@ def paged_decode_attention(
     page)``) the pools are int8 and each scale is read through the same
     table entry as its values.
 
-    CUDA tensors run ``csrc/paged_decode_attention.cu`` (K6, or K7 for
-    int8 pools) for every page size: K6 takes a call of at most
-    ``SPLIT_ROWS`` rows (``g * s``, every decode step) on its split-K
-    body, ``decode_splits`` splits of the capacity merged by a combine
-    kernel; a wider call (a prefill chunk) runs on its tensor-core body in
-    bf16 (counted as ``paged_decode_attention_chunk``) and on its 64-row
-    body in fp32. CPU tensors run :func:`paged_decode_attention_reference`.
+    CUDA tensors run ``csrc/paged_decode_attention.cu`` (K6) or, for
+    int8 pools, ``csrc/paged_decode_attention_q8.cu`` (K7), for every
+    page size: a call of at most ``SPLIT_ROWS``
+    rows (``g * s``, every decode step) on the split-K body,
+    ``decode_splits`` splits of the capacity merged by a combine kernel;
+    a wider call (a prefill chunk) on the tensor-core body in bf16
+    (counted as ``paged_decode_attention_chunk`` or
+    ``paged_decode_attention_q8_chunk``) and on the 64-row body in fp32.
+    CPU tensors run :func:`paged_decode_attention_reference`.
     """
     quantized = _check_scales(k_scale, v_scale)
     if window is not None and window < 1:
@@ -761,24 +840,23 @@ def paged_decode_attention(
     _check_operands(name, q.device, torch.int8 if quantized else q.dtype, k, v)
     _check_operands(name, q.device, torch.int32, pages)
     rows = (h // hkv) * s
-    shape = (b, hkv, rows, s, page, max_blocks, nblocks, d, int(q.dtype == torch.bfloat16),
-             float(sm_scale), int(window or 0))
+    n_splits, split_keys, work = _split_workspace(rows, max_blocks * page, b * hkv, d, q.device)
+    tail = (None if work is None else work.data_ptr(), b, hkv, rows, s, page, max_blocks,
+            nblocks, d, int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0),
+            n_splits, split_keys, _stream(q.device))
     if quantized:
         _check_operands(name, q.device, torch.float32, k_scale, v_scale)
         rc = _build.kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            vl.data_ptr(), pages.data_ptr(), o.data_ptr(), *shape, _stream(q.device),
+            vl.data_ptr(), pages.data_ptr(), o.data_ptr(), *tail,
         )
     else:
-        n_splits, split_keys, work = _split_workspace(rows, max_blocks * page, b * hkv, d,
-                                                      q.device)
         rc = _build.kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), pages.data_ptr(),
-            o.data_ptr(), None if work is None else work.data_ptr(), *shape, n_splits,
-            split_keys, _stream(q.device),
+            o.data_ptr(), *tail,
         )
     _build.check(name, rc)
     # A wide bf16 call ran the tensor-core chunk body: counted on its own.
-    wide_bf16 = not quantized and rows > SPLIT_ROWS and q.dtype == torch.bfloat16
-    LAUNCHES["paged_decode_attention_chunk" if wide_bf16 else name] += 1
+    chunk = rows > SPLIT_ROWS and q.dtype == torch.bfloat16
+    LAUNCHES[name + "_chunk" if chunk else name] += 1
     return o

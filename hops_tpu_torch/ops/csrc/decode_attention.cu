@@ -61,6 +61,17 @@ int hops_decode_attention(const void* q, const void* k, const void* v,
   return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/false>(a, b, head_dim, is_bf16, stream);
 }
 
+// Dynamic shared memory (bytes) of the split-K body of every decode
+// kernel for a cache of kv_bytes-byte elements (4 fp32, 2 bf16, 1 int8),
+// head_dim and rows bucket (1, 4 or 16), or -1 for a shape it does not
+// take.
+int hops_split_smem_bytes(int kv_bytes, int head_dim, int rows) {
+  if ((kv_bytes != 1 && kv_bytes != 2 && kv_bytes != 4) || (head_dim != 64 && head_dim != 128) ||
+      (rows != 1 && rows != 4 && rows != hops::split::MAX_ROWS))
+    return -1;
+  return static_cast<int>(hops::split::smem_bytes(kv_bytes, head_dim, rows));
+}
+
 const char* hops_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

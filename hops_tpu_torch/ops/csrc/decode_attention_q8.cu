@@ -1,28 +1,42 @@
 // Decode attention against a dense int8 KV cache, for Hopper (sm_90a):
 // the port of K5, `_decode_q8_kernel` in hops_tpu/ops/attention.py
 // (launched by `decode_attention` with k_scale/v_scale, through
-// `decode_attention_q8`). The kernel body, its int8 arithmetic and what
-// bounds it are in decode_rows.cuh; here key kpos of batch row b and kv
-// head h is cache row (b*hkv + h) * cap + kpos, and its fp32 scales sit
-// at the same index of the (b*hkv, cap) scale tables.
+// `decode_attention_q8`). Key kpos of batch row b and kv head h is cache
+// row (b*hkv + h) * cap + kpos, and its fp32 scales sit at the same index
+// of the (b*hkv, cap) scale tables.
+//
+// Three bodies, chosen by the call's shape and dtype, each instantiated
+// for int8 K/V (the int8 arithmetic is in their headers):
+// - a call of rows = g*s <= 16 (every decode step of the int8 engine)
+//   runs the split-K body of decode_split.cuh and, with more than one
+//   split, its combine kernel (bf16 and fp32 queries);
+// - a wider bf16 call (the admission prefill, which reads its freshly
+//   quantized chunk back: full causal attention over its own keys) runs
+//   the tensor-core body of decode_chunk.cuh on the dense layout;
+// - a wider fp32 call runs the 64-row FMA body of decode_rows.cuh.
 //
 // Per visible key and kv head it reads 2*d bytes of int8 K/V plus 8
 // bytes of scales (264 B at d 128), against K4's 4*d bytes of bf16.
 
-#include "decode_rows.cuh"
+#include "decode_chunk.cuh"
 
 extern "C" {
 
 // q: (b*hkv, rows, head_dim) with rows = g*s (the query's (b, h, s, d)
 // memory), bf16 or fp32 (is_bf16); k, v: (b*hkv, cap, head_dim) int8;
 // k_scale, v_scale: (b*hkv, cap) fp32; valid_len: (b,) int32; o like q.
-// All contiguous on the current device. window <= 0 means none.
-// Returns 0 or a cudaError_t code.
+// All contiguous on the current device. window <= 0 means none. rows <=
+// 16 takes the split body with n_splits splits of split_keys keys (a
+// multiple of 64, n_splits * split_keys >= cap) and, for n_splits > 1, an
+// fp32 workspace of n_splits * b*hkv * rows * (head_dim + 2) values;
+// wider calls take the tensor-core body (bf16) or the 64-row body (fp32)
+// and need n_splits == 1. Returns 0 or a cudaError_t code.
 int hops_decode_attention_q8(const void* q, const void* k, const void* v,
                              const void* k_scale, const void* v_scale,
-                             const void* valid_len, void* o, int b, int hkv, int rows,
-                             int s, int cap, int head_dim, int is_bf16, float sm_scale,
-                             int window, void* stream) {
+                             const void* valid_len, void* o, void* workspace, int b, int hkv,
+                             int rows, int s, int cap, int head_dim, int is_bf16,
+                             float sm_scale, int window, int n_splits, int split_keys,
+                             void* stream) {
   hops::decode::Args a{};
   a.q = q;
   a.k = k;
@@ -37,7 +51,18 @@ int hops_decode_attention_q8(const void* q, const void* k, const void* v,
   a.cap = cap;
   a.sm_scale = sm_scale;
   a.window = window;
+  if (rows <= hops::split::MAX_ROWS)
+    return hops::split::dispatch</*PAGED=*/false, /*Q8=*/true>(
+        a, b, head_dim, is_bf16, static_cast<float*>(workspace), n_splits, split_keys, stream);
+  if (n_splits != 1) return (int)cudaErrorInvalidValue;
+  if (is_bf16) return hops::chunk::dispatch</*PAGED=*/false, /*Q8=*/true>(a, b, head_dim, stream);
   return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/false>(a, b, head_dim, is_bf16, stream);
+}
+
+// Dynamic shared memory (bytes) of the int8 tensor-core body at
+// head_dim, or -1 for a head_dim it does not take.
+int hops_decode_attention_q8_chunk_smem_bytes(int head_dim) {
+  return hops::chunk::smem_bytes_at(head_dim, true);
 }
 
 const char* hops_error_string(int code) {

@@ -1,29 +1,37 @@
-// Tensor-core body of K6, `_paged_decode_kernel` in
-// hops_tpu/ops/attention.py, for its wide bf16 calls: a paged call of
-// rows = g*s > 16 (the 256-token prefill chunk fused into a paged engine
-// step) over bf16 pools. Decode calls (rows <= 16) take the split-K body
-// of decode_split.cuh; fp32 wide calls the 64-row FMA body of
-// decode_rows.cuh.
+// Tensor-core body of the decode kernels' wide bf16 calls, in
+// hops_tpu/ops/attention.py: K6, `_paged_decode_kernel` (the 256-token
+// prefill chunk fused into a paged engine step, over bf16 pools), K7,
+// `_paged_decode_q8_kernel` (the same over int8 pools), and K5,
+// `_decode_q8_kernel` (the dense int8 engine's admission prefill, which
+// reads its freshly quantized chunk back). A call is wide when rows =
+// g*s > 16. Decode calls (rows <= 16) take the split-K body of
+// decode_split.cuh; fp32 wide calls the 64-row FMA body of
+// decode_rows.cuh. PAGED picks the layout (pools through a page table,
+// or the dense (b*hkv, cap, d) cache), KV the cache's element type
+// (bf16, or int8 with fp32 scales).
 //
 // What it computes: K1's causal attention (flash_fwd.cu) with three
 // differences. Query row r of (batch b, kv head h) is head h*g + r / s at
 // position valid_len[b] - s + r % s, valid_len read on the device, so
-// each batch row has its own offset. Key kpos comes from pool row
-// (h*nblocks + pages[b, kpos / page]) * page + kpos % page
-// (`split::tile_rows`, decode_rows.cuh's `key_row` rule). A key at or
-// past valid_len, or behind a table entry outside [0, nblocks), is never
-// read (its 16-byte copies are zero-fills) and scores -inf, so the
-// scratch block 0 stays unreachable.
+// each batch row has its own offset. Key kpos comes from storage row
+// (h*nblocks + pages[b, kpos / page]) * page + kpos % page, or (b*hkv +
+// h) * cap + kpos dense (`split::tile_rows`, decode_rows.cuh's `key_row`
+// rule). A key at or past valid_len, or behind a table entry outside
+// [0, nblocks), is never read (its copies are zero-fills) and scores
+// -inf, so the scratch block 0 stays unreachable.
 //
 // What bounds it on this card: a 256-token chunk does 4*d operations per
-// visible (query, key) pair against 4*d bytes of K and V per key, so
-// 128 to 256 operations per byte of K and V (a key before the chunk is
-// seen by all its rows, a key inside it by half on average), plus the
-// chunk's own q and o: under the card's balance of ~295 operations per
-// byte in bf16, so the bytes bound it with the operations close behind,
-// and only the tensor cores (989 TFLOP/s, against 67 of fp32 FMA) come
-// near either. The 64-row FMA body it replaces ran at fp32 FMA rate on
-// 64 x 64 tiles staged in fp32.
+// visible (query, key) pair against 4*d bytes of bf16 K and V per key
+// (2*d + 8 for int8), so 128 to 256 operations per byte of bf16 K and V
+// (a key before the chunk is seen by all its rows, a key inside it by
+// half on average), plus the chunk's own q and o: under the card's
+// balance of ~295 operations per byte in bf16, so the bytes bound it
+// with the operations close behind, and only the tensor cores (989
+// TFLOP/s, against 67 of fp32 FMA) come near either. K5's admission
+// prefill (2048 rows against its own 2048 keys) does ~1000 operations
+// per byte: bound by the operations, as K1 is. The 64-row FMA body these
+// calls ran on before ran at fp32 FMA rate on 64 x 64 tiles staged in
+// fp32.
 //
 // Design:
 // - One block per (64 query rows, batch*kv_head): one warpgroup, 128
@@ -37,25 +45,38 @@
 //   window's edge of its oldest row to its newest row's position, below
 //   valid_len. The grid starts the latest row tiles (the most keys)
 //   first.
-// - TMA cannot gather rows through a table, so every thread copies
-//   16-byte chunks by cp.async, each key row resolved through the page
-//   table as the split body does, into the 128-byte-swizzled panels that
+// - TMA cannot gather rows through a table, so every thread moves
+//   16-byte chunks, each key row resolved through the page table as the
+//   split body does, into the 128-byte-swizzled bf16 panels that
 //   `desc_sw128` reads (`sw128`). Any page size works. Q (64 x d) is
-//   copied once with the first K/V tile; 64-key K/V tiles flow through a
-//   2-stage ring, tile t + 2 issued as soon as tile t is done. Each
-//   thread fences its completed copies into the async proxy
-//   (`fence_proxy_async`) before the barrier that hands them to wgmma.
-// - S = Q K^T is wgmma m64n64k16 from shared memory (both K-major). The
+//   copied once by cp.async. bf16 K/V tiles of 64 keys are copied by
+//   cp.async through a 2-stage ring, tile t + 2 issued as soon as tile t
+//   is done. Each thread fences its stores or completed copies into the
+//   async proxy (`fence_proxy_async`) before the barrier that hands them
+//   to wgmma.
+// - int8 tiles: TMA cannot convert and cp.async cannot widen, so each
+//   thread loads its 16-byte int8 chunks (16 values) and the scales of
+//   its keys into registers (`ld.global.nc`), and after the current
+//   tile's products converts them to bf16 (exact: |x| <= 127) and stores
+//   them with st.shared into the other stage's panels; the loads of the
+//   tile after are issued right then, so they fly while a whole tile
+//   computes. The fp32 k_scale and v_scale of each key are staged beside
+//   `kok`, 0 for a key without a storage row.
+// - S = Q K^T is wgmma m64n64k16 from shared memory (both K-major). int8:
+//   each score column is multiplied by its key's k_scale first. The
 //   online softmax runs in fp32 registers in the log2 domain, each row's
 //   4 lanes reducing by shuffles, with `_online_softmax_update`'s -inf
 //   guards; every tile is masked per row (causal position, window, a key
-//   without a storage row). P is rounded to bf16 in registers, as the JAX
-//   kernel rounds p to v's dtype, and is the register A operand of
-//   O += P V, m64n{d}k16 with V the MN-major B operand. The running sum l
-//   adds the unrounded p. A row that sees no key ends with l == 0 and
+//   without a storage row). P (int8: P times each key's v_scale) is
+//   rounded to bf16 in registers, as the JAX kernel rounds p (p *
+//   p_scale) to v's dtype, and is the register A operand of O += P V,
+//   m64n{d}k16 with V the MN-major B operand. The running sum l adds the
+//   unrounded, unscaled p. A row that sees no key ends with l == 0 and
 //   writes 0.
 
 #pragma once
+
+#include <type_traits>
 
 #include "decode_split.cuh"
 #include "hopper.cuh"
@@ -72,17 +93,19 @@ constexpr int NT = 128;     // threads per block
 constexpr int STAGES = 2;   // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, bool Q8>
 struct Smem {
   bf16 q[BM * D];          // D / 64 swizzled panels of BM x 64
   bf16 k[STAGES][BN * D];  // D / 64 swizzled panels of BN x 64
   bf16 v[STAGES][BN * D];
   int kok[STAGES][BN];     // key has a storage row
+  float ksc[STAGES][Q8 ? BN : 1];  // int8: k_scale per key (0 without a storage row)
+  float vsc[STAGES][Q8 ? BN : 1];  // int8: v_scale per key
 };
 
-template <int D>
+template <int D, bool Q8>
 constexpr size_t smem_bytes() {
-  return sizeof(Smem<D>) + 1024;  // room to align the base to 1024 bytes
+  return sizeof(Smem<D, Q8>) + 1024;  // room to align the base to 1024 bytes
 }
 
 // Copy the block's nrows query rows (rows D elements apart) into the
@@ -97,10 +120,10 @@ __device__ __forceinline__ void issue_q(bf16* qs, const bf16* q, int nrows, int 
   }
 }
 
-// Start the copies of the key tile at logical position k0 into the
-// swizzled ks/vs; kok[kk] says whether key kk has a storage row. Each
-// thread copies one 16-byte column of every STEP-th key.
-template <int D>
+// bf16 K/V: start the copies of the key tile at logical position k0 into
+// the swizzled ks/vs; kok[kk] says whether key kk has a storage row.
+// Each thread copies one 16-byte column of every STEP-th key.
+template <int D, bool PAGED>
 __device__ __forceinline__ void issue_kv(bf16* ks, bf16* vs, int* kok, const decode::Args& a,
                                          const bf16* k, const bf16* v, int bi, int hk, int k0,
                                          int kv_len, int tid) {
@@ -110,7 +133,7 @@ __device__ __forceinline__ void issue_kv(bf16* ks, bf16* vs, int* kok, const dec
   const int c = tid % CPR;
   const int kk0 = tid / CPR;
   long long ri[NR];
-  split::tile_rows</*PAGED=*/true, NR, STEP>(ri, a, bi, hk, k0 + kk0, kv_len);
+  split::tile_rows<PAGED, NR, STEP>(ri, a, bi, hk, k0 + kk0, kv_len);
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
     const int kk = kk0 + j * STEP;
@@ -122,13 +145,88 @@ __device__ __forceinline__ void issue_kv(bf16* ks, bf16* vs, int* kok, const dec
   }
 }
 
+// int8 K/V: one thread's share of a key tile, held in registers between
+// its loads (`load`) and its conversion into the bf16 panels (`store`).
+// Each thread keeps one 16-byte column (16 values) of every STEP-th key,
+// and the thread of column 0 also the key's scales.
 template <int D>
+struct Q8Tile {
+  static constexpr int CPR = D / 16;      // 16-byte int8 chunks per key row
+  static constexpr int STEP = NT / CPR;   // keys between a thread's rows
+  static constexpr int NR = BN / STEP;    // key rows per thread
+  uint4 k[NR], v[NR];
+  float ks[NR], vs[NR];  // column-0 threads: the keys' scales, 0 without a storage row
+  int ok;                // bit j: key row j has a storage row
+
+  template <bool PAGED>
+  __device__ __forceinline__ void load(const decode::Args& a, const int8_t* kp, const int8_t* vp,
+                                       int bi, int hk, int k0, int kv_len, int tid) {
+    const int c = tid % CPR;
+    long long ri[NR];
+    split::tile_rows<PAGED, NR, STEP>(ri, a, bi, hk, k0 + tid / CPR, kv_len);
+    ok = 0;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const bool has = ri[j] >= 0;
+      const size_t at = has ? static_cast<size_t>(ri[j]) * D + c * 16 : 0;
+      k[j] = has ? __ldg(reinterpret_cast<const uint4*>(kp + at)) : make_uint4(0, 0, 0, 0);
+      v[j] = has ? __ldg(reinterpret_cast<const uint4*>(vp + at)) : make_uint4(0, 0, 0, 0);
+      ks[j] = c == 0 && has ? __ldg(a.k_scale + ri[j]) : 0.f;
+      vs[j] = c == 0 && has ? __ldg(a.v_scale + ri[j]) : 0.f;
+      ok |= has << j;
+    }
+  }
+
+  // Four int8 values (one 32-bit word) as two bf16 pairs, exactly: each
+  // byte, offset to unsigned, becomes the low bits of the fp32 2^23 + b,
+  // from which 2^23 + 128 is subtracted.
+  static __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+    const uint32_t u = w ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+    lo = pack_bf16(f[0], f[1]);
+    hi = pack_bf16(f[2], f[3]);
+  }
+
+  // 16 int8 values as two 16-byte chunks of 8 bf16 each, into column
+  // chunks 2c and 2c + 1 of swizzled row kk.
+  static __device__ __forceinline__ void put(bf16* dst, int kk, int c, uint4 x) {
+    uint4 a, b;
+    widen4(x.x, a.x, a.y);
+    widen4(x.y, a.z, a.w);
+    widen4(x.z, b.x, b.y);
+    widen4(x.w, b.z, b.w);
+    *reinterpret_cast<uint4*>(dst + sw128(kk, 2 * c, BN)) = a;
+    *reinterpret_cast<uint4*>(dst + sw128(kk, 2 * c + 1, BN)) = b;
+  }
+
+  __device__ __forceinline__ void store(bf16* kd, bf16* vd, int* kok, float* ksc, float* vsc,
+                                        int tid) const {
+    const int c = tid % CPR;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int kk = tid / CPR + j * STEP;
+      put(kd, kk, c, k[j]);
+      put(vd, kk, c, v[j]);
+      if (c == 0) {
+        kok[kk] = (ok >> j) & 1;
+        ksc[kk] = ks[j];
+        vsc[kk] = vs[j];
+      }
+    }
+  }
+};
+
+template <int D, bool PAGED, typename KV>
 __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   extern __shared__ uint8_t smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
+  Smem<D, Q8>& sm = *reinterpret_cast<Smem<D, Q8>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
+  const KV* k = static_cast<const KV*>(a.k);
+  const KV* v = static_cast<const KV*>(a.v);
   const int tid = threadIdx.x;
   const int bhk = blockIdx.y;
   const int bi = bhk / a.hkv;
@@ -157,9 +255,18 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
   }
 
   issue_q<D>(sm.q, static_cast<const bf16*>(a.q) + orow0 * D, nrows, tid);
-  for (int i = 0; i < STAGES; ++i) {
-    if (i < n) issue_kv<D>(sm.k[i], sm.v[i], sm.kok[i], a, k, v, bi, hk, (t_lo + i) * BN, kv_len, tid);
-    split::cp_async_commit();  // Q rides in tile 0's group
+  [[maybe_unused]] Q8Tile<D> next;  // int8: the next tile, in registers
+  if constexpr (Q8) {
+    split::cp_async_commit();  // Q
+    next.template load<PAGED>(a, k, v, bi, hk, t_lo * BN, kv_len, tid);
+    next.store(sm.k[0], sm.v[0], sm.kok[0], sm.ksc[0], sm.vsc[0], tid);
+    if (n > 1) next.template load<PAGED>(a, k, v, bi, hk, (t_lo + 1) * BN, kv_len, tid);
+  } else {
+    for (int i = 0; i < STAGES; ++i) {
+      if (i < n)
+        issue_kv<D, PAGED>(sm.k[i], sm.v[i], sm.kok[i], a, k, v, bi, hk, (t_lo + i) * BN, kv_len, tid);
+      split::cp_async_commit();  // Q rides in tile 0's group
+    }
   }
 
   const int lane = tid % 32;
@@ -185,9 +292,12 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES;
     const int k0 = (t_lo + it) * BN;
-    split::cp_async_wait<STAGES - 1>();  // this thread's copies of tile it (and Q)
+    if constexpr (Q8)
+      split::cp_async_wait<0>();  // this thread's copies of Q
+    else
+      split::cp_async_wait<STAGES - 1>();  // this thread's copies of tile it (and Q)
     fence_proxy_async();
-    __syncthreads();  // ... and every other thread's
+    __syncthreads();  // ... and every other thread's copies or stores
 
     // S = Q K^T (raw scores), 64 rows x BN keys.
     float sc[BN / 2];
@@ -201,14 +311,17 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // Mask per row, scale into the log2 domain.
+    // Mask per row, scale into the log2 domain (int8: each column by its
+    // key's k_scale first, as the JAX kernel).
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
       const int col = 8 * (i / 4) + c0 + (i & 1);
       const int kpos = k0 + col;
       const int h = (i >> 1) & 1;
       const bool vis = sm.kok[st][col] && kpos <= hi[h] && kpos >= lo[h];
-      sc[i] = vis ? sc[i] * scale_log2 : -INFINITY;
+      float x = sc[i];
+      if constexpr (Q8) x *= sm.ksc[st][col];
+      sc[i] = vis ? x * scale_log2 : -INFINITY;
     }
 
     // Online softmax (the -inf guards of `_online_softmax_update`).
@@ -235,12 +348,22 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
     l[0] = l[0] * alpha[0] + sum[0];
     l[1] = l[1] * alpha[1] + sum[1];
 
-    // O = O * alpha + P V, with P in bf16 as the register A operand.
+    // O = O * alpha + P V, with P in bf16 as the register A operand
+    // (int8: P times each key's v_scale; l took the unscaled p).
     uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kc][r] = pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+      for (int r = 0; r < 4; ++r) {
+        float p0 = sc[8 * kc + 2 * r], p1 = sc[8 * kc + 2 * r + 1];
+        if constexpr (Q8) {
+          const float2 vs2 =
+              *reinterpret_cast<const float2*>(&sm.vsc[st][8 * (2 * kc + r / 2) + c0]);
+          p0 *= vs2.x;
+          p1 *= vs2.y;
+        }
+        pa[kc][r] = pack_bf16(p0, p1);
+      }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     const uint64_t desc_v = desc_sw128(sm.v[st], BN * 128);
@@ -251,10 +374,22 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
     wgmma_wait<0>();
     fence_regs(acc);
 
-    __syncthreads();  // every thread is done with stage st
-    if (it + STAGES < n)
-      issue_kv<D>(sm.k[st], sm.v[st], sm.kok[st], a, k, v, bi, hk, k0 + STAGES * BN, kv_len, tid);
-    split::cp_async_commit();
+    if constexpr (Q8) {
+      // Tile it + 1 (loaded during this tile) into the other stage, whose
+      // last reader (tile it - 1) every thread finished before this
+      // tile's barrier; then the loads of tile it + 2.
+      if (it + 1 < n) {
+        const int nx = (it + 1) % STAGES;
+        next.store(sm.k[nx], sm.v[nx], sm.kok[nx], sm.ksc[nx], sm.vsc[nx], tid);
+        if (it + 2 < n) next.template load<PAGED>(a, k, v, bi, hk, k0 + 2 * BN, kv_len, tid);
+      }
+    } else {
+      __syncthreads();  // every thread is done with stage st
+      if (it + STAGES < n)
+        issue_kv<D, PAGED>(sm.k[st], sm.v[st], sm.kok[st], a, k, v, bi, hk, k0 + STAGES * BN,
+                           kv_len, tid);
+      split::cp_async_commit();
+    }
   }
 
   // Finalize: the row sums over its 4 lanes; o = acc / l.
@@ -273,26 +408,36 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
   }
 }
 
-template <int D>
+template <int D, bool PAGED, typename KV>
 int launch(const decode::Args& a, int bhkv, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(chunk_kernel<D>,
+  const size_t smem = smem_bytes<D, std::is_same<KV, int8_t>::value>();
+  cudaError_t err = cudaFuncSetAttribute(chunk_kernel<D, PAGED, KV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  chunk_kernel<D><<<dim3((a.rows + BM - 1) / BM, bhkv), NT, smem, stream>>>(a);
+  chunk_kernel<D, PAGED, KV><<<dim3((a.rows + BM - 1) / BM, bhkv), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Check the sizes and launch the body for head_dim (bf16 only). Returns
-// 0 or a cudaError_t code.
-inline int dispatch(const decode::Args& a, int b, int head_dim, void* stream) {
+// Check the sizes and launch the body for (layout, cache type, head_dim);
+// bf16 queries only. Returns 0 or a cudaError_t code.
+template <bool PAGED, bool Q8>
+int dispatch(const decode::Args& a, int b, int head_dim, void* stream) {
+  using KV = typename std::conditional<Q8, int8_t, bf16>::type;
   const long long bhkv = (long long)b * a.hkv;
   if (b < 1 || a.hkv < 1 || bhkv > 65535 || a.rows < 1 || a.s < 1 || a.rows % a.s || a.cap < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(a, (int)bhkv, st);
-  if (head_dim == 128) return launch<128>(a, (int)bhkv, st);
+  if (head_dim == 64) return launch<64, PAGED, KV>(a, (int)bhkv, st);
+  if (head_dim == 128) return launch<128, PAGED, KV>(a, (int)bhkv, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) of the body at head_dim, or -1 for a
+// head_dim it does not take.
+inline int smem_bytes_at(int head_dim, bool q8) {
+  if (head_dim == 64) return static_cast<int>(q8 ? smem_bytes<64, true>() : smem_bytes<64, false>());
+  if (head_dim == 128) return static_cast<int>(q8 ? smem_bytes<128, true>() : smem_bytes<128, false>());
+  return -1;
 }
 
 }  // namespace chunk

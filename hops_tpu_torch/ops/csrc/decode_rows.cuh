@@ -1,17 +1,17 @@
 // Decode attention that reads each key through a row index, for Hopper
-// (sm_90a): the 64-row FMA body of
-//   K4 decode_attention.cu         (`_decode_kernel`, dense bf16/fp32 cache;
-//                                   only calls wider than split::MAX_ROWS
-//                                   rows: decode steps take the split-K
-//                                   body of decode_split.cuh),
+// (sm_90a): the 64-row FMA body of the four decode kernels, for the
+// calls no faster body takes: fp32 queries wider than split::MAX_ROWS
+// rows (and K4's wider bf16 calls, a multi-token append to a warm
+// cache, off the main path):
+//   K4 decode_attention.cu         (`_decode_kernel`, dense bf16/fp32 cache),
 //   K5 decode_attention_q8.cu      (`_decode_q8_kernel`, dense int8 cache),
-//   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, bf16/fp32 pools;
-//                                   only fp32 calls wider than
-//                                   split::MAX_ROWS rows: decode calls take
-//                                   the split-K body, bf16 prefill chunks
-//                                   the tensor-core body of decode_chunk.cuh),
-//   K7 paged_decode_attention.cu   (`_paged_decode_q8_kernel`, int8 pools),
-// all in hops_tpu/ops/attention.py: one block per (batch*kv_head, 64-row
+//   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, bf16/fp32 pools),
+//   K7 paged_decode_attention_q8.cu (`_paged_decode_q8_kernel`, int8 pools).
+// Decode steps (rows <= 16) of all four take the split-K body of
+// decode_split.cuh; wide bf16 calls of K5, K6 and K7 (prefill) the
+// tensor-core body of decode_chunk.cuh. So this body now serves only
+// fp32 wide calls (and K4's wide bf16 calls). The kernels are in
+// hops_tpu/ops/attention.py. This body: one block per (batch*kv_head, 64-row
 // query tile), the g query heads of a kv head folded into g*s rows,
 // valid_len read on the device, only the key tiles of
 // `_decode_block_range` visited (reads are O(valid_len), not
@@ -48,10 +48,9 @@
 // byte: bound by the bytes it reads, which are O(valid_len). This body
 // is simple (fp32 FMAs from shared memory, one block walking its key
 // range alone), and fills only b*hkv SMs at one row tile. It stays for
-// the calls above and for fp32 checks; K4's and K6's decode calls moved
-// to the split-K body (flash-decoding), which fills all SMs at small
-// batch, and K6's bf16 prefill chunks to the tensor-core body. K5 and K7
-// are still to move.
+// the calls above and for fp32 checks; every decode step moved to the
+// split-K body (flash-decoding), which fills all SMs at small batch, and
+// the bf16 prefill calls to the tensor-core body.
 
 #pragma once
 
@@ -82,6 +81,32 @@ struct Args {
   float sm_scale;
   int window;             // <= 0: none
 };
+
+// The paged entry points' shared argument checks (K6, K7); fills `a`'s
+// paged fields. Returns false when the sizes are out of range.
+inline bool paged_args(Args& a, const void* q, const void* k, const void* v,
+                       const void* valid_len, const void* pages, void* o, int hkv, int rows,
+                       int s, int page, int max_blocks, int nblocks, float sm_scale,
+                       int window) {
+  const long long cap = (long long)page * max_blocks;
+  if (page < 1 || max_blocks < 1 || nblocks < 1 || cap > INT_MAX) return false;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.valid_len = static_cast<const int*>(valid_len);
+  a.pages = static_cast<const int*>(pages);
+  a.o = o;
+  a.hkv = hkv;
+  a.rows = rows;
+  a.s = s;
+  a.cap = (int)cap;
+  a.page = page;
+  a.max_blocks = max_blocks;
+  a.nblocks = nblocks;
+  a.sm_scale = sm_scale;
+  a.window = window;
+  return true;
+}
 
 template <int D>
 constexpr size_t smem_bytes() {

@@ -1,11 +1,14 @@
-// Split-K (flash-decoding) body of K4, `_decode_kernel`, and K6,
-// `_paged_decode_kernel`, in hops_tpu/ops/attention.py, for the decode
-// step: a call whose g query heads per kv head times s query tokens give
-// rows = g*s <= 16 (every decode step), bf16 or fp32. The PAGED template
-// parameter picks the layout: K6's pools through a page table, or K4's
-// dense (b*hkv, cap, d) cache. Wider calls take other bodies: K6's bf16
-// prefill chunks the tensor-core body of decode_chunk.cuh, K4's and
-// K6's fp32 wide calls the 64-row body of decode_rows.cuh.
+// Split-K (flash-decoding) body of K4, `_decode_kernel`, K5,
+// `_decode_q8_kernel`, K6, `_paged_decode_kernel`, and K7,
+// `_paged_decode_q8_kernel`, in hops_tpu/ops/attention.py, for the
+// decode step: a call whose g query heads per kv head times s query
+// tokens give rows = g*s <= 16 (every decode step), bf16 or fp32
+// queries. The PAGED template parameter picks the layout: K6's and K7's
+// pools through a page table, or K4's and K5's dense (b*hkv, cap, d)
+// cache; KV, the cache's element type: the query's (K4, K6) or int8
+// (K5, K7). Wider calls take other bodies: bf16 ones the tensor-core
+// body of decode_chunk.cuh, fp32 ones the 64-row body of
+// decode_rows.cuh.
 //
 // Why: the 64-row body runs one block per (64-row tile, batch*kv_head),
 // so a decode step of 4 slots and 8 kv heads fills 32 of the 132 SMs,
@@ -32,7 +35,8 @@
 //   are zero-fills) and scores -inf, so the scratch block 0 stays
 //   unreachable.
 // - K and V tiles go from the cache to shared memory in their own dtype
-//   by 16-byte cp.async, double-buffered: the copies of a split's first
+//   by 16-byte cp.async (int8: 16 elements a copy, so the staging is
+//   half of bf16's), double-buffered: the copies of a split's first
 //   two tiles, and the page-table reads that place them, are issued
 //   together at the start, and those of tile t + 2 as soon as tile t is
 //   done. A split of two tiles (the served shape) waits for its loads
@@ -55,8 +59,14 @@
 //   its blocks start while the split grid runs and wait for it to finish
 //   (griddepcontrol), so its launch does not follow the split grid's
 //   drain.
-//
-// K5 and K7 (int8) do not take this body yet.
+// - int8 (K5, K7), as the JAX kernels and decode_rows.cuh do it: the
+//   fp32 scales of a tile's keys are copied beside `kok` (4-byte
+//   cp.async, zero-filled for a key without a storage row) from the same
+//   storage row as the values; int8 values become fp32 exactly; each
+//   score is multiplied by its key's k_scale before sm_scale and the
+//   mask; p.v uses p * v_scale while l sums the unscaled p
+//   (`_online_softmax_update`'s p_scale). The arithmetic is fp32 and only
+//   the output is rounded. The combine is the same kernel.
 
 #pragma once
 
@@ -82,9 +92,11 @@ struct Part {
   int split_keys;  // L: a multiple of BK
 };
 
-template <typename T, int D, int R>
-constexpr size_t smem_bytes() {
-  return 2 * STAGES * BK * D * sizeof(T) + (size_t)(R * BK + 3 * R) * sizeof(float) +
+// Dynamic shared memory of the body for kv_bytes-byte cache elements,
+// head dim d and rows bucket r; int8 adds two fp32 scales per staged key.
+constexpr size_t smem_bytes(int kv_bytes, int d, int r) {
+  return 2 * STAGES * BK * (size_t)d * kv_bytes +
+         ((kv_bytes == 1 ? 2 * STAGES * BK : 0) + r * BK + 3 * r) * sizeof(float) +
          STAGES * BK * sizeof(int);
 }
 
@@ -93,6 +105,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// A 4-byte copy (an fp32 scale); src-size 0 fills it with zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 
@@ -132,15 +152,16 @@ __device__ __forceinline__ void tile_rows(long long (&ri)[NR], const decode::Arg
 }
 
 // Start the copies of the key tile at logical position k0 into ks/vs
-// (BK x D each); kok[r] says whether key r has a storage row. Each
+// (BK x D each); kok[r] says whether key r has a storage row, and for
+// int8 ksc[r]/vsc[r] take its scales (0 without a storage row). Each
 // thread copies one 16-byte column of every (NT / chunks-per-row)-th
 // key and resolves those keys' rows itself (`tile_rows`), so no barrier
 // separates the page-table reads from the copies.
-template <typename T, int D, bool PAGED>
-__device__ __forceinline__ void issue_tile(T* ks, T* vs, int* kok, const decode::Args& a,
-                                           const T* k, const T* v, int bi, int hk, int k0,
-                                           int kv_len, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
+template <typename KV, int D, bool PAGED>
+__device__ __forceinline__ void issue_tile(KV* ks, KV* vs, float* ksc, float* vsc, int* kok,
+                                           const decode::Args& a, const KV* k, const KV* v,
+                                           int bi, int hk, int k0, int kv_len, int tid) {
+  constexpr int VEC = 16 / sizeof(KV);
   constexpr int CPR = D / VEC;       // 16-byte chunks per key row
   constexpr int NR = BK * CPR / NT;  // key rows per thread
   constexpr int STEP = NT / CPR;     // keys between a thread's rows
@@ -155,7 +176,13 @@ __device__ __forceinline__ void issue_tile(T* ks, T* vs, int* kok, const decode:
     const size_t at = ok ? static_cast<size_t>(ri[j]) * D + c : 0;
     cp_async16(ks + r * D + c, k + at, ok);
     cp_async16(vs + r * D + c, v + at, ok);
-    if (c == 0) kok[r] = ok;
+    if (c == 0) {
+      kok[r] = ok;
+      if constexpr (sizeof(KV) == 1) {
+        cp_async4(ksc + r, a.k_scale + (ok ? ri[j] : 0), ok);
+        cp_async4(vsc + r, a.v_scale + (ok ? ri[j] : 0), ok);
+      }
+    }
   }
 }
 
@@ -170,6 +197,10 @@ __device__ __forceinline__ void load_epl(float (&x)[EPL], const __nv_bfloat16* p
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
   x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+}
+__device__ __forceinline__ void load_epl(float (&x)[EPL], const int8_t* p) {
+  const char4 u = *reinterpret_cast<const char4*>(p);
+  x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w;
 }
 
 // Sum each of N values over the G lanes that share a key group (N <= G,
@@ -193,26 +224,30 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
   for (int off = G / N / 2; off >= 1; off /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
 }
 
+// T: the query's type; KV: the cache's (T, or int8 with fp32 scales).
 // R: the call's rows rounded up to 1, 4 or 16 (registers per query row).
 // Launch bounds (NT, 1): under (NT) alone ptxas caps the bf16 d-64
 // rows-16 instantiation at 128 registers, and it spills.
-template <typename T, int D, int R, bool PAGED>
+template <typename T, typename KV, int D, int R, bool PAGED>
 __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, const Part part) {
+  constexpr bool Q8 = sizeof(KV) == 1;
   constexpr int G = D / EPL;   // lanes per key in the score pass (16 or 32)
   constexpr int KPW = 32 / G;  // keys a warp scores at once (2 or 1)
   constexpr int CG = NT / D;   // key groups of p.v (2 at d 64, 1 at d 128)
   static_assert(CG == 1 || D <= BK, "the d-64 reduction reuses the score tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);                     // STAGES x BK x D
-  T* vs = ks + STAGES * BK * D;                                // STAGES x BK x D
-  float* ps = reinterpret_cast<float*>(vs + STAGES * BK * D);  // R x BK: scores, then p
-  float* alpha_s = ps + R * BK;                                // R: this tile's rescale
+  KV* ks = reinterpret_cast<KV*>(smem_raw);                     // STAGES x BK x D
+  KV* vs = ks + STAGES * BK * D;                                 // STAGES x BK x D
+  float* ksc = reinterpret_cast<float*>(vs + STAGES * BK * D);   // int8: STAGES x BK
+  float* vsc = ksc + (Q8 ? STAGES * BK : 0);                     // int8: STAGES x BK
+  float* ps = vsc + (Q8 ? STAGES * BK : 0);                      // R x BK: scores, then p
+  float* alpha_s = ps + R * BK;                                  // R: this tile's rescale
   float* m_s = alpha_s + R;                                    // R: running max
   float* l_s = m_s + R;                                        // R: running sum
   int* kok = reinterpret_cast<int*>(l_s + R);                  // STAGES x BK
 
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const KV* k = static_cast<const KV*>(a.k);
+  const KV* v = static_cast<const KV*>(a.v);
   const int tid = threadIdx.x;
   const int sp = blockIdx.x;
   const int bhk = blockIdx.y;
@@ -254,8 +289,8 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
   // issued once tile t is done (one copy group per tile, maybe empty).
   for (int i = 0; i < STAGES; ++i) {
     if (t_lo + i < t_hi)
-      issue_tile<T, D, PAGED>(ks + i * BK * D, vs + i * BK * D, kok + i * BK, a, k, v, bi, hk,
-                       (t_lo + i) * BK, kv_len, tid);
+      issue_tile<KV, D, PAGED>(ks + i * BK * D, vs + i * BK * D, ksc + i * BK, vsc + i * BK,
+                               kok + i * BK, a, k, v, bi, hk, (t_lo + i) * BK, kv_len, tid);
     cp_async_commit();
   }
 
@@ -295,8 +330,10 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
   for (int t = t_lo; t < t_hi; ++t) {
     const int st = (t - t_lo) % STAGES;
     const int k0 = t * BK;
-    const T* kt = ks + st * BK * D;
-    const T* vt = vs + st * BK * D;
+    const KV* kt = ks + st * BK * D;
+    const KV* vt = vs + st * BK * D;
+    const float* kst = ksc + st * BK;
+    const float* vst = vsc + st * BK;
     const int* okt = kok + st * BK;
     cp_async_wait<STAGES - 1>();
     __syncthreads();  // tile t landed for every thread
@@ -328,10 +365,13 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
       const int kk = warp * 16 + (j0 + (lane % G) / (G / JU)) * KPW + lane / G;
       const int kpos = okt[kk] ? k0 + kk : INT_MAX;  // no storage row: seen by none
       if (lane % (G / JU) == 0) {
+        // int8: the key's k_scale first, then sm_scale, as the JAX kernel.
+        const float col = Q8 ? kst[kk] : 1.f;
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          ps[r * BK + kk] =
-              kpos <= hi_r[r] && kpos >= lo_r[r] ? dot[r][0] * a.sm_scale : -INFINITY;
+        for (int r = 0; r < R; ++r) {
+          const float x = Q8 ? dot[r][0] * col : dot[r][0];
+          ps[r * BK + kk] = kpos <= hi_r[r] && kpos >= lo_r[r] ? x * a.sm_scale : -INFINITY;
+        }
       }
     }
     __syncthreads();
@@ -348,8 +388,9 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
       const float m_safe = m_new == -INFINITY ? 0.f : m_new;
       const float p0 = expf(x0 - m_safe);
       const float p1 = expf(x1 - m_safe);
-      ps[r * BK + lane] = p0;
-      ps[r * BK + lane + 32] = p1;
+      // int8: p.v takes p * v_scale; l sums the unscaled p.
+      ps[r * BK + lane] = Q8 ? p0 * vst[lane] : p0;
+      ps[r * BK + lane + 32] = Q8 ? p1 * vst[lane + 32] : p1;
       float sum = p0 + p1;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -374,8 +415,9 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(const decode::Args a, cons
     }
     __syncthreads();  // every reader of stage st and of ps is done
     if (t + STAGES < t_hi)
-      issue_tile<T, D, PAGED>(ks + st * BK * D, vs + st * BK * D, kok + st * BK, a, k, v, bi, hk,
-                       k0 + STAGES * BK, kv_len, tid);
+      issue_tile<KV, D, PAGED>(ks + st * BK * D, vs + st * BK * D, ksc + st * BK,
+                               vsc + st * BK, kok + st * BK, a, k, v, bi, hk, k0 + STAGES * BK,
+                               kv_len, tid);
     cp_async_commit();
   }
 
@@ -444,13 +486,13 @@ __global__ void __launch_bounds__(NT) combine_kernel(const decode::Args a, const
   }
 }
 
-template <typename T, int D, int R, bool PAGED>
+template <typename T, typename KV, int D, int R, bool PAGED>
 int launch(const decode::Args& a, const Part& part, int bhkv, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, D, R>();
+  const size_t smem = smem_bytes(sizeof(KV), D, R);
   cudaError_t err = cudaFuncSetAttribute(
-      split_kernel<T, D, R, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      split_kernel<T, KV, D, R, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  split_kernel<T, D, R, PAGED><<<dim3(part.n_splits, bhkv), NT, smem, stream>>>(a, part);
+  split_kernel<T, KV, D, R, PAGED><<<dim3(part.n_splits, bhkv), NT, smem, stream>>>(a, part);
   err = cudaGetLastError();
   if (err != cudaSuccess || part.n_splits == 1) return (int)err;
   // A programmatic dependent launch: the combine's blocks are placed while
@@ -469,18 +511,18 @@ int launch(const decode::Args& a, const Part& part, int bhkv, cudaStream_t strea
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool PAGED>
+template <typename T, typename KV, int D, bool PAGED>
 int launch_rows(const decode::Args& a, const Part& part, int bhkv, cudaStream_t stream) {
-  if (a.rows <= 1) return launch<T, D, 1, PAGED>(a, part, bhkv, stream);
-  if (a.rows <= 4) return launch<T, D, 4, PAGED>(a, part, bhkv, stream);
-  return launch<T, D, MAX_ROWS, PAGED>(a, part, bhkv, stream);
+  if (a.rows <= 1) return launch<T, KV, D, 1, PAGED>(a, part, bhkv, stream);
+  if (a.rows <= 4) return launch<T, KV, D, 4, PAGED>(a, part, bhkv, stream);
+  return launch<T, KV, D, MAX_ROWS, PAGED>(a, part, bhkv, stream);
 }
 
 // Check the split arguments and launch the split body (and, for
-// n_splits > 1, the combine) for (layout, query dtype, head_dim).
-// `workspace` holds n_splits * b*hkv * rows * (head_dim + 2) floats when
-// n_splits > 1. Returns 0 or a cudaError_t code.
-template <bool PAGED>
+// n_splits > 1, the combine) for (layout, cache type, query dtype,
+// head_dim). `workspace` holds n_splits * b*hkv * rows * (head_dim + 2)
+// floats when n_splits > 1. Returns 0 or a cudaError_t code.
+template <bool PAGED, bool Q8 = false>
 int dispatch(const decode::Args& a, int b, int head_dim, int is_bf16, float* workspace,
                     int n_splits, int split_keys, void* stream) {
   const long long bhkv = (long long)b * a.hkv;
@@ -498,11 +540,13 @@ int dispatch(const decode::Args& a, int b, int head_dim, int is_bf16, float* wor
   const int nb = (int)bhkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (head_dim == 64) return launch_rows<__nv_bfloat16, 64, PAGED>(a, part, nb, st);
-    if (head_dim == 128) return launch_rows<__nv_bfloat16, 128, PAGED>(a, part, nb, st);
+    using KV = typename decode::kv_of<__nv_bfloat16, Q8>::type;
+    if (head_dim == 64) return launch_rows<__nv_bfloat16, KV, 64, PAGED>(a, part, nb, st);
+    if (head_dim == 128) return launch_rows<__nv_bfloat16, KV, 128, PAGED>(a, part, nb, st);
   } else {
-    if (head_dim == 64) return launch_rows<float, 64, PAGED>(a, part, nb, st);
-    if (head_dim == 128) return launch_rows<float, 128, PAGED>(a, part, nb, st);
+    using KV = typename decode::kv_of<float, Q8>::type;
+    if (head_dim == 64) return launch_rows<float, KV, 64, PAGED>(a, part, nb, st);
+    if (head_dim == 128) return launch_rows<float, KV, 128, PAGED>(a, part, nb, st);
   }
   return (int)cudaErrorInvalidValue;
 }

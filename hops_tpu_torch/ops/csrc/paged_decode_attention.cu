@@ -1,18 +1,18 @@
 // Decode attention against a paged KV cache, for Hopper (sm_90a): the
-// ports of K6, `_paged_decode_kernel`, and K7, `_paged_decode_q8_kernel`,
-// in hops_tpu/ops/attention.py (both launched by
-// `paged_decode_attention`).
+// port of K6, `_paged_decode_kernel` in hops_tpu/ops/attention.py
+// (launched by `paged_decode_attention`); its int8 twin K7 is
+// paged_decode_attention_q8.cu.
 //
-// K6 has three bodies, chosen by the call's shape and dtype: a call of
-// rows = g*s <= 16 (every decode step) runs the split-K body of
+// Three bodies, chosen by the call's shape and dtype: a call of rows =
+// g*s <= 16 (every decode step) runs the split-K body of
 // decode_split.cuh and, when it has more than one split, its combine
 // kernel (bf16 and fp32); a wider bf16 call (the 256-token prefill chunk
 // fused into a paged step) runs the tensor-core body of
 // decode_chunk.cuh; a wider fp32 call runs the 64-row FMA body of
-// decode_rows.cuh. K7 runs the 64-row body at every width. Decode calls
-// are bound by the bytes of K and V they read, prefill chunks by those
-// bytes with their operations close behind; the bodies, their int8
-// arithmetic and what they do about their bounds are in the headers.
+// decode_rows.cuh. Decode calls are bound by the bytes of K and V they
+// read, prefill chunks by those bytes with their operations close
+// behind; the bodies and what they do about their bounds are in the
+// headers.
 //
 // The pools are (hkv, nblocks, page, d), shared by every batch row, and
 // a (b, max_blocks) int32 page table maps logical block j of row b to
@@ -23,39 +23,10 @@
 // its 64-key tile through the table itself, so a tile may span several
 // pages (page 16, page 24) or part of one (page 128): every page size
 // runs on the kernel. Reads stay O(valid_len) and touch only the pool
-// blocks the table names; for K7 the scale pools (hkv, nblocks, page)
-// are read at the same storage row as the values.
+// blocks the table names.
 
 #include "decode_chunk.cuh"
 
-namespace {
-
-// Shared argument checks of the entry points; fills `a`'s paged fields.
-// Returns false when the sizes are out of range.
-bool paged_args(hops::decode::Args& a, const void* q, const void* k, const void* v,
-                const void* valid_len, const void* pages, void* o, int hkv, int rows,
-                int s, int page, int max_blocks, int nblocks, float sm_scale, int window) {
-  const long long cap = (long long)page * max_blocks;
-  if (page < 1 || max_blocks < 1 || nblocks < 1 || cap > INT_MAX) return false;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.valid_len = static_cast<const int*>(valid_len);
-  a.pages = static_cast<const int*>(pages);
-  a.o = o;
-  a.hkv = hkv;
-  a.rows = rows;
-  a.s = s;
-  a.cap = (int)cap;
-  a.page = page;
-  a.max_blocks = max_blocks;
-  a.nblocks = nblocks;
-  a.sm_scale = sm_scale;
-  a.window = window;
-  return true;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -75,41 +46,22 @@ int hops_paged_decode_attention(const void* q, const void* k, const void* v,
                                 float sm_scale, int window, int n_splits, int split_keys,
                                 void* stream) {
   hops::decode::Args a{};
-  if (!paged_args(a, q, k, v, valid_len, pages, o, hkv, rows, s, page, max_blocks, nblocks,
-                  sm_scale, window))
+  if (!hops::decode::paged_args(a, q, k, v, valid_len, pages, o, hkv, rows, s, page,
+                                max_blocks, nblocks, sm_scale, window))
     return (int)cudaErrorInvalidValue;
   if (rows <= hops::split::MAX_ROWS)
     return hops::split::dispatch</*PAGED=*/true>(a, b, head_dim, is_bf16,
                                                  static_cast<float*>(workspace), n_splits,
                                                  split_keys, stream);
   if (n_splits != 1) return (int)cudaErrorInvalidValue;
-  if (is_bf16) return hops::chunk::dispatch(a, b, head_dim, stream);
+  if (is_bf16) return hops::chunk::dispatch</*PAGED=*/true, /*Q8=*/false>(a, b, head_dim, stream);
   return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
 }
 
 // Dynamic shared memory (bytes) of the tensor-core body at head_dim, or
 // -1 for a head_dim it does not take.
 int hops_paged_decode_attention_chunk_smem_bytes(int head_dim) {
-  if (head_dim == 64) return static_cast<int>(hops::chunk::smem_bytes<64>());
-  if (head_dim == 128) return static_cast<int>(hops::chunk::smem_bytes<128>());
-  return -1;
-}
-
-// As above over int8 pools, with fp32 scale pools k_scale, v_scale of
-// shape (hkv, nblocks, page).
-int hops_paged_decode_attention_q8(const void* q, const void* k, const void* v,
-                                   const void* k_scale, const void* v_scale,
-                                   const void* valid_len, const void* pages, void* o, int b,
-                                   int hkv, int rows, int s, int page, int max_blocks,
-                                   int nblocks, int head_dim, int is_bf16, float sm_scale,
-                                   int window, void* stream) {
-  hops::decode::Args a{};
-  if (!paged_args(a, q, k, v, valid_len, pages, o, hkv, rows, s, page, max_blocks, nblocks,
-                  sm_scale, window))
-    return (int)cudaErrorInvalidValue;
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
-  return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
+  return hops::chunk::smem_bytes_at(head_dim, false);
 }
 
 const char* hops_error_string(int code) {

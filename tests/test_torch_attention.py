@@ -155,8 +155,14 @@ def test_launch_counts_reset_and_cpu_launches_nothing():
     T.paged_decode_attention(q[:, :, :1], pool, pool, torch.tensor([16, 8]), pages)
     gqa = k.reshape(2, 8, 8, 32)  # 2 kv heads: rows 2 * 16, a wide (prefill-chunk) call
     T.paged_decode_attention(q, gqa, gqa, torch.tensor([16, 16]), pages)
+    # Wide int8 calls (rows 2 * 16: the chunk body's on the card), dense and paged.
+    dq, ds = T.quantize_kv(k.reshape(2, 2, 32, 32))
+    T.decode_attention_q8(q, dq, dq, ds, ds, 16)
+    gq, gs = T.quantize_kv(gqa)
+    T.paged_decode_attention(q, gq, gq, torch.tensor([16, 16]), pages, k_scale=gs, v_scale=gs)
     assert T.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-        "decode_attention_q8": 0, "paged_decode_attention": 0, "paged_decode_attention_chunk": 0,
-        "paged_decode_attention_q8": 0,
+        "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
+        "paged_decode_attention_chunk": 0, "paged_decode_attention_q8": 0,
+        "paged_decode_attention_q8_chunk": 0,
     }

@@ -7,12 +7,13 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: the bf16 tensor-core bodies (K1's o, K2's dq, K3's dk and
-dv, K6's prefill-chunk o) against the fp32 plain version per element
-within their rounding, ``2**-8 * (mag + |plain|) + slack`` (``mag``: the
-product whose operand the body rounds to bf16, over magnitudes;
-``slack``: the kernel's fp32 bound), and K1's lse within ``1e-4``; the
-split-K body of K4 and K6, which computes in fp32 and rounds only its
-output, per element within ``2**-8 * |plain| + 1e-4``; the other
+dv, the prefill-chunk o of K5, K6 and K7) against the fp32 plain version
+per element within their rounding, ``2**-8 * (mag + |plain|) + slack``
+(``mag``: the product whose operand the body rounds to bf16, over
+magnitudes, with int8 values dequantized; ``slack``: the kernel's fp32
+bound), and K1's lse within ``1e-4``; the split-K body of K4-K7, which
+computes in fp32 and rounds only its output, per element within
+``2**-8 * |plain| + 1e-4``; the other
 kernels' bf16 inputs ``max err <= 2e-2 + 2e-2 * max|plain|``; fp32
 inputs ``atol 1e-5`` for the forward
 and decode kernels, ``atol 1e-4`` for the int8 and paged decode kernels
@@ -29,6 +30,8 @@ import pytest
 import torch
 
 from hops_tpu_torch.ops import attention as T
+from hops_tpu_torch.ops.kernel_checks import (Q8_SPLIT_CASES, WIDE_CASES, q8_call, q8_operands,
+                                              q8_plain, q8_poisoned, shuffled_table, wide_lengths)
 
 pytestmark = pytest.mark.cuda
 
@@ -309,37 +312,32 @@ def test_train_step_on_the_card_matches_the_cpu():
         assert (gpu_g[name] - g).abs().max() <= 1e-4 * g.abs().max(), name
 
 
-def _pages(page: int, valid: list[int], g: torch.Generator, dev) -> tuple[torch.Tensor, int]:
-    """A shuffled ``(len(valid), max_blocks)`` page table over a pool of
-    ``1 + rows * max_blocks`` blocks for capacity 2048: each row maps
-    distinct nonzero blocks below its valid length, 0 past it."""
-    mb = -(-2048 // page)
-    nblocks = 1 + len(valid) * mb
-    perm = (torch.randperm(nblocks - 1, generator=g) + 1).tolist()
-    table = torch.zeros(len(valid), mb, dtype=torch.int32)
-    for r, n in enumerate(valid):
-        need = -(-n // page)
-        table[r, :need] = torch.tensor(perm[:need], dtype=torch.int32)
-        perm = perm[need:]
-    return table.to(dev), nblocks
-
-
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("hkv,s,window", [(8, 1, None), (2, 256, None), (2, 1, 256), (8, 5, 100)])
 def test_decode_q8_kernel_matches_plain(dtype, d, hkv, s, window):
+    """K5: decode calls on the int8 split body (bf16: output rounding),
+    the wide bf16 call (rows 1024) on the int8 chunk body (its rounding
+    bound, ``mag`` from the dequantized |v|), fp32 within 1e-4."""
     dev = _card()
     g = torch.Generator().manual_seed(11)
     q = torch.randn(4, 8, s, d, generator=g).to(dev, dtype)
     (kq, ks), (vq, vs) = (T.quantize_kv(torch.randn(4, hkv, 2048, d, generator=g).to(dev))
                           for _ in range(2))
     vl = torch.tensor([0, 1, 700, 2048], dtype=torch.int32, device=dev)
-    before = T.launch_counts()["decode_attention_q8"]
+    wide = (8 // hkv) * s > T.SPLIT_ROWS
+    name = "decode_attention_q8_chunk" if wide and dtype == torch.bfloat16 else "decode_attention_q8"
+    before = T.launch_counts()
     o = T.decode_attention_q8(q, kq, vq, ks, vs, vl, window=window)
-    assert T.launch_counts()["decode_attention_q8"] == before + 1
+    after = T.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
     ref = T.decode_attention_q8_reference(q.float(), kq, vq, ks, vs, vl, window=window)
-    if dtype == torch.bfloat16:
-        _close_bf16(o, ref)
+    if dtype == torch.bfloat16 and not wide:
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # the split body: output rounding
+    elif dtype == torch.bfloat16:  # the chunk body rounds p * v_scale for p·v
+        mag = T.decode_attention_q8_reference(q.float(), kq, vq.abs(), ks, vs, vl, window=window)
+        _close_rounded(o, ref, mag, 1e-4)
     else:
         assert (o - torch.nan_to_num(ref, nan=0.0)).abs().max().item() <= 1e-4
     assert not o[0].any()
@@ -356,7 +354,7 @@ def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
     dev = _card()
     g = torch.Generator().manual_seed(12)
     valid = [0, 1, 3 * page + 1, -(-2048 // page) * page]
-    pages, nblocks = _pages(page, valid, g, dev)
+    pages, nblocks = shuffled_table(page, 2048, valid, g, dev)
     q = torch.randn(4, 8, s, d, generator=g).to(dev, dtype)
     pools = [torch.randn(hkv, nblocks, page, d, generator=g).to(dev) for _ in range(2)]
     scales = {}
@@ -366,9 +364,9 @@ def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
         k, v = (p.to(dtype) for p in pools)
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
     wide = (8 // hkv) * s > T.SPLIT_ROWS
-    name = ("paged_decode_attention_q8" if quantized else
-            "paged_decode_attention_chunk" if wide and dtype == torch.bfloat16 else
-            "paged_decode_attention")
+    name = "paged_decode_attention_q8" if quantized else "paged_decode_attention"
+    if wide and dtype == torch.bfloat16:
+        name += "_chunk"
     before = T.launch_counts()
     o = T.paged_decode_attention(q, k, v, vl, pages, window=256, **scales)
     after = T.launch_counts()
@@ -376,13 +374,12 @@ def test_paged_kernels_match_plain(quantized, dtype, page, d, hkv, s):
     assert sum(after.values()) == sum(before.values()) + 1
     kf, vf = (k, v) if quantized else (k.float(), v.float())
     ref = T.paged_decode_attention_reference(q.float(), kf, vf, vl, pages, window=256, **scales)
-    if dtype == torch.bfloat16 and not quantized and not wide:
-        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # K6's split body: output rounding
-    elif dtype == torch.bfloat16 and not quantized:  # K6's chunk body rounds p for p·v
-        mag = T.paged_decode_attention_reference(q.float(), kf, vf.abs(), vl, pages, window=256)
+    if dtype == torch.bfloat16 and not wide:
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # the split body: output rounding
+    elif dtype == torch.bfloat16:  # the chunk body rounds p (int8: p * v_scale) for p·v
+        mag = T.paged_decode_attention_reference(q.float(), kf, vf.abs(), vl, pages, window=256,
+                                                 **scales)
         _close_rounded(o, ref, mag, 1e-4)
-    elif dtype == torch.bfloat16:
-        _close_bf16(o, ref)
     else:
         assert (o - torch.nan_to_num(ref.float(), nan=0.0)).abs().max().item() <= 1e-4
     assert not o[0].any()
@@ -398,7 +395,7 @@ def test_paged_kernels_never_read_the_scratch_block(quantized, s):
     dev = _card()
     g = torch.Generator().manual_seed(13)
     valid = [0, 17, 63, 1000]
-    pages, nblocks = _pages(16, valid, g, dev)
+    pages, nblocks = shuffled_table(16, 2048, valid, g, dev)
     q = torch.randn(4, 8, s, 128, generator=g).to(dev)
     pools = [torch.randn(2, nblocks, 16, 128, generator=g).to(dev) for _ in range(2)]
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
@@ -426,7 +423,7 @@ def test_paged_kernels_hide_keys_behind_out_of_range_entries(quantized):
     body, whose later splits are empty)."""
     dev = _card()
     g = torch.Generator().manual_seed(14)
-    pages, nblocks = _pages(16, [32, 32], g, dev)
+    pages, nblocks = shuffled_table(16, 2048, [32, 32], g, dev)
     q = torch.randn(2, 8, 1, 128, generator=g).to(dev)
     pools = [torch.randn(2, nblocks, 16, 128, generator=g).to(dev) for _ in range(2)]
     scales = {}
@@ -546,39 +543,22 @@ def test_dense_split_body_matches_plain(dtype, d, case):
             assert not o[r].any()
 
 
-def _wide_pages(page, valid, alloc, g, dev):
-    """A shuffled table for capacity 2048 in which row r maps distinct
-    nonzero blocks below ``alloc[r]`` positions and the scratch block 0
-    past them, below its valid length too where ``alloc[r] < valid[r]``
-    (the engine's pad rows)."""
-    mb = -(-2048 // page)
-    nblocks = 1 + len(valid) * mb
-    perm = (torch.randperm(nblocks - 1, generator=g) + 1).tolist()
-    table = torch.zeros(len(valid), mb, dtype=torch.int32)
-    for r, n in enumerate(alloc):
-        need = -(-n // page)
-        table[r, :need] = torch.tensor(perm[:need], dtype=torch.int32)
-        perm = perm[need:]
-    return table.to(dev), nblocks
-
-
 @pytest.mark.parametrize("window", [None, 256])
 @pytest.mark.parametrize("page", [64, 16, 24])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("hkv,s", [(8, 17), (8, 100), (8, 256), (2, 5), (2, 25)],
-                         ids=["rows17", "rows100", "rows256", "gqa_rows20", "gqa_rows100"])
-def test_paged_chunk_body_matches_plain(hkv, s, d, page, window):
+@pytest.mark.parametrize("hkv,s,cap", list(WIDE_CASES.values()), ids=list(WIDE_CASES))
+def test_paged_chunk_body_matches_plain(hkv, s, cap, d, page, window):
     """K6 on wide bf16 calls (rows > 16: the tensor-core chunk body)
     against the plain version per element within its rounding bound
     (``mag = p·|v|``): ragged valid_len with 0, a length below s (rows
     before position 0 see no key and write 0), a page boundary + 1, a
     row whose last pages map the scratch block below its valid length,
-    and full capacity, on a shuffled table."""
+    and full capacity (at s = capacity, full causal), on a shuffled
+    table."""
     dev = _card()
     g = torch.Generator().manual_seed(19)
-    valid = [0, max(s - 3, 1), 5 * page + 1, 1300, -(-2048 // page) * page]
-    alloc = [*valid[:3], 1300 - 2 * page, valid[4]]
-    pages, nblocks = _wide_pages(page, valid, alloc, g, dev)
+    valid, alloc = wide_lengths(s, page, cap)
+    pages, nblocks = shuffled_table(page, cap, alloc, g, dev)
     q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, torch.bfloat16)
     k, v = (torch.randn(hkv, nblocks, page, d, generator=g).to(dev, torch.bfloat16)
             for _ in range(2))
@@ -605,7 +585,7 @@ def test_paged_chunk_body_never_reads_the_scratch_block(page):
     dev = _card()
     g = torch.Generator().manual_seed(20)
     valid = [0, 40, 700, 2048, 900]
-    pages, nblocks = _wide_pages(page, valid, [*valid[:4], 900 - page], g, dev)
+    pages, nblocks = shuffled_table(page, 2048, [*valid[:4], 900 - page], g, dev)
     q = torch.randn(len(valid), 8, 64, 128, generator=g).to(dev, torch.bfloat16)
     k, v = (torch.randn(2, nblocks, page, 128, generator=g).to(dev, torch.bfloat16)
             for _ in range(2))
@@ -614,6 +594,100 @@ def test_paged_chunk_body_never_reads_the_scratch_block(page):
     k[:, 0], v[:, 0] = 1e30, -1e30
     dirty = T.paged_decode_attention(q, k, v, vl, pages)
     torch.testing.assert_close(dirty[:4], clean[:4], rtol=0, atol=0)
+    assert not clean[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("case", list(Q8_SPLIT_CASES), ids=list(Q8_SPLIT_CASES))
+def test_q8_split_body_matches_plain(dtype, d, layout, case):
+    """K5 (dense) and K7 (paged) on decode calls (rows <= 16: the int8
+    split body and its combine) against the plain version and the
+    split-and-merge plain version; a row with valid_len 0 is exactly 0;
+    the keys no row may read, values and scales poisoned, change no bit."""
+    page, cap, hkv, s, valid, window = Q8_SPLIT_CASES[case]
+    dev = _card()
+    g = torch.Generator().manual_seed(21)
+    kv, pages = q8_operands(layout, page, cap, hkv, d, valid, g, dev)
+    q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, dtype)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    assert (8 // hkv) * s <= T.SPLIT_ROWS
+    name = "decode_attention_q8" if pages is None else "paged_decode_attention_q8"
+    before = T.launch_counts()
+    o = q8_call(q, kv, vl, pages, window)
+    after = T.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    ref = q8_plain(q, kv, vl, pages, window)
+    split = (T.decode_split_q8_reference(q.float(), *kv, vl, window=window) if pages is None else
+             T.paged_decode_split_q8_reference(q.float(), *kv, vl, pages, window=window))
+    torch.testing.assert_close(split, torch.nan_to_num(ref, nan=0.0), atol=1e-5, rtol=0)
+    if dtype == torch.bfloat16:
+        _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # fp32 arithmetic, o rounded
+    else:
+        assert (o - torch.nan_to_num(ref, nan=0.0)).abs().max().item() <= 1e-4
+    for r, n in enumerate(valid):
+        if n == 0:
+            assert not o[r].any()
+    dirty = q8_call(q, q8_poisoned(kv, vl, pages), vl, pages, window)
+    assert T.launch_counts()[name] == before[name] + 2
+    torch.testing.assert_close(dirty, o, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("layout", ["dense", 64, 16, 24], ids=["dense", "page64", "page16", "page24"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hkv,s,cap", list(WIDE_CASES.values()), ids=list(WIDE_CASES))
+def test_q8_chunk_body_matches_plain(hkv, s, cap, d, layout, window):
+    """K5 (dense) and K7 (paged) on wide bf16 calls (rows > 16: the int8
+    tensor-core chunk body) against the plain version per element within
+    its rounding bound (``mag = p·|v|``, v dequantized): valid_len 0, a
+    length below s (rows before position 0 write 0), a page boundary + 1,
+    a row whose last pages map the scratch block, and full capacity (at
+    s = capacity: the full causal form of the int8 engine's admission
+    prefill)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(22)
+    page = 64 if layout == "dense" else layout
+    valid, alloc = wide_lengths(s, page, cap)
+    kv, pages = q8_operands("dense" if layout == "dense" else "paged", page, cap, hkv, d, alloc,
+                            g, dev)
+    q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, torch.bfloat16)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    assert (8 // hkv) * s > T.SPLIT_ROWS
+    name = "decode_attention_q8_chunk" if pages is None else "paged_decode_attention_q8_chunk"
+    before = T.launch_counts()
+    o = q8_call(q, kv, vl, pages, window)
+    after = T.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    ref = q8_plain(q, kv, vl, pages, window)
+    mag = q8_plain(q, [kv[0], kv[1].abs(), kv[2], kv[3]], vl, pages, window)
+    _close_rounded(o, ref, mag, 1e-4)
+    assert not o[0].any()
+    assert not o[1, :, :s - valid[1]].any()  # positions below 0
+
+
+@pytest.mark.parametrize("layout", ["dense", 64, 16, 24], ids=["dense", "page64", "page16", "page24"])
+def test_q8_chunk_body_never_reads_poisoned_keys(layout):
+    """The int8 chunk body with the keys no row may read at ±127 and
+    their scales at NaN / 1e30: every row that does not map them is
+    bit-identical (paged: the last row maps the scratch block below its
+    valid length and reads it)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(23)
+    page = 64 if layout == "dense" else layout
+    valid = [0, 40, 700, 2048, 900]
+    alloc = [*valid[:4], 900 - page]
+    kv, pages = q8_operands("dense" if layout == "dense" else "paged", page, 2048, 2, 128, alloc,
+                            g, dev)
+    q = torch.randn(len(valid), 8, 64, 128, generator=g).to(dev, torch.bfloat16)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    clean = q8_call(q, kv, vl, pages, None)
+    dirty = q8_call(q, q8_poisoned(kv, vl, pages), vl, pages, None)
+    keep = slice(None) if pages is None else slice(0, 4)
+    torch.testing.assert_close(dirty[keep], clean[keep], rtol=0, atol=0)
     assert not clean[0].any()
 
 
