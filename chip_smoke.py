@@ -10,12 +10,14 @@ failure exits non-zero:
 1. card     — the card's name and power limit (``nvidia-smi``);
 2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, six sources), with the build's wall time;
-   for the bf16 tensor-core bodies of K1, K2, K3 and K6's prefill chunks
-   (head dims 64 and 128) the registers and spills ptxas reports, the
-   dynamic shared memory they launch with and, where ``cuobjdump``
-   exists, the count of HGMMA instructions in their SASS, which must not
-   be 0; the same for the tensor-core chunk body over int8 K/V (K5
-   dense, K7 paged), which must not spill; for the split-K body of K4,
+   for the bf16 tensor-core bodies (head dims 64 and 128) the registers
+   and spills ptxas reports, the dynamic shared memory they launch with
+   and, where ``cuobjdump`` exists, the count of HGMMA instructions in
+   their SASS, which must not be 0: the ping-pong forward body of K1 over
+   bf16 K/V and of K5's wide calls over int8 K/V (64-key tiles, printed),
+   which must neither spill nor have its wgmmas serialized by ptxas
+   (warning C7520), K2, K3, and the chunk body of K6 (bf16
+   pools) and K7 (int8 pools), which must not spill; for the split-K body of K4,
    K5 (dense) and K6, K7 (paged), over bf16/fp32 and int8 caches, and its
    combine kernel their registers, stack frame, spills and shared memory;
 3. kernels  — the forward and decode kernels (K1, K4) against their
@@ -65,12 +67,13 @@ failure exits non-zero:
    bf16 queries per element within ``2**-8 * |plain| + 1e-4`` and fp32
    within 1e-4, and the keys that no row may read (K7: scratch block 0;
    K5: positions past valid_len) poisoned, values at ±127 and scales at
-   NaN/1e30, changing no bit; the chunk body on wide bf16 calls
-   (``WIDE_CASES``, dense and on pages 64, 16, 24; valid_len 0, below s,
-   full; s = capacity 512, full causal) within the tensor-core rounding
-   bound with ``mag`` from the dequantized |v|, and K5's chunk body at
-   the int8 engine's admission prefill as phase 5 times it (q (4, 8,
-   2048, d), valid_len 2048, causal: 32 row tiles per head). The cases
+   NaN/1e30, changing no bit; the wide bf16 calls (``WIDE_CASES``: K5
+   on the forward body over the dense int8 cache, K7's chunk body on
+   pages 64, 16, 24; valid_len 0, below s, full; s = capacity 512 and
+   255, full causal; s = 129 against capacity 2048) within the
+   tensor-core rounding bound with ``mag`` from the dequantized |v|,
+   and K5 at the int8 engine's admission prefill as phase 5 times it (q
+   (4, 8, 2048, d), valid_len 2048, causal: 16 row tiles per head). The cases
    and operands come from ``hops_tpu_torch/ops/kernel_checks.py``, which
    the card tests share;
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
@@ -125,17 +128,20 @@ failure exits non-zero:
    K6's tensor-core chunk body, which must launch where the 64-row body
    must not) and of 10 paged decode steps at 4 busy slots (as phase 6:
    device busy, idle share, launches per step, and K6's share), and the
-   same two profiles of (c) with K7's share. (a) and (c) must launch
-   their int8 split body (decode) and chunk body (prefill), (b) K6's
-   split body and chunk body;
+   same two profiles of (c) with K7's share; after (a), a trace of one
+   admission wave (4 prompts), which must run K5's forward body over
+   int8 K/V and neither the chunk body nor K1's bf16 instantiation. (a)
+   must launch its int8 split body (decode) and forward body (prefill,
+   counted as ``decode_attention_q8_chunk``), (b) K6's split body and
+   chunk body, (c) K7's int8 split body and chunk body;
 8b. parity  — 2 layers at full width in fp32: the paged engine against
    the dense engine of the same cache dtype (fp32 pools, int8 pools) on
    a pool of 5 usable blocks that forces a preemption; greedy streams
    identical unless the dense engine's top-2 logit gap at the first
    difference is under ``1e-4 * ||logits||inf`` (printed).
 
-The rounding bound of a bf16 tensor-core body (K1's o, K2's dq, K3's dk
-and dv) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
+The rounding bound of a bf16 tensor-core body (K1's and K5's wide o,
+K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
 that the body rounds to bf16 before a product (K1: p in p·v; K2: ds in
 ds·k; K3: p^T in dv, ds^T in dk) moves the product by at most 2**-8
 (bf16's unit roundoff) times the same product over magnitudes, ``mag``
@@ -152,7 +158,7 @@ width of a 256-token prefill chunk of every slot (their tensor-core
 chunk body, ``paged_decode_attention_chunk`` and
 ``paged_decode_attention_q8_chunk``), and K5 at the int8 engine's
 admission prefill, 4 prompts in the 2048 bucket causal over their own
-int8 keys (``decode_attention_q8_chunk``). The
+int8 keys (the forward body, ``decode_attention_q8_chunk``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -196,23 +202,30 @@ GRAD_REL = 1e-3
 # the largest element of one batch, which swings with the rounding noise.
 GRAD_BF16 = dict(dtype="bfloat16", param_dtype="float32")
 GRAD_SEEDS = 3
-# Phase 2: the bf16 tensor-core bodies, by source and ptxas entry name.
-TC_BODIES = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "dq_kernel",
-             "flash_bwd_dkv": "dkv_kernel"}
-# ... and the prefill-chunk body (K6 over bf16 pools; K5 and K7 over
-# int8), in the sources of K5, K6 and K7.
+# Phase 2: the bf16 tensor-core bodies, by source and the mangled
+# instantiation at head dim {d} in ptxas's entry names: K1's forward body
+# (flash_fwd_tc.cuh, bf16 K/V), K2, K3, and the forward body over int8 K/V
+# in K5's source.
+TC_BODIES = {"flash_fwd": ("3fwd10fwd_kernelILi{d}ELb0E", "forward body, bf16 K/V"),
+             "flash_bwd_dq": ("2tc9dq_kernelILi{d}E", "tensor-core body"),
+             "flash_bwd_dkv": ("2tc10dkv_kernelILi{d}E", "tensor-core body"),
+             "decode_attention_q8": ("3fwd10fwd_kernelILi{d}ELb1E",
+                                     "forward body, int8 K/V (64-key tiles)")}
+# ... and the prefill-chunk body of K6 (bf16 pools) and K7 (int8 pools).
 CHUNK_BODY = "chunk_kernel"
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The device-kernel names of each, as the profiler reports them (bf16
 # tensor-core bodies and fp32 FMA bodies).
-TRAIN_KERNEL_NAMES = {"flash_fwd": ("tc::fwd_kernel", "flash_fwd_kernel"),
+TRAIN_KERNEL_NAMES = {"flash_fwd": ("fwd::fwd_kernel", "flash_fwd_kernel"),
                       "flash_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
                       "flash_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel")}
 # The device kernels of the split-K body and its combine (decode steps
-# of K4-K7), the tensor-core chunk body (bf16 prefill of K5-K7) and the
-# 64-row body (wider fp32 calls), as the profiler names them.
+# of K4-K7), the tensor-core chunk body (bf16 prefill of K6, K7), the
+# forward body over int8 K/V (bf16 prefill of K5; over bf16 K/V it is
+# K1's) and the 64-row body (wider fp32 calls), as the profiler names them.
 SPLIT_KERNEL_NAMES = ("split::split_kernel", "split::combine_kernel")
 CHUNK_KERNEL_NAME = "chunk::chunk_kernel"
+FWD_Q8_KERNEL_NAME = "fwd::fwd_kernel<128, true>"
 ROWS_KERNEL_NAME = "decode_rows_kernel"
 # Phase 8: (name, lm_config, the kernels it runs, every one of which must
 # launch). (c)'s 64 usable blocks hold 4096 tokens, under the ~5000 the
@@ -254,7 +267,7 @@ TIE_REL = 1e-4
 # Phase 3c and 5: the cache kernels and the TPU kernels they replace.
 CACHE_KERNELS = {
     "decode_attention_q8": ("decode_attention_q8.cu", 1211),
-    "decode_attention_q8_chunk": ("decode_chunk.cuh", 1211),
+    "decode_attention_q8_chunk": ("flash_fwd_tc.cuh", 1211),
     "paged_decode_attention": ("paged_decode_attention.cu", 916),
     "paged_decode_attention_chunk": ("decode_chunk.cuh", 916),
     "paged_decode_attention_q8": ("paged_decode_attention_q8.cu", 965),
@@ -405,40 +418,50 @@ def report_tc_body(name: str, fn: str, e: dict, smem: int, sass: dict, label: st
 
 
 def report_tc_bodies(_build, report) -> None:
-    """Phase 2 for the bf16 tensor-core bodies of K1, K2, K3 and the
-    prefill-chunk body (K6 over bf16 pools, K5 and K7 over int8): per
+    """Phase 2 for the bf16 tensor-core bodies: K1's forward body over
+    bf16 K/V and over int8 K/V (K5's wide calls, 64-key tiles), K2, K3,
+    and the prefill-chunk body (K6 over bf16 pools, K7 over int8): per
     head dim the registers and spills from ptxas, the dynamic shared
     memory from the library, and the HGMMA count in the SASS (fails at 0;
-    the chunk body also fails on a spill). Then the registers, stack
-    frame, spills and shared memory of the split-K body of K4, K5 (dense)
-    and K6, K7 (paged), per (query dtype, cache type, head dim, rows
-    bucket), and of its combine kernel."""
+    the forward and chunk bodies also fail on a spill, and the forward
+    body when ptxas serialized its wgmmas, warning C7520, which a wgmma
+    on a branch causes). Then the
+    registers, stack frame, spills and shared memory of the split-K body
+    of K4, K5 (dense) and K6, K7 (paged), per (query dtype, cache type,
+    head dim, rows bucket), and of its combine kernel."""
     import ctypes
 
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
-    for name, body in TC_BODIES.items():
+    for name, (pattern, what) in TC_BODIES.items():
         r = report[name]
         entries = ptxas_entries(r["ptxas"])
-        smem = getattr(ctypes.CDLL(r["path"]), _build.KERNELS[name][1] + "_smem_bytes")
-        smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        q8 = name == "decode_attention_q8"
+        smem = getattr(ctypes.CDLL(r["path"]),
+                       _build.KERNELS[name][1] + ("_chunk_smem_bytes" if q8 else "_smem_bytes"))
+        smem.argtypes, smem.restype = [ctypes.c_int] * (1 if q8 else 2), ctypes.c_int
         sass = hgmma_counts(cuobjdump, r["path"])
         for d in (64, 128):
-            fn = next(n for n in entries if f"2tc{len(body)}{body}ILi{d}E" in n)
-            report_tc_body(name, fn, entries[fn], smem(d, 1), sass, f"bf16 tensor-core body d{d}")
-    # The chunk body: (kernel, layout, cache type as mangled), in the
-    # kernel's own source, with its `<entry>_chunk_smem_bytes`.
-    for name, paged, kv in (("paged_decode_attention", 1, "13__nv_bfloat16"),
-                            ("paged_decode_attention_q8", 1, "a"), ("decode_attention_q8", 0, "a")):
+            fn = next(n for n in entries if pattern.format(d=d) in n)
+            e = entries[fn]
+            label = f"bf16 {what} d{d}"
+            report_tc_body(name, fn, e, smem(d) if q8 else smem(d, 1), sass, label)
+            if "forward" in what and (e["spill_stores"] or e["spill_loads"]):
+                raise AssertionError(f"{name} {label} spills")
+            if "forward" in what and any("(C7520)" in line and pattern.format(d=d) in line
+                                         for line in r["ptxas"].splitlines()):
+                raise AssertionError(f"{name} {label}: ptxas serialized its wgmmas (C7520)")
+    # The chunk body: (kernel, cache type as mangled), in the kernel's own
+    # source, with its `<entry>_chunk_smem_bytes`.
+    for name, kv in (("paged_decode_attention", "13__nv_bfloat16"), ("paged_decode_attention_q8", "a")):
         r = report[name]
         entries = ptxas_entries(r["ptxas"])
         smem = getattr(ctypes.CDLL(r["path"]), _build.KERNELS[name][1] + "_chunk_smem_bytes")
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         sass = hgmma_counts(cuobjdump, r["path"])
         for d in (64, 128):
-            fn = next(n for n in entries if f"{CHUNK_BODY}ILi{d}ELb{paged}E{kv}E" in n)
+            fn = next(n for n in entries if f"{CHUNK_BODY}ILi{d}E{kv}E" in n)
             e = entries[fn]
-            label = (f"tensor-core chunk body, {'paged' if paged else 'dense'} "
-                     f"{'int8' if kv == 'a' else 'bf16'} K/V, d{d}")
+            label = f"tensor-core chunk body, paged {'int8' if kv == 'a' else 'bf16'} K/V, d{d}"
             report_tc_body(name, fn, e, smem(d), sass, label)
             if e["spill_stores"] or e["spill_loads"]:
                 raise AssertionError(f"{name} {label} spills")
@@ -904,8 +927,9 @@ def check_q8_split_body(A, torch, gen, dev, d: int, dtype, run, worst) -> list[s
 
 
 def check_q8_chunk_body(A, torch, gen, dev, d: int, run, worst) -> list[str]:
-    """Phase 3c for the int8 tensor-core chunk body at head dim ``d``, bf16
-    queries: K5 on the dense cache and K7 on pages 64, 16 and 24, the
+    """Phase 3c for the int8 wide bodies at head dim ``d``, bf16 queries:
+    K5 on the dense cache (K1's forward body over int8 K/V) and K7 on
+    pages 64, 16 and 24 (the chunk body), the
     ``WIDE_CASES`` at windows none and 256, per element within ``2**-8 *
     (p|v| + |plain|) + 1e-4`` with ``|v|`` dequantized; rows with
     valid_len 0 and rows before position 0 exactly 0; then the keys no row
@@ -963,7 +987,7 @@ def check_q8_chunk_body(A, torch, gen, dev, d: int, run, worst) -> list[str]:
     del ref, mag
     worst[name]["bfloat16"] = max(worst[name]["bfloat16"], err)
     print(f"  bfloat16 d{d} dense cache: {name} at the admission prefill q ({b},8,{sw},{d}), "
-          f"valid_len {sw} (causal, {sw // 64} row tiles per head): err {err:.3e}, "
+          f"valid_len {sw} (causal, {sw // 128} row tiles per head): err {err:.3e}, "
           f"err/rounding bound {ratio:.3f}", flush=True)
     if not ok:
         bad.append(f"{name} d{d} admission prefill ({b},8,{sw},{d}): err/rounding bound {ratio:.3f}")
@@ -1240,6 +1264,23 @@ def time_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
     return rows
 
 
+def time_redesigned(A, torch, gen, dev) -> dict[str, float]:
+    """Device ms of the two calls this tree's forward body serves, at
+    phase 5's shapes, through the package ``A`` belongs to: K1 on q, k, v
+    (4, 8, 2048, 128) bf16 causal, and K5's wide call at the int8 engine's
+    admission prefill (the same q over int8 K/V of its own 2048 keys).
+    It takes the package as an argument so that another checkout's
+    package (an earlier design of the two) can be timed by the same code
+    in the same call."""
+    b, h, s, d = 4, 8, 2048, 128
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    (k8, ks), (v8, vs) = (A.quantize_kv(torch.randn(b, h, s, d, generator=gen).to(dev))
+                          for _ in range(2))
+    return {"flash_fwd": cuda_ms(lambda i=0: A.flash_attention(q, k, v, causal=True), 20),
+            "decode_attention_q8_chunk": cuda_ms(
+                lambda i=0: A.decode_attention_q8(q, k8, v8, ks, vs, s), 20)}
+
+
 def time_bwd_kernels(A, torch, gen, dev, launches, worst, steps: int) -> list[dict]:
     """Phase 5 rows for K2 and K3 at the training path's shapes, with
     the backward of ``scaled_dot_product_attention`` (dq, dk and dv in
@@ -1501,6 +1542,9 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
             if name in PROFILED_SLICES:
                 predictor.stop()  # the engine is now driven from this thread alone
                 profile_paged_decode(engine, torch, prompts, name, PROFILED_SLICES[name])
+            elif name == "int8":
+                predictor.stop()
+                profile_admission(engine, torch, prompts)
         finally:
             predictor.stop()
         del predictor, engine
@@ -1585,6 +1629,31 @@ def profile_decode(engine, torch, prompts, steps: int = 10) -> None:
         raise AssertionError("phase 6: K4's decode steps must run its split body, not the 64-row body")
     for name, ms, n in kernels[:8]:
         print(f"  {ms:.4f} ms/step ({ms / busy:.1%} of busy, {n}/step) {name[:90]}", flush=True)
+
+
+def profile_admission(engine, torch, prompts) -> None:
+    """Phase 8 (a)'s profile: one admission wave of the int8 engine (its
+    4 slots take the first 4 prompts in one prefill), whose K5 wide calls
+    must run the tensor-core forward body over int8 K/V, and neither the
+    chunk body nor K1's bf16 instantiation of the same body."""
+    for p in prompts[:4]:
+        engine.submit(p, max_new_tokens=4)
+    wall_ms, busy, kernels = device_profile(torch, engine.step)
+    engine.run()
+    fwd = [(ms, n) for key, ms, n in kernels if FWD_Q8_KERNEL_NAME in key]
+    fwd_ms = sum(ms for ms, _ in fwd)
+    print(f"phase 8 int8 profile: one admission wave (4 prompts): wall {wall_ms:.3f} ms "
+          f"(profiled), device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}, "
+          f"{sum(n for _, _, n in kernels)} kernel launches; K5's wide calls on the forward body "
+          f"over int8 K/V {fwd_ms:.4f} ms ({fwd_ms / busy:.1%} of busy, "
+          f"{sum(n for _, n in fwd)} launches)", flush=True)
+    for kname, ms, n in kernels[:6]:
+        print(f"  {ms:.4f} ms ({ms / busy:.1%} of busy, {n}) {kname[:90]}", flush=True)
+    others = [key for key, _, _ in kernels
+              if CHUNK_KERNEL_NAME in key or "fwd::fwd_kernel<128, false>" in key]
+    if not fwd or others:
+        raise AssertionError("phase 8 int8: the admission wave must run K5's forward body over "
+                             f"int8 K/V and no other attention body: {others}")
 
 
 def profile_paged_decode(engine, torch, prompts, name: str, label: str, steps: int = 10) -> None:

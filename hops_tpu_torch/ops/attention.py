@@ -15,8 +15,10 @@ tensors and their plain PyTorch versions on CPU tensors:
   split-K body and a combine kernel, splits from :func:`decode_splits`);
   with ``k_scale`` / ``v_scale`` (:func:`decode_attention_q8`)
   ``csrc/decode_attention_q8.cu`` (K5, ``_decode_q8_kernel``), the dense
-  int8 cache (decode steps on the split-K body, bf16 prefill on a
-  tensor-core body, counted apart as ``decode_attention_q8_chunk``);
+  int8 cache (decode steps on the split-K body; bf16 prefill on K1's
+  tensor-core forward body, ``csrc/flash_fwd_tc.cuh``, over int8 K/V
+  widened in shared memory, counted apart as
+  ``decode_attention_q8_chunk``);
 - :func:`paged_decode_attention` -> ``csrc/paged_decode_attention.cu``,
   K6 (``_paged_decode_kernel``) over bf16/fp32 block pools (decode
   steps on the split-K body, bf16 prefill chunks on a tensor-core body,
@@ -44,7 +46,8 @@ NEG_INF = float("-inf")
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 #: A decode kernel's wide bf16 calls (rows > ``SPLIT_ROWS``: prefill) run
-#: its tensor-core body and count under ``<kernel>_chunk``.
+#: a tensor-core body (K5: K1's forward body over int8 K/V; K6, K7: the
+#: chunk body) and count under ``<kernel>_chunk``.
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
     "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
@@ -703,8 +706,9 @@ def decode_attention(
     decode step) runs the split-K body, ``decode_splits`` splits of the
     capacity merged by a combine kernel; a wider call runs the 64-row
     body, except K5's bf16 ones (the int8 engine's admission prefill),
-    which run a tensor-core body, counted as
-    ``decode_attention_q8_chunk``. CPU tensors run
+    which run K1's tensor-core forward body over the int8 K/V (one block
+    per 128 rows of a query head, reading kv head ``head // (h // hkv)``),
+    counted as ``decode_attention_q8_chunk``. CPU tensors run
     :func:`decode_attention_reference` (int8: on the dequantized caches in
     fp32, cast to q's dtype).
     """
@@ -755,7 +759,8 @@ def decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
         )
     _build.check(name, rc)
-    # K5's wide bf16 calls ran its tensor-core body: counted on their own.
+    # K5's wide bf16 calls ran the tensor-core forward body: counted on
+    # their own.
     chunk = quantized and rows > SPLIT_ROWS and q.dtype == torch.bfloat16
     LAUNCHES[name + "_chunk" if chunk else name] += 1
     return o

@@ -1,24 +1,22 @@
-// Tensor-core body of the decode kernels' wide bf16 calls, in
+// Tensor-core body of the paged decode kernels' wide bf16 calls, in
 // hops_tpu/ops/attention.py: K6, `_paged_decode_kernel` (the 256-token
-// prefill chunk fused into a paged engine step, over bf16 pools), K7,
-// `_paged_decode_q8_kernel` (the same over int8 pools), and K5,
-// `_decode_q8_kernel` (the dense int8 engine's admission prefill, which
-// reads its freshly quantized chunk back). A call is wide when rows =
-// g*s > 16. Decode calls (rows <= 16) take the split-K body of
-// decode_split.cuh; fp32 wide calls the 64-row FMA body of
-// decode_rows.cuh. PAGED picks the layout (pools through a page table,
-// or the dense (b*hkv, cap, d) cache), KV the cache's element type
-// (bf16, or int8 with fp32 scales).
+// prefill chunk fused into a paged engine step, over bf16 pools), and K7,
+// `_paged_decode_q8_kernel` (the same over int8 pools). A call is wide
+// when rows = g*s > 16. Decode calls (rows <= 16) take the split-K body
+// of decode_split.cuh; fp32 wide calls the 64-row FMA body of
+// decode_rows.cuh. KV is the pools' element type (bf16, or int8 with
+// fp32 scales). (K5's wide calls, on the dense int8 cache, run the
+// forward body of flash_fwd_tc.cuh.)
 //
 // What it computes: K1's causal attention (flash_fwd.cu) with three
 // differences. Query row r of (batch b, kv head h) is head h*g + r / s at
 // position valid_len[b] - s + r % s, valid_len read on the device, so
 // each batch row has its own offset. Key kpos comes from storage row
-// (h*nblocks + pages[b, kpos / page]) * page + kpos % page, or (b*hkv +
-// h) * cap + kpos dense (`split::tile_rows`, decode_rows.cuh's `key_row`
-// rule). A key at or past valid_len, or behind a table entry outside
-// [0, nblocks), is never read (its copies are zero-fills) and scores
-// -inf, so the scratch block 0 stays unreachable.
+// (h*nblocks + pages[b, kpos / page]) * page + kpos % page
+// (`split::tile_rows`, decode_rows.cuh's `key_row` rule). A key at or
+// past valid_len, or behind a table entry outside [0, nblocks), is never
+// read (its copies are zero-fills) and scores -inf, so the scratch block
+// 0 stays unreachable.
 //
 // What bounds it on this card: a 256-token chunk does 4*d operations per
 // visible (query, key) pair against 4*d bytes of bf16 K and V per key
@@ -27,11 +25,9 @@
 // half on average), plus the chunk's own q and o: under the card's
 // balance of ~295 operations per byte in bf16, so the bytes bound it
 // with the operations close behind, and only the tensor cores (989
-// TFLOP/s, against 67 of fp32 FMA) come near either. K5's admission
-// prefill (2048 rows against its own 2048 keys) does ~1000 operations
-// per byte: bound by the operations, as K1 is. The 64-row FMA body these
-// calls ran on before ran at fp32 FMA rate on 64 x 64 tiles staged in
-// fp32.
+// TFLOP/s, against 67 of fp32 FMA) come near either. The 64-row FMA
+// body these calls ran on before ran at fp32 FMA rate on 64 x 64 tiles
+// staged in fp32.
 //
 // Design:
 // - One block per (64 query rows, batch*kv_head): one warpgroup, 128
@@ -123,7 +119,7 @@ __device__ __forceinline__ void issue_q(bf16* qs, const bf16* q, int nrows, int 
 // bf16 K/V: start the copies of the key tile at logical position k0 into
 // the swizzled ks/vs; kok[kk] says whether key kk has a storage row.
 // Each thread copies one 16-byte column of every STEP-th key.
-template <int D, bool PAGED>
+template <int D>
 __device__ __forceinline__ void issue_kv(bf16* ks, bf16* vs, int* kok, const decode::Args& a,
                                          const bf16* k, const bf16* v, int bi, int hk, int k0,
                                          int kv_len, int tid) {
@@ -133,7 +129,7 @@ __device__ __forceinline__ void issue_kv(bf16* ks, bf16* vs, int* kok, const dec
   const int c = tid % CPR;
   const int kk0 = tid / CPR;
   long long ri[NR];
-  split::tile_rows<PAGED, NR, STEP>(ri, a, bi, hk, k0 + kk0, kv_len);
+  split::tile_rows<true, NR, STEP>(ri, a, bi, hk, k0 + kk0, kv_len);
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
     const int kk = kk0 + j * STEP;
@@ -158,12 +154,11 @@ struct Q8Tile {
   float ks[NR], vs[NR];  // column-0 threads: the keys' scales, 0 without a storage row
   int ok;                // bit j: key row j has a storage row
 
-  template <bool PAGED>
   __device__ __forceinline__ void load(const decode::Args& a, const int8_t* kp, const int8_t* vp,
                                        int bi, int hk, int k0, int kv_len, int tid) {
     const int c = tid % CPR;
     long long ri[NR];
-    split::tile_rows<PAGED, NR, STEP>(ri, a, bi, hk, k0 + tid / CPR, kv_len);
+    split::tile_rows<true, NR, STEP>(ri, a, bi, hk, k0 + tid / CPR, kv_len);
     ok = 0;
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
@@ -177,39 +172,14 @@ struct Q8Tile {
     }
   }
 
-  // Four int8 values (one 32-bit word) as two bf16 pairs, exactly: each
-  // byte, offset to unsigned, becomes the low bits of the fp32 2^23 + b,
-  // from which 2^23 + 128 is subtracted.
-  static __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
-    const uint32_t u = w ^ 0x80808080u;
-    float f[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
-    lo = pack_bf16(f[0], f[1]);
-    hi = pack_bf16(f[2], f[3]);
-  }
-
-  // 16 int8 values as two 16-byte chunks of 8 bf16 each, into column
-  // chunks 2c and 2c + 1 of swizzled row kk.
-  static __device__ __forceinline__ void put(bf16* dst, int kk, int c, uint4 x) {
-    uint4 a, b;
-    widen4(x.x, a.x, a.y);
-    widen4(x.y, a.z, a.w);
-    widen4(x.z, b.x, b.y);
-    widen4(x.w, b.z, b.w);
-    *reinterpret_cast<uint4*>(dst + sw128(kk, 2 * c, BN)) = a;
-    *reinterpret_cast<uint4*>(dst + sw128(kk, 2 * c + 1, BN)) = b;
-  }
-
   __device__ __forceinline__ void store(bf16* kd, bf16* vd, int* kok, float* ksc, float* vsc,
                                         int tid) const {
     const int c = tid % CPR;
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
       const int kk = tid / CPR + j * STEP;
-      put(kd, kk, c, k[j]);
-      put(vd, kk, c, v[j]);
+      put_s8x16(kd, kk, c, BN, k[j]);
+      put_s8x16(vd, kk, c, BN, v[j]);
       if (c == 0) {
         kok[kk] = (ok >> j) & 1;
         ksc[kk] = ks[j];
@@ -219,7 +189,7 @@ struct Q8Tile {
   }
 };
 
-template <int D, bool PAGED, typename KV>
+template <int D, typename KV>
 __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   extern __shared__ uint8_t smem_raw[];
@@ -258,13 +228,13 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
   [[maybe_unused]] Q8Tile<D> next;  // int8: the next tile, in registers
   if constexpr (Q8) {
     split::cp_async_commit();  // Q
-    next.template load<PAGED>(a, k, v, bi, hk, t_lo * BN, kv_len, tid);
+    next.load(a, k, v, bi, hk, t_lo * BN, kv_len, tid);
     next.store(sm.k[0], sm.v[0], sm.kok[0], sm.ksc[0], sm.vsc[0], tid);
-    if (n > 1) next.template load<PAGED>(a, k, v, bi, hk, (t_lo + 1) * BN, kv_len, tid);
+    if (n > 1) next.load(a, k, v, bi, hk, (t_lo + 1) * BN, kv_len, tid);
   } else {
     for (int i = 0; i < STAGES; ++i) {
       if (i < n)
-        issue_kv<D, PAGED>(sm.k[i], sm.v[i], sm.kok[i], a, k, v, bi, hk, (t_lo + i) * BN, kv_len, tid);
+        issue_kv<D>(sm.k[i], sm.v[i], sm.kok[i], a, k, v, bi, hk, (t_lo + i) * BN, kv_len, tid);
       split::cp_async_commit();  // Q rides in tile 0's group
     }
   }
@@ -381,12 +351,12 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
       if (it + 1 < n) {
         const int nx = (it + 1) % STAGES;
         next.store(sm.k[nx], sm.v[nx], sm.kok[nx], sm.ksc[nx], sm.vsc[nx], tid);
-        if (it + 2 < n) next.template load<PAGED>(a, k, v, bi, hk, k0 + 2 * BN, kv_len, tid);
+        if (it + 2 < n) next.load(a, k, v, bi, hk, k0 + 2 * BN, kv_len, tid);
       }
     } else {
       __syncthreads();  // every thread is done with stage st
       if (it + STAGES < n)
-        issue_kv<D, PAGED>(sm.k[st], sm.v[st], sm.kok[st], a, k, v, bi, hk, k0 + STAGES * BN,
+        issue_kv<D>(sm.k[st], sm.v[st], sm.kok[st], a, k, v, bi, hk, k0 + STAGES * BN,
                            kv_len, tid);
       split::cp_async_commit();
     }
@@ -408,27 +378,27 @@ __global__ void __launch_bounds__(NT, 1) chunk_kernel(const decode::Args a) {
   }
 }
 
-template <int D, bool PAGED, typename KV>
+template <int D, typename KV>
 int launch(const decode::Args& a, int bhkv, cudaStream_t stream) {
   const size_t smem = smem_bytes<D, std::is_same<KV, int8_t>::value>();
-  cudaError_t err = cudaFuncSetAttribute(chunk_kernel<D, PAGED, KV>,
+  cudaError_t err = cudaFuncSetAttribute(chunk_kernel<D, KV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  chunk_kernel<D, PAGED, KV><<<dim3((a.rows + BM - 1) / BM, bhkv), NT, smem, stream>>>(a);
+  chunk_kernel<D, KV><<<dim3((a.rows + BM - 1) / BM, bhkv), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Check the sizes and launch the body for (layout, cache type, head_dim);
+// Check the sizes and launch the body for (cache type, head_dim);
 // bf16 queries only. Returns 0 or a cudaError_t code.
-template <bool PAGED, bool Q8>
+template <bool Q8>
 int dispatch(const decode::Args& a, int b, int head_dim, void* stream) {
   using KV = typename std::conditional<Q8, int8_t, bf16>::type;
   const long long bhkv = (long long)b * a.hkv;
   if (b < 1 || a.hkv < 1 || bhkv > 65535 || a.rows < 1 || a.s < 1 || a.rows % a.s || a.cap < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64, PAGED, KV>(a, (int)bhkv, st);
-  if (head_dim == 128) return launch<128, PAGED, KV>(a, (int)bhkv, st);
+  if (head_dim == 64) return launch<64, KV>(a, (int)bhkv, st);
+  if (head_dim == 128) return launch<128, KV>(a, (int)bhkv, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,38 +14,17 @@
 // (hundreds to thousands of tokens) the work is O(seq^2 * d) operations
 // against O(seq * d) bytes, so it is bound by operations, and only the
 // tensor cores (989 TFLOP/s in bf16, against 67 TFLOP/s of fp32 FMA) come
-// near that bound. With the bf16 body below it runs at about a third of
-// that bound: within a warpgroup the two products and the softmax take
-// turns (no overlap of one tile's softmax with the next tile's S).
+// near that bound.
 //
 // Two bodies; the entry point picks one by `is_bf16` alone, so a bf16
 // call never reaches the FMA body, and either body's launch failure is
 // returned to the caller, which raises:
 //
-// bf16 (the served weights and the train step's compute): tensor cores.
-// - One block per (128-row q tile, batch*head), 256 threads: two
-//   warpgroups own 64 query rows each. Thread 0 also issues the TMA
-//   loads. There is no producer warp: built under a 288- or 384-thread
-//   launch bound (and with setmaxnreg), the d-128 body spilled; at 256
-//   threads it fits (phase 2 of chip_smoke.py prints its registers and
-//   spills). The cost: the load of tile it + 1 waits until both
-//   warpgroups have released tile it - 1, so the two run in near
-//   lockstep.
-// - Q is loaded once; 128-key K and V tiles flow through a 2-stage ring,
-//   each stage guarded by full (K, V) and empty mbarriers. Tiles are
-//   128-byte swizzled (hopper.cuh); the tensor maps are 3-D (d, seq, bh),
-//   so rows past a head's end read as zeros, never the next head's.
-// - S = Q K^T is wgmma m64n128k16 from shared memory (both K-major); the
-//   online softmax runs in registers in the log2 domain (sm_scale *
-//   log2(e) folded in; lse converted back to natural log), a row's 4
-//   lanes reducing with shuffles; P is rounded to bf16 in registers (as
-//   JAX rounds p to v's dtype) and is the register A operand of
-//   O += P V, m64n{d}k16 with V the MN-major B operand.
-// - Tiles are skipped exactly as `_block_runs` decides at these tile
-//   sizes; the in-tile mask (`_causal_mask`, window, the seq_k tail) is
-//   applied only on tiles that cross an edge. A row that sees no key ends
-//   with l == 0 and writes o = 0 and lse = -inf. Causal grids start the
-//   longest q tiles first. No atomics: launches are bit-reproducible.
+// bf16 (the served weights and the train step's compute): the
+// tensor-core forward body of flash_fwd_tc.cuh, which K5's wide calls
+// share over int8 K/V: two consumer warpgroups of 64 rows in ping-pong
+// (one's softmax under the other's products), 128-key K/V tiles by TMA
+// through a 3-stage ring. Its header says how.
 //
 // fp32 (the checks' type: TF32 tensor cores would lose their digits):
 // the first version's FMA body, for fp32 alone.
@@ -64,7 +43,7 @@
 //   with l == 0, finalize divides by l_safe = 1 and writes 0, never NaN.
 
 #include "common.cuh"
-#include "hopper.cuh"
+#include "flash_fwd_tc.cuh"
 
 #include <math.h>
 
@@ -228,235 +207,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor-core body
-// ---------------------------------------------------------------------------
-
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-using namespace hops::sm90;
-
-constexpr int BM = 128;      // query rows per block: 64 per warpgroup
-constexpr int BN = 128;      // keys per tile
-constexpr int STAGES = 2;    // K/V ring depth
-constexpr int THREADS = 256; // two warpgroups; thread 0 also issues the loads
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-template <int D>
-struct Smem {
-  bf16 q[BM * D];            // D / 64 swizzled panels of BM x 64
-  bf16 k[STAGES][BN * D];    // D / 64 swizzled panels of BN x 64
-  bf16 v[STAGES][BN * D];
-  uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
-};
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(Smem<D>) + 1024;  // room to align the base to 1024 bytes
+// bf16 calls, on the tensor-core forward body (flash_fwd_tc.cuh): q
+// (bh, seq_q, D), k, v (bh, seq_k, D), o like q, lse (bh, seq_q).
+// Returns 0 or a cudaError_t code.
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                int seq_q, int seq_k, int head_dim, float sm_scale, int causal, int q_offset,
+                int window, cudaStream_t stream) {
+  hops::fwd::Args a{};
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
+  a.seq_q = seq_q;
+  a.seq_k = seq_k;
+  a.h = 1;
+  a.g = 1;
+  a.sm_scale = sm_scale;
+  a.causal = causal;
+  a.q_offset = q_offset;
+  a.window = window;
+  if (head_dim == 64) return hops::fwd::launch_body<64, false>(q, k, v, a, bh, bh, stream);
+  if (head_dim == 128) return hops::fwd::launch_body<128, false>(q, k, v, a, bh, bh, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
-
-// Load key tile j into ring stage s (K and V on their own barriers, so
-// S = Q K^T can start before V lands).
-template <int D>
-__device__ __forceinline__ void load_kv(Smem<D>& sm, const CUtensorMap* tk, const CUtensorMap* tv,
-                                        int s, int j, int bh) {
-  mbar_arrive_expect_tx(&sm.k_full[s], BN * D * 2);
-#pragma unroll
-  for (int p = 0; p < D / 64; ++p) tma_load_3d(sm.k[s] + p * BN * 64, tk, &sm.k_full[s], p * 64, j * BN, bh);
-  mbar_arrive_expect_tx(&sm.v_full[s], BN * D * 2);
-#pragma unroll
-  for (int p = 0; p < D / 64; ++p) tma_load_3d(sm.v[s] + p * BN * 64, tv, &sm.v_full[s], p * 64, j * BN, bh);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-           float* __restrict__ lse, int seq_q, int seq_k, float sm_scale, int causal,
-           int q_offset, int window) {
-  extern __shared__ uint8_t smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int bh = blockIdx.x;
-  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
-
-  // The key tiles `_block_runs` keeps form one range [lo, lo + n).
-  const int nk = (seq_k + BN - 1) / BN;
-  int lo = 0, hi = nk;
-  if (causal) {
-    hi = 0;
-    for (int j = 0; j < nk; ++j) {
-      const int k0 = j * BN;
-      if (k0 < q0 + BM + q_offset &&
-          (window <= 0 || k0 + BN - 1 >= q0 + q_offset - (window - 1))) {
-        if (hi == 0) lo = j;
-        hi = j + 1;
-      }
-    }
-  }
-  const int n = hi - lo;
-
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.k_full[s], 1);
-      mbar_init(&sm.v_full[s], 1);
-      mbar_init(&sm.empty[s], 8);  // one arrival per warp
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(&sm.q_full, BM * D * 2);
-    for (int p = 0; p < D / 64; ++p) tma_load_3d(sm.q + p * BM * 64, &tq, &sm.q_full, p * 64, q0, bh);
-    for (int it = 0; it < STAGES && it < n; ++it) load_kv<D>(sm, &tk, &tv, it, lo + it, bh);
-  }
-  __syncwarp();
-
-  const int wg = threadIdx.x / 128;
-  const int lane = threadIdx.x % 32;
-  const int r0 = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // rows r0, r0 + 8
-  const int c0 = 2 * (lane % 4);  // first column of each 8-column group
-  const float scale_log2 = sm_scale * LOG2E;
-
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
-  float l[2] = {0.f, 0.f};              // this lane's share of the running sum
-
-  mbar_wait(&sm.q_full, 0);
-  const uint64_t desc_q = desc_sw128(sm.q + wg * 64 * 64, 16);
-  for (int it = 0; it < n; ++it) {
-    const int s = it % STAGES;
-    const uint32_t ph = (it / STAGES) & 1;
-    const int k0 = (lo + it) * BN;
-    // Refill the stage tile it - 1 used with tile it + 1, once both
-    // warpgroups have released it.
-    if (threadIdx.x == 0 && it >= 1 && it + 1 < n) {
-      const int sr = (it + 1) % STAGES;
-      mbar_wait(&sm.empty[sr], ((it - 1) / STAGES) & 1);
-      load_kv<D>(sm, &tk, &tv, sr, lo + it + 1, bh);
-    }
-    __syncwarp();
-
-    // S = Q K^T (raw scores), 64 rows x BN keys per warpgroup.
-    float sc[BN / 2];
-    mbar_wait(&sm.k_full[s], ph);
-    const uint64_t desc_k = desc_sw128(sm.k[s], 16);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc, desc_q + (((kk / 4) * BM * 128 + (kk % 4) * 32) >> 4),
-               desc_k + (((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    // Scale into the log2 domain; mask only a tile that crosses an edge.
-    const bool edge = k0 + BN > seq_k ||
-                      (causal && (k0 + BN - 1 > q0 + q_offset ||
-                                  (window > 0 && q0 + BM - 1 + q_offset - k0 >= window)));
-    if (edge) {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int kpos = k0 + 8 * (i / 4) + c0 + (i & 1);
-        const int qpos = q0 + r0 + 8 * ((i >> 1) & 1) + q_offset;
-        bool vis = kpos < seq_k;
-        if (causal) vis = vis && qpos >= kpos && (window <= 0 || qpos - kpos < window);
-        sc[i] = vis ? sc[i] * scale_log2 : -INFINITY;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sc[i] *= scale_log2;
-    }
-
-    // Online softmax (the -inf guards of `_online_softmax_update`).
-    float alpha[2], m_safe[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        if (((i >> 1) & 1) == h) mx = fmaxf(mx, sc[i]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
-      m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[h] = ex2(m[h] - m_safe[h]);  // 0 while the row has seen no key
-      m[h] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
-      sc[i] = ex2(sc[i] - m_safe[(i >> 1) & 1]);
-      sum[(i >> 1) & 1] += sc[i];
-    }
-    l[0] = l[0] * alpha[0] + sum[0];
-    l[1] = l[1] * alpha[1] + sum[1];
-
-    // O = O * alpha + P V, with P in bf16 as the register A operand.
-    uint32_t pa[BN / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kc][r] = pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    mbar_wait(&sm.v_full[s], ph);
-    const uint64_t desc_v = desc_sw128(sm.v[s], BN * 128);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) wgmma_rs(acc, pa[kc], desc_v + ((kc * 16 * 128) >> 4), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&sm.empty[s]);
-  }
-
-  // Finalize: the row sums over its 4 lanes; o = acc / l, lse.
-  const size_t base = static_cast<size_t>(bh) * seq_q;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int row = q0 + r0 + 8 * h;
-    if (row >= seq_q) continue;
-    const float l_safe = l[h] == 0.f ? 1.f : l[h];
-    const float inv = 1.f / l_safe;
-    bf16* orow = o + (base + row) * D;
-#pragma unroll
-    for (int jn = 0; jn < D / 8; ++jn)
-      *reinterpret_cast<uint32_t*>(orow + 8 * jn + c0) =
-          pack_bf16(acc[4 * jn + 2 * h] * inv, acc[4 * jn + 2 * h + 1] * inv);
-    if (lane % 4 == 0)
-      lse[base + row] = m[h] == -INFINITY ? -INFINITY : (m[h] + log2f(l_safe)) * LN2;
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-           int seq_q, int seq_k, float sm_scale, int causal, int q_offset, int window,
-           cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  int err = encode_rows_map(&tq, q, D, seq_q, bh, BM);
-  if (!err) err = encode_rows_map(&tk, k, D, seq_k, bh, BN);
-  if (!err) err = encode_rows_map(&tv, v, D, seq_k, bh, BN);
-  if (err) return err;
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(bh, (seq_q + BM - 1) / BM);
-  fwd_kernel<D><<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, seq_q,
-                                                 seq_k, sm_scale, causal, q_offset, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace tc
 
 }  // namespace
 
@@ -475,10 +246,8 @@ int hops_flash_fwd(const void* q, const void* k, const void* v, void* o, void* l
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (is_bf16) {
-    if (head_dim == 64)
-      return tc::launch<64>(q, k, v, o, l, bh, seq_q, seq_k, sm_scale, causal, q_offset, window, st);
-    if (head_dim == 128)
-      return tc::launch<128>(q, k, v, o, l, bh, seq_q, seq_k, sm_scale, causal, q_offset, window, st);
+    return launch_bf16(q, k, v, o, l, bh, seq_q, seq_k, head_dim, sm_scale, causal, q_offset,
+                       window, st);
   } else {
     if (head_dim == 64)
       return launch<64>(q, k, v, o, l, bh, seq_q, seq_k, sm_scale, causal, q_offset, window, st);
@@ -491,8 +260,9 @@ int hops_flash_fwd(const void* q, const void* k, const void* v, void* o, void* l
 // Dynamic shared memory (bytes) of the body that a call with this
 // head_dim and dtype launches, or -1 for a configuration it does not take.
 int hops_flash_fwd_smem_bytes(int head_dim, int is_bf16) {
-  if (head_dim == 64) return static_cast<int>(is_bf16 ? tc::smem_bytes<64>() : flash_smem_bytes<64>());
-  if (head_dim == 128) return static_cast<int>(is_bf16 ? tc::smem_bytes<128>() : flash_smem_bytes<128>());
+  if (is_bf16) return hops::fwd::smem_bytes_at(head_dim, false);
+  if (head_dim == 64) return static_cast<int>(flash_smem_bytes<64>());
+  if (head_dim == 128) return static_cast<int>(flash_smem_bytes<128>());
   return -1;
 }
 

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the tensor-core bodies of K1, K2 and
-// K3 (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu) and of K6's
-// prefill-chunk body (decode_chunk.cuh): mbarriers, TMA tile loads,
+// Hopper (sm_90a) building blocks of the tensor-core bodies: the forward
+// body of K1 and K5's wide calls (flash_fwd_tc.cuh), K2 and K3
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu) and the prefill-chunk body of K6
+// and K7 (decode_chunk.cuh): mbarriers, named barriers, TMA tile loads,
 // wgmma shared-memory descriptors, the bf16 wgmma shapes the kernels
-// issue, and the host-side encoding of their tensor maps.
+// issue, the exact int8 -> bf16 widening, and the host-side encoding of
+// their tensor maps.
 //
 // Tiles live in shared memory as the TMA writes them with 128-byte
 // swizzle (`sw128` gives the same placement to copies made by threads):
@@ -70,6 +72,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- named barriers ----
+
+// Wait at hardware barrier `id` (1..15; 0 is __syncthreads) until
+// `count` threads have arrived, this thread's warp among them.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrive at barrier `id` without waiting for it to complete.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- TMA ----
 
 // Copy the box at element coordinates (c0, c1, c2) of `map` into `dst`,
@@ -135,6 +150,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keep the compiler from reusing the registers of a wgmma's register A
+// operand while the wgmma may still read them: call after its wait.
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // Accumulator layout of m64nNk16 (f32), thread t of the warpgroup:
@@ -249,6 +274,32 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Four int8 values (one 32-bit word) as two bf16 pairs, exactly (|x| <=
+// 127 fits bf16's 8 significant bits): each byte, offset to unsigned,
+// becomes the low bits of the fp32 2^23 + b, from which 2^23 + 128 is
+// subtracted.
+__device__ __forceinline__ void widen_s8x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+  lo = pack_bf16(f[0], f[1]);
+  hi = pack_bf16(f[2], f[3]);
+}
+
+// 16 int8 values as two 16-byte chunks of 8 bf16 each, into column
+// chunks 2c and 2c + 1 of swizzled row kk of a tile of `rows` rows.
+__device__ __forceinline__ void put_s8x16(__nv_bfloat16* dst, int kk, int c, int rows, uint4 x) {
+  uint4 a, b;
+  widen_s8x4(x.x, a.x, a.y);
+  widen_s8x4(x.y, a.z, a.w);
+  widen_s8x4(x.z, b.x, b.y);
+  widen_s8x4(x.w, b.z, b.w);
+  *reinterpret_cast<uint4*>(dst + sw128(kk, 2 * c, rows)) = a;
+  *reinterpret_cast<uint4*>(dst + sw128(kk, 2 * c + 1, rows)) = b;
+}
+
 // ---- host ----
 
 // cuTensorMapEncodeTiled, looked up in libcuda at first use (no -lcuda).
@@ -290,6 +341,23 @@ inline int encode_rows_map(CUtensorMap* map, const void* base, int cols, int row
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A 3-D map over a contiguous (outer, rows, cols) int8 array, cols 64 or
+// 128, read in boxes of (cols, box_rows, 1), each box row swizzled across
+// its own width (64- or 128-byte swizzle: 16-byte chunk c of row r at
+// chunk c ^ ((r >> 1) % 4) or c ^ (r % 8)). Rows past `rows` read as
+// zeros. Returns 0 or a cudaError_t code.
+inline int encode_s8_rows_map(CUtensorMap* map, const void* base, int cols, int rows, int outer,
+                              int box_rows) {
+  if (cols != 64 && cols != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols),
+                                 static_cast<cuuint64_t>(cols) * rows};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(box_rows), 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, base, dims, strides, box,
+                      cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // A 1-D map over `n` contiguous fp32 values, read in boxes of `box`

@@ -48,7 +48,7 @@ int hops_paged_decode_attention_q8(const void* q, const void* k, const void* v,
     return hops::split::dispatch</*PAGED=*/true, /*Q8=*/true>(
         a, b, head_dim, is_bf16, static_cast<float*>(workspace), n_splits, split_keys, stream);
   if (n_splits != 1) return (int)cudaErrorInvalidValue;
-  if (is_bf16) return hops::chunk::dispatch</*PAGED=*/true, /*Q8=*/true>(a, b, head_dim, stream);
+  if (is_bf16) return hops::chunk::dispatch</*Q8=*/true>(a, b, head_dim, stream);
   return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
 }
 

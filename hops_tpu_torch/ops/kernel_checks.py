@@ -23,10 +23,14 @@ Q8_SPLIT_CASES = {
     "gqa_rows_16_page_24": (24, 2064, 2, 4, [2064, 255, 257, 0, 1025], 300),
     "rows_5": (64, 2048, 8, 5, [5, 258, 1531, 2048], None),
 }
-# The tensor-core chunk body (wide bf16 calls, rows > 16): name -> (kv
-# heads of 8 query heads, query tokens, capacity); rows 17, 100, 256, GQA
-# 20 and 100 (64-row tiles that span heads), and s = capacity, the full
-# causal form of the int8 engine's admission prefill (8 row tiles).
+# The wide bf16 calls (rows > 16: K6 and K7's tensor-core chunk body, K5's
+# tensor-core forward body): name -> (kv heads of 8 query heads, query
+# tokens, capacity); rows 17, 100, 256, GQA 20 and 100 (64-row chunk tiles
+# that span heads), s = capacity, the full causal form of the int8
+# engine's admission prefill (4 of the forward body's 128-row tiles), and
+# at the forward body's tile edges: s = 129 (a second row tile of one row)
+# against capacity 2048, GQA, and full causal at s = capacity = 255 (a
+# 127-row tile; a last key tile cut at 255).
 WIDE_CASES = {
     "rows17": (8, 17, 2048),
     "rows100": (8, 100, 2048),
@@ -34,16 +38,19 @@ WIDE_CASES = {
     "gqa_rows20": (2, 5, 2048),
     "gqa_rows100": (2, 25, 2048),
     "full_causal_512": (8, 512, 512),
+    "gqa_s129": (2, 129, 2048),
+    "full_causal_255": (8, 255, 255),
 }
 
 
 def wide_lengths(s: int, page: int, cap: int) -> tuple[list[int], list[int]]:
     """``(valid, alloc)`` of a wide case: valid_len 0, below s (rows
-    before position 0 see no key), a page boundary + 1, a row whose last
-    two pages map the scratch block below its valid length (the engine's
-    pad rows; 1300 at capacity 2048), and the full capacity rounded up to
-    a page; ``alloc`` the positions each row's table maps."""
-    valid = [0, max(s - 3, 1), 5 * page + 1, min(1300, cap), -(-cap // page) * page]
+    before position 0 see no key), a page boundary + 1 (at most the
+    capacity), a row whose last two pages map the scratch block below its
+    valid length (the engine's pad rows; 1300 at capacity 2048), and the
+    full capacity rounded up to a page; ``alloc`` the positions each row's
+    table maps."""
+    valid = [0, max(s - 3, 1), min(5 * page + 1, cap), min(1300, cap), -(-cap // page) * page]
     return valid, [*valid[:3], valid[3] - 2 * page, valid[4]]
 
 
@@ -98,13 +105,19 @@ def q8_plain(q, kv, vl, pages, window=None) -> torch.Tensor:
 
 def q8_poisoned(kv, vl, pages) -> list[torch.Tensor]:
     """A copy of ``kv`` whose keys no row may read hold garbage: values
-    ±127, scales NaN and 1e30. Paged: the scratch block 0; dense: every
-    position at or past a row's valid_len."""
+    ±127, k_scale and v_scale NaN at even positions and 1e30 at odd ones
+    (a NaN scale reaches an output through any product, even with p = 0).
+    Paged: the scratch block 0; dense: every position at or past a row's
+    valid_len."""
     k, v, ks, vs = (t.clone() for t in kv)
     if pages is not None:
-        where = (slice(None), 0)
+        where = torch.zeros(ks.shape, dtype=torch.bool, device=ks.device)
+        where[:, 0] = True
     else:
         past = torch.arange(k.shape[2], device=k.device)[None, :] >= vl[:, None]
         where = past[:, None, :].expand(k.shape[:3])
-    k[where], v[where], ks[where], vs[where] = 127, -127, float("nan"), 1e30
+    pos = torch.arange(ks.shape[-1], device=ks.device)
+    junk = torch.where(pos % 2 == 0, float("nan"), 1e30).expand(ks.shape)
+    k[where], v[where] = 127, -127
+    ks, vs = torch.where(where, junk, ks), torch.where(where, junk, vs)
     return [k, v, ks, vs]

@@ -7,7 +7,8 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: the bf16 tensor-core bodies (K1's o, K2's dq, K3's dk and
-dv, the prefill-chunk o of K5, K6 and K7) against the fp32 plain version
+dv, K5's wide o on K1's body over int8 K/V, the prefill-chunk o of K6
+and K7) against the fp32 plain version
 per element within their rounding, ``2**-8 * (mag + |plain|) + slack``
 (``mag``: the product whose operand the body rounds to bf16, over
 magnitudes, with int8 values dequantized; ``slack``: the kernel's fp32
@@ -76,6 +77,10 @@ def _bwd_magnitudes(q, k, v, do, lse, delta, causal, q_offset, window):
     # wider than a tile, so its edge crosses tiles
     (127, 127, True, None), (128, 128, True, None), (129, 129, False, None),
     (255, 255, True, None), (1, 255, False, None), (300, 300, True, 130),
+    # blocks that walk 1, 2 and 3 key tiles: odd and even turns of the
+    # two warpgroups' ping-pong, and a refill of the 3-stage ring
+    (128, 256, False, None), (128, 384, False, None), (384, 384, True, None),
+    (100, 512, False, None),
 ])
 def test_flash_kernel_matches_plain(d, sq, sk, causal, window):
     dev = _card()
@@ -640,9 +645,10 @@ def test_q8_split_body_matches_plain(dtype, d, layout, case):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("hkv,s,cap", list(WIDE_CASES.values()), ids=list(WIDE_CASES))
 def test_q8_chunk_body_matches_plain(hkv, s, cap, d, layout, window):
-    """K5 (dense) and K7 (paged) on wide bf16 calls (rows > 16: the int8
-    tensor-core chunk body) against the plain version per element within
-    its rounding bound (``mag = p·|v|``, v dequantized): valid_len 0, a
+    """K5 (dense: K1's tensor-core forward body over int8 K/V) and K7
+    (paged: the int8 tensor-core chunk body) on wide bf16 calls (rows >
+    16) against the plain version per element within its rounding bound
+    (``mag = p·|v|``, v dequantized): valid_len 0, a
     length below s (rows before position 0 write 0), a page boundary + 1,
     a row whose last pages map the scratch block, and full capacity (at
     s = capacity: the full causal form of the int8 engine's admission
@@ -671,7 +677,8 @@ def test_q8_chunk_body_matches_plain(hkv, s, cap, d, layout, window):
 
 @pytest.mark.parametrize("layout", ["dense", 64, 16, 24], ids=["dense", "page64", "page16", "page24"])
 def test_q8_chunk_body_never_reads_poisoned_keys(layout):
-    """The int8 chunk body with the keys no row may read at ±127 and
+    """The int8 wide bodies (K5's forward body, K7's chunk body) with the
+    keys no row may read at ±127 and
     their scales at NaN / 1e30: every row that does not map them is
     bit-identical (paged: the last row maps the scratch block below its
     valid length and reads it)."""
@@ -689,6 +696,27 @@ def test_q8_chunk_body_never_reads_poisoned_keys(layout):
     keep = slice(None) if pages is None else slice(0, 4)
     torch.testing.assert_close(dirty[keep], clean[keep], rtol=0, atol=0)
     assert not clean[0].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_q8_wide_body_at_the_admission_prefill(d):
+    """K5 at the int8 engine's admission prefill: q (4, 8, 2048, d) bf16
+    causal over its own int8 K/V at valid_len 2048 (16 row tiles and up to
+    32 key tiles per head), per element within the rounding bound, and
+    bit-identical over two launches."""
+    dev = _card()
+    g = torch.Generator().manual_seed(24)
+    b, s = 4, 2048
+    kv, _ = q8_operands("dense", 64, s, 8, d, [s] * b, g, dev)
+    q = torch.randn(b, 8, s, d, generator=g).to(dev, torch.bfloat16)
+    vl = torch.full((b,), s, dtype=torch.int32, device=dev)
+    before = T.launch_counts()["decode_attention_q8_chunk"]
+    o = q8_call(q, kv, vl, None)
+    assert T.launch_counts()["decode_attention_q8_chunk"] == before + 1
+    ref = q8_plain(q, kv, vl, None)
+    mag = q8_plain(q, [kv[0], kv[1].abs(), kv[2], kv[3]], vl, None)
+    _close_rounded(o, ref, mag, 1e-4)
+    assert torch.equal(q8_call(q, kv, vl, None), o)
 
 
 @pytest.mark.parametrize("lm_config", [

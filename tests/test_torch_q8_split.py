@@ -12,8 +12,10 @@ equal JAX's exactly).
   across the 128-key split boundaries of ``tests/test_torch_dense_split.py``
   and ``tests/test_torch_split_decode.py``.
 - Wide calls (rows > 16, the prefill calls of the int8 engines, which
-  take the tensor-core chunk body on the card): the port's plain
-  versions at s 20 and 64, GQA and not, ragged ``valid_len``.
+  take K1's tensor-core forward body (K5) or the chunk body (K7) on the
+  card): the port's plain versions at s 20 and 64, GQA and not, ragged
+  ``valid_len``, and at the forward body's tile edges (s 129 against
+  capacity 2048, full causal at s = capacity 255).
 
 Tolerance: ``atol 1e-5`` (fp32; the splits sum in another order, and
 the plain versions multiply the dequantized values where the kernels
@@ -29,6 +31,7 @@ import torch
 
 from hops_tpu.ops import attention as J
 from hops_tpu_torch.ops import attention as T
+from hops_tpu_torch.ops import kernel_checks
 
 TOL = dict(atol=1e-5, rtol=0)
 
@@ -171,6 +174,14 @@ WIDE_CASES = {
     "s64_gqa": (256, 64, 4, 2, 64, [64, 200, 0, 256], None),
     "s64_mha_window": (256, 64, 4, 4, 64, [64, 130, 256, 40], 100),
 }
+# The card's cases at the tensor-core forward body's 128-row / 128-key
+# tile edges (``kernel_checks.WIDE_CASES``), with the card's valid lengths
+# (``wide_lengths``) at their own capacities, pages of 16 (capacity 255:
+# the table's 16 pages map 256 positions, and the last row's valid_len 256
+# runs past the dense cache, whose kernels read keys below the capacity).
+for _name in ("gqa_s129", "full_causal_255"):
+    _hkv, _s, _cap = kernel_checks.WIDE_CASES[_name]
+    WIDE_CASES[_name] = (_cap, 16, 8, _hkv, _s, kernel_checks.wide_lengths(_s, 16, _cap)[0], None)
 
 
 @pytest.mark.parametrize("case", list(WIDE_CASES), ids=list(WIDE_CASES))
@@ -189,7 +200,7 @@ def test_wide_q8_plain_matches_jax(case):
     want = _jax_dense(q, k, v, ks, vs, vl, window)
     np.testing.assert_allclose(np.nan_to_num(got.numpy()), want, **TOL)
 
-    mb = cap // page
+    mb = -(-cap // page)
     table, nblocks = _table(rng, valid, page, mb)
     (pk, pks), (pv, pvs) = (_quantized(rng, hkv, nblocks, page, d) for _ in range(2))
     got = T.paged_decode_attention(
