@@ -1,18 +1,28 @@
-"""Carry TransformerLM weights between the JAX package and the port.
+"""Carry weights between the JAX package and the port.
 
-A JAX parameter tree (``model.init(...)``, as numpy arrays) or a flat
+A JAX variable tree (``model.init(...)``, as numpy arrays) or a flat
 ``'/'``-joined file maps onto the port's state dict by name alone: the
-port's modules keep the flax names and shapes (``embed/embedding``,
-``block_i/{RMSNorm_0,RMSNorm_1}/scale``, ``block_i/attn/{qkv|q,kv,out}/kernel``,
-``block_i/mlp/{gate,up,down}/kernel``, ``final_norm/scale``,
-``unembed/kernel``). Neither side needs the other's framework to write or
-read the ``.npz`` artifact. :func:`params_to_flax` carries the weights
-back: a model trained by the port loads into the JAX module and into an
-artifact.
+port's modules keep the flax names and shapes (the LM's
+``embed/embedding``, ``block_i/{RMSNorm_0,RMSNorm_1}/scale``,
+``block_i/attn/{qkv|q,kv,out}/kernel``, ``block_i/mlp/{gate,up,down}/kernel``,
+``final_norm/scale``, ``unembed/kernel``; the classifiers'
+``Conv_i/{kernel,bias}``, ``Dense_i/{kernel,bias}``, ``.../BatchNorm_i``
+and ``proj``/``proj_bn``, ``stem_conv``). A tree's ``batch_stats``
+collection (BatchNorm's ``mean`` and ``var``) joins the ``params`` in one
+state dict, where they are the BatchNorm modules' buffers.
+
+One layout changes on the way: a conv kernel — a 4-d ``kernel`` of a
+``Conv_i`` or ``proj`` module, or ``stem_conv`` — is HWIO in flax and
+OIHW in the port. Every other array, ``Dense`` kernels included
+(``(in, out)``), keeps flax's layout. Neither side needs the other's
+framework to write or read the ``.npz`` artifact. :func:`params_to_flax`
+carries the weights back: a model trained by the port loads into the JAX
+module and into an artifact.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -20,12 +30,23 @@ import numpy as np
 import torch
 
 
+_COLLECTIONS = {"params", "batch_stats"}
+_CONV_KERNEL = re.compile(r"(^|/)((Conv_\d+|proj)/kernel|stem_conv)$")
+
+
+def _is_conv_kernel(name: str, arr: Any) -> bool:
+    return np.ndim(arr) == 4 and _CONV_KERNEL.search(name) is not None
+
+
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
-    """A nested mapping of arrays as a flat ``'/'``-joined dict. A
-    top-level ``"params"`` collection (``model.init``'s output) is
-    unwrapped."""
-    if not prefix and set(tree) == {"params"}:
-        tree = tree["params"]
+    """A nested mapping of arrays as a flat ``'/'``-joined dict. Top-level
+    ``"params"`` and ``"batch_stats"`` collections (``model.init``'s
+    output) are unwrapped and merged: their leaf names never collide."""
+    if not prefix and "params" in tree and set(tree) <= _COLLECTIONS:
+        out = {}
+        for col in sorted(tree):
+            out.update(flatten(tree[col]))
+        return out
     out: dict[str, np.ndarray] = {}
     for key, val in tree.items():
         name = f"{prefix}/{key}" if prefix else str(key)
@@ -37,28 +58,40 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
 
 
 def params_from_flax(tree_or_flat: Mapping[str, Any] | str | Path) -> dict[str, torch.Tensor]:
-    """A state dict for :class:`hops_tpu_torch.models.transformer.TransformerLM`
-    from a JAX parameter tree, a flat ``'/'``-joined dict, or the path of
-    a :func:`save_npz` file. Tensors stay fp32 on the CPU;
-    ``load_state_dict`` casts them to the module's dtype and device."""
+    """A state dict for a port module (the LM, ``CNN``, ``FFN``,
+    ``ResNet``) from a JAX variable tree (``params``, with or without
+    ``batch_stats``), a flat ``'/'``-joined dict, or the path of a
+    :func:`save_npz` file. Conv kernels turn OIHW. Tensors stay fp32 on
+    the CPU; ``load_state_dict`` casts them to the module's dtype and
+    device."""
     flat = load_npz(tree_or_flat) if isinstance(tree_or_flat, (str, Path)) else flatten(tree_or_flat)
-    return {
-        name.replace("/", "."): torch.from_numpy(
-            arr if arr.flags.writeable and arr.flags.c_contiguous else np.array(arr)
-        )
-        for name, arr in flat.items()
-    }
+    out = {}
+    for name, arr in flat.items():
+        arr = np.asarray(arr)
+        if _is_conv_kernel(name, arr):
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        arr = np.ascontiguousarray(arr)
+        out[name.replace("/", ".")] = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return out
 
 
-def params_to_flax(model: torch.nn.Module) -> dict[str, np.ndarray]:
-    """The module's weights as a flat ``'/'``-joined dict of fp32 numpy
-    arrays in the flax layout: :func:`save_npz` writes it as an artifact
-    and ``flax.traverse_util.unflatten_dict(flat, sep="/")`` makes it
-    the JAX module's parameter tree."""
-    return {
-        name.replace(".", "/"): t.detach().to(torch.float32).cpu().numpy()
-        for name, t in model.state_dict().items()
-    }
+def params_to_flax(model: torch.nn.Module) -> dict[str, Any]:
+    """The module's weights in the flax layout, as fp32 numpy arrays in
+    flat ``'/'``-joined dicts. A module without buffers (the LM, ``CNN``,
+    ``FFN``) gives the ``params`` dict itself: :func:`save_npz` writes it
+    as an artifact and ``flax.traverse_util.unflatten_dict(flat,
+    sep="/")`` makes it the JAX module's parameter tree. A module with
+    BatchNorm gives ``{"params": ..., "batch_stats": ...}``, its buffers
+    in the second."""
+    buffers = {name for name, _ in model.named_buffers()}
+    cols: dict[str, dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        arr = t.detach().to(torch.float32).cpu().numpy()
+        flat_name = name.replace(".", "/")
+        if _is_conv_kernel(flat_name, arr):
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+        cols["batch_stats" if name in buffers else "params"][flat_name] = arr
+    return cols if cols["batch_stats"] else cols["params"]
 
 
 def save_npz(path: str | Path, tree_or_flat: Mapping[str, Any]) -> None:

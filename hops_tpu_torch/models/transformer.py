@@ -31,12 +31,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from hops_tpu_torch.models.common import TrainState, cross_entropy_loss
+from hops_tpu_torch.models.common import TrainState, cross_entropy_loss, step_seed
 from hops_tpu_torch.models.convert import params_from_flax
 from hops_tpu_torch.ops.attention import (
     attention_reference,
@@ -609,11 +608,6 @@ class TransformerLM(nn.Module):
         return self.logits(x)
 
 
-def _step_seed(seed: int, step: int) -> int:
-    """The dropout seed of step ``step`` (``fold_in(rng, step)`` in JAX)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
-
-
 def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = None):
     """Next-token-prediction step: ``(state, {"tokens"}) -> (state, metrics)``.
 
@@ -636,7 +630,7 @@ def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = N
         model = state.model
         tokens = torch.as_tensor(batch["tokens"]).to(model.device, torch.long)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        gen = torch.Generator().manual_seed(_step_seed(state.seed, state.step))
+        gen = torch.Generator().manual_seed(step_seed(state.seed, state.step))
         out = model(inputs, train=True, generator=gen, return_hidden=bool(loss_chunk))
         if loss_chunk:
             loss = chunked_softmax_xent(out, model.unembed.kernel, targets, chunk=loss_chunk)

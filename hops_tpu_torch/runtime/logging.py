@@ -1,0 +1,129 @@
+"""Structured logging for the framework.
+
+The reference scattered logs across Spark executor stdout, per-run
+``output.log`` files, and log4j (SURVEY.md §5 "Metrics / logging").
+Here: one stdlib-logging-based layer that (a) prefixes records with the
+process/host index — the moral equivalent of the per-executor prefixes
+Spark gave the reference — and (b) can tee into a per-run ``output.log``
+inside the active run directory.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import sys
+import time
+from pathlib import Path
+from typing import Any
+
+from hops_tpu_torch.telemetry.metrics import hosttag
+
+#: The port's logger hierarchy (the JAX package logs under "hops_tpu").
+_ROOT = "hops_tpu_torch"
+_FORMAT = "%(asctime)s [%(hosttag)s] %(levelname)s %(name)s: %(message)s"
+
+
+class _HostTagFilter(logging.Filter):
+    def filter(self, record: logging.LogRecord) -> bool:
+        if not hasattr(record, "hosttag"):
+            # The rank only once a process group is up: logging must
+            # never initialize CUDA or a process group as a side effect.
+            record.hosttag = hosttag()
+        return True
+
+
+_configured = False
+
+
+def get_logger(name: str = _ROOT) -> logging.Logger:
+    # Route every logger under the configured "hops_tpu_torch" hierarchy
+    # so user-code loggers inherit the handler, level and host tag.
+    if name != _ROOT and not name.startswith(_ROOT + "."):
+        name = f"{_ROOT}.{name}"
+    global _configured
+    if not _configured:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter(_FORMAT))
+        handler.addFilter(_HostTagFilter())
+        root = logging.getLogger(_ROOT)
+        root.addHandler(handler)
+        from hops_tpu_torch.runtime import config
+
+        root.setLevel(config.runtime().log_level)
+        root.propagate = False
+        _configured = True
+    return logging.getLogger(name)
+
+
+def attach_run_log(path: str | Path) -> logging.Handler:
+    """Tee framework logs into a per-run ``output.log`` (the reference
+    returned such a path from every launcher — SURVEY.md §2.3)."""
+    handler = logging.FileHandler(path)
+    handler.setFormatter(logging.Formatter(_FORMAT))
+    handler.addFilter(_HostTagFilter())
+    logging.getLogger(_ROOT).addHandler(handler)
+    return handler
+
+
+def detach_run_log(handler: logging.Handler) -> None:
+    logging.getLogger(_ROOT).removeHandler(handler)
+    handler.close()
+
+
+class MetricLogger:
+    """Append-only JSONL metric stream for a run (TensorBoard-lite).
+
+    Events: ``{"step": int, "tag": str, "value": float, "time": float}``.
+    The experiments UI / tooling reads these; ``hops_tpu_torch.experiment.
+    tensorboard`` wraps it behind a SummaryWriter-style API.
+    """
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._f = self.path.open("a")
+
+    def log(self, step: int, tag: str, value: Any) -> None:
+        self._f.write(
+            json.dumps(
+                {"step": int(step), "tag": tag, "value": _jsonable(value), "time": time.time()}
+            )
+            + "\n"
+        )
+        self._f.flush()
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def scalarize(v: Any) -> Any:
+    """Best-effort float coercion for metric values (str fallback)."""
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return str(v)
+
+
+_jsonable = scalarize
+
+
+def read_metrics(path: str | Path) -> list[dict[str, Any]]:
+    """Events from a run's ``metrics.jsonl``. Tolerates a torn tail
+    line: the stream is append-only and may be read while the run is
+    still writing (live dashboards)."""
+    p = Path(path)
+    if not p.exists():
+        return []
+    out = []
+    for line in p.read_text().splitlines():
+        if not line.strip():
+            continue
+        try:
+            out.append(json.loads(line))
+        except ValueError:
+            continue
+    return out

@@ -1,0 +1,362 @@
+"""Self-healing primitives: retry policies, deadlines, circuit breakers.
+
+The platform's failure story so far was *avoidance* — relay locks that
+never SIGKILL, preemption guards that exit cleanly. This module is the
+*recovery* half the TF paper treats as table stakes for a platform
+(user-level checkpointing + automatic re-execution on transient
+failure) and the preemptible-pod reality of TPU slices assumes: I/O and
+RPC errors are normal weather, and every layer that talks to storage,
+the network, or a flaky device gets one shared vocabulary for retrying:
+
+- :class:`RetryPolicy` — bounded attempts under exponential backoff
+  with **full jitter** (the AWS-architecture result: decorrelated
+  sleeps beat synchronized retry storms), an optional per-attempt
+  deadline and an overall deadline;
+- :func:`with_deadline` — run a callable with a hard time budget
+  (the serving layer's per-request deadline);
+- :class:`CircuitBreaker` — closed/open/half-open protection for a
+  dependency that is *down* rather than *flaky*: after
+  ``failure_threshold`` consecutive failures the circuit opens and
+  callers fail fast (no queue of doomed work), then a single half-open
+  probe after ``reset_timeout_s`` decides whether to close again.
+
+Everything here is stdlib-only and emits ``hops_tpu_resilience_*``
+telemetry (see docs/operations.md "Failure handling & fault
+injection"), so a dashboard can distinguish "retried and healed" from
+"gave up" without log spelunking. The one sanctioned home for backoff
+loops — the ``naked-retry-loop`` lint rule points here.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import dataclasses
+import random
+import threading
+import time
+from typing import Any, Callable
+
+from hops_tpu_torch.runtime import flight
+from hops_tpu_torch.runtime.logging import get_logger
+from hops_tpu_torch.telemetry import tracing
+from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+log = get_logger(__name__)
+
+_m_retries = REGISTRY.counter(
+    "hops_tpu_resilience_retries_total",
+    "Retried attempts, per protected operation",
+    labels=("op",),
+)
+_m_giveups = REGISTRY.counter(
+    "hops_tpu_resilience_giveups_total",
+    "Operations that exhausted their retry budget, per operation",
+    labels=("op",),
+)
+_m_breaker_state = REGISTRY.gauge(
+    "hops_tpu_resilience_breaker_state",
+    "Circuit-breaker state per breaker: 0 closed, 1 half-open, 2 open",
+    labels=("breaker",),
+)
+_m_breaker_transitions = REGISTRY.counter(
+    "hops_tpu_resilience_breaker_transitions_total",
+    "Circuit-breaker state transitions, per breaker and target state",
+    labels=("breaker", "to"),
+)
+_m_deadlines = REGISTRY.counter(
+    "hops_tpu_resilience_deadline_exceeded_total",
+    "Calls abandoned because their deadline elapsed, per operation",
+    labels=("op",),
+)
+
+
+class DeadlineExceeded(TimeoutError):
+    """A call exceeded its per-attempt or overall deadline."""
+
+
+class CircuitOpenError(RuntimeError):
+    """The circuit is open: the protected dependency is failing fast.
+
+    ``retry_after_s`` is how long until the breaker will admit a
+    half-open probe — servers surface it as a ``Retry-After`` header.
+    """
+
+    def __init__(self, name: str, retry_after_s: float):
+        super().__init__(
+            f"circuit {name!r} is open; retry after {retry_after_s:.1f}s"
+        )
+        self.retry_after_s = retry_after_s
+
+
+def with_deadline(
+    fn: Callable[..., Any],
+    timeout_s: float,
+    *args: Any,
+    op: str = "call",
+    **kwargs: Any,
+) -> Any:
+    """Run ``fn`` with a hard time budget; :class:`DeadlineExceeded` on
+    overrun.
+
+    The call runs on a one-shot worker thread so the *caller* honors
+    the deadline even when ``fn`` blocks in C code. An overrun
+    abandons the worker (daemon thread; it finishes in the background
+    and its result is dropped) — use only around calls that are safe
+    to abandon, e.g. a predict whose output nobody will read.
+    """
+    if timeout_s is None or timeout_s <= 0:
+        return fn(*args, **kwargs)
+    result: list[Any] = []
+    error: list[BaseException] = []
+    done = threading.Event()
+    # Threads do NOT inherit contextvars: copy the caller's context so
+    # the worker keeps the active trace span (a deadline-bounded
+    # predict must still attribute its time to the request's trace).
+    caller_ctx = contextvars.copy_context()
+
+    def _run() -> None:
+        try:
+            result.append(caller_ctx.run(fn, *args, **kwargs))
+        except BaseException as e:  # noqa: BLE001 — transported to the caller
+            error.append(e)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=_run, daemon=True, name=f"deadline-{op}")
+    t.start()
+    if not done.wait(timeout_s):
+        _m_deadlines.inc(op=op)
+        flight.record("deadline_exceeded", op=op, timeout_s=timeout_s)
+        tracing.add_event("deadline_exceeded", op=op, timeout_s=timeout_s)
+        raise DeadlineExceeded(f"{op} exceeded its {timeout_s:.3f}s deadline")
+    if error:
+        raise error[0]
+    return result[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded retries under exponential backoff with full jitter.
+
+    ``max_attempts`` counts the first try; ``delay(k)`` for retry ``k``
+    (0-based) draws uniformly from ``[0, min(max_delay_s, base_delay_s
+    * multiplier**k)]`` — full jitter, so a fleet of failed workers
+    does not re-dogpile the dependency in lockstep. ``attempt_timeout_s``
+    bounds each try via :func:`with_deadline`; ``total_timeout_s``
+    bounds the whole call including sleeps (no retry starts past it).
+    ``retry_on`` names the exception types worth retrying;
+    ``no_retry_on`` carves out subtypes that must propagate immediately
+    (cooperative-stop signals, assertion bugs).
+    """
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.1
+    max_delay_s: float = 30.0
+    multiplier: float = 2.0
+    jitter: bool = True
+    attempt_timeout_s: float | None = None
+    total_timeout_s: float | None = None
+    retry_on: tuple[type[BaseException], ...] = (Exception,)
+    no_retry_on: tuple[type[BaseException], ...] = ()
+    seed: int | None = None  # deterministic jitter for tests
+
+    def delay(self, retry_index: int, rng: random.Random | None = None) -> float:
+        cap = min(self.max_delay_s,
+                  self.base_delay_s * self.multiplier ** retry_index)
+        if not self.jitter:
+            return cap
+        draw = (rng or random).uniform(0.0, cap)
+        return draw
+
+    def retryable(self, exc: BaseException) -> bool:
+        if isinstance(exc, self.no_retry_on):
+            return False
+        return isinstance(exc, self.retry_on)
+
+    def call(self, fn: Callable[..., Any], *args: Any,
+             op: str = "call", **kwargs: Any) -> Any:
+        """Run ``fn`` under this policy; re-raise the last error once
+        the budget (attempts or total deadline) is exhausted."""
+        rng = random.Random(self.seed) if self.seed is not None else None
+        overall = (time.monotonic() + self.total_timeout_s
+                   if self.total_timeout_s else None)
+        last: BaseException | None = None
+        for attempt in range(max(1, self.max_attempts)):
+            try:
+                if self.attempt_timeout_s:
+                    return with_deadline(
+                        fn, self.attempt_timeout_s, *args, op=op, **kwargs)
+                return fn(*args, **kwargs)
+            except BaseException as e:  # noqa: BLE001 — filtered below
+                if not self.retryable(e):
+                    # Not this policy's business (early-stop signals,
+                    # Ctrl-C, assertion bugs): propagate untouched —
+                    # counting it as a giveup would page an operator
+                    # for normal control flow.
+                    raise
+                last = e
+                if attempt + 1 >= self.max_attempts:
+                    break
+                pause = self.delay(attempt, rng)
+                if overall is not None and time.monotonic() + pause > overall:
+                    break
+                _m_retries.inc(op=op)
+                flight.record("retry", op=op, attempt=attempt + 1,
+                              error=type(e).__name__)
+                tracing.add_event("retry", op=op, attempt=attempt + 1,
+                                  error=type(e).__name__)
+                log.warning("%s attempt %d/%d failed (%s: %s); retrying in "
+                            "%.3fs", op, attempt + 1, self.max_attempts,
+                            type(e).__name__, e, pause)
+                time.sleep(pause)
+        _m_giveups.inc(op=op)
+        flight.record("giveup", op=op,
+                      error=type(last).__name__ if last else None)
+        assert last is not None
+        raise last
+
+
+#: Map breaker states onto the exported gauge values.
+_STATE_VALUE = {"closed": 0, "half_open": 1, "open": 2}
+
+
+class CircuitBreaker:
+    """Closed/open/half-open failure gate around one dependency.
+
+    * **closed** — normal operation; ``failure_threshold`` *consecutive*
+      failures trip it open (a success resets the count).
+    * **open** — :meth:`allow` is False and :meth:`guard` raises
+      :class:`CircuitOpenError` until ``reset_timeout_s`` has passed:
+      callers fail fast instead of queueing doomed work.
+    * **half-open** — after the timeout, up to ``half_open_max``
+      concurrent probes are admitted; a probe success closes the
+      circuit, a probe failure re-opens it (fresh timeout).
+
+    Thread-safe; state changes are logged and exported on the
+    ``hops_tpu_resilience_breaker_state`` gauge so dashboards and the
+    serving ``/healthz`` route agree on readiness.
+    """
+
+    def __init__(
+        self,
+        name: str = "default",
+        failure_threshold: int = 5,
+        reset_timeout_s: float = 30.0,
+        half_open_max: int = 1,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.name = name
+        self.failure_threshold = failure_threshold
+        self.reset_timeout_s = reset_timeout_s
+        self.half_open_max = half_open_max
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = "closed"  # guarded by: self._lock
+        self._failures = 0  # guarded by: self._lock
+        self._opened_at = 0.0  # guarded by: self._lock
+        self._probes = 0  # guarded by: self._lock
+        self._changed_at = clock()  # guarded by: self._lock
+        self._m_state = _m_breaker_state.labels(breaker=name)
+        self._m_state.set(0)
+
+    # -- state machine (callers hold self._lock) ------------------------------
+
+    def _transition(self, to: str) -> None:  # guarded by: self._lock
+        if to == self._state:
+            return
+        log.warning("circuit %s: %s -> %s", self.name, self._state, to)
+        flight.record("breaker_transition", breaker=self.name,
+                      frm=self._state, to=to)
+        tracing.add_event("breaker_transition", breaker=self.name,
+                          frm=self._state, to=to)
+        self._state = to
+        self._changed_at = self._clock()
+        self._m_state.set(_STATE_VALUE[to])
+        _m_breaker_transitions.inc(breaker=self.name, to=to)
+        if to == "open":
+            self._opened_at = self._clock()
+            self._probes = 0
+        elif to == "closed":
+            self._failures = 0
+            self._probes = 0
+
+    def _poll(self) -> None:  # guarded by: self._lock
+        if (self._state == "open"
+                and self._clock() - self._opened_at >= self.reset_timeout_s):
+            self._transition("half_open")
+
+    # -- public surface -------------------------------------------------------
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._poll()
+            return self._state
+
+    def state_age_s(self) -> float:
+        """Seconds the breaker has been in its current state — the
+        router's ``GET /fleet`` view serves this so a just-opened
+        breaker reads differently from one stuck open for an hour."""
+        with self._lock:
+            self._poll()
+            return max(0.0, self._clock() - self._changed_at)
+
+    def retry_after_s(self) -> float:
+        """Seconds until the breaker admits a half-open probe (0 when
+        it already would)."""
+        with self._lock:
+            self._poll()
+            if self._state != "open":
+                return 0.0
+            return max(
+                0.0, self.reset_timeout_s - (self._clock() - self._opened_at))
+
+    def allow(self) -> bool:
+        """May a call proceed right now? Half-open admissions count
+        against ``half_open_max`` until their success/failure reports."""
+        with self._lock:
+            self._poll()
+            if self._state == "closed":
+                return True
+            if self._state == "half_open" and self._probes < self.half_open_max:
+                self._probes += 1
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            if self._state == "half_open":
+                self._transition("closed")
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._failures += 1
+            if self._state == "half_open":
+                self._transition("open")
+            elif (self._state == "closed"
+                    and self._failures >= self.failure_threshold):
+                self._transition("open")
+
+    def guard(self):
+        """Context manager: raises :class:`CircuitOpenError` when the
+        call may not proceed, records success/failure from the body."""
+        return _BreakerGuard(self)
+
+
+class _BreakerGuard:
+    def __init__(self, breaker: CircuitBreaker):
+        self._b = breaker
+
+    def __enter__(self) -> CircuitBreaker:
+        if not self._b.allow():
+            raise CircuitOpenError(self._b.name, self._b.retry_after_s())
+        return self._b
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self._b.record_success()
+        else:
+            self._b.record_failure()

@@ -1,0 +1,529 @@
+"""Distributed request tracing: W3C trace context over the serving stack.
+
+The metrics registry is aggregate-only — histograms say p99 rose, nothing
+says *which* hop of *which* request spent the time. This module is the
+causal thread: a request entering the fleet router starts (or, carrying
+a ``traceparent`` header, extends) a **trace**; every hop — router
+forward, replica handler, dynamic-batcher queue/compute, LM engine
+dispatch, feature join — records a **span** with the trace id, its own
+span id, and its parent's, so the whole path reassembles into one tree.
+
+Design constraints, in order:
+
+- **Disabled must cost nothing.** Every serving hot path calls into
+  here unconditionally; with tracing off the entry points are one
+  module-flag test (the ``bench.py --tracing-overhead`` tier and its
+  test hold this line, the same contract ``faultinject.fire`` keeps).
+- **Stdlib-only.** Spans are recorded from processes that must never
+  touch JAX (serving hosts, the fleet router).
+- **Bounded memory.** Finished spans land in a ring
+  (:class:`Tracer`, default 512 spans); old traces fall off the back.
+  ``GET /debug/traces`` (telemetry/export.py) serves the ring.
+
+Context is carried on a :mod:`contextvars` ContextVar, so every handler
+thread sees only its own request's span, and propagated between
+processes with the W3C ``traceparent`` header
+(``00-<trace_id>-<span_id>-<flags>``); the sampled flag travels in
+``flags`` so one sampling decision at the edge governs the whole path.
+
+Worker threads that execute on BEHALF of a request (the dynamic
+batcher, the LM engine driver) don't run under the request's context —
+they either adopt it (:func:`use_context`) or record spans
+retroactively with explicit start/duration (:func:`record_span`), which
+is how queue-wait vs compute splits are attributed to the request that
+waited.
+
+Knobs (env, read at import; :func:`configure` overrides in-process):
+``HOPS_TPU_TRACING=0`` disables, ``HOPS_TPU_TRACE_SAMPLE`` sets the
+root sampling probability (default 1.0), ``HOPS_TPU_TRACE_RING`` the
+ring capacity. See docs/operations.md "Tracing & debugging".
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import dataclasses
+import os
+import random
+import re
+import threading
+import time
+from typing import Any, Iterator
+
+from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+TRACEPARENT_HEADER = "traceparent"
+#: Request header that asks the serving path to return the per-hop
+#: timing breakdown inline in the response (value: ``timeline``).
+DEBUG_HEADER = "X-Hops-Debug"
+
+_TRACEPARENT_RE = re.compile(
+    r"^00-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
+)
+
+_m_spans = REGISTRY.counter(
+    "hops_tpu_trace_spans_total",
+    "Finished spans recorded into the trace ring, per span name",
+    labels=("name",),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """The propagatable identity of a span: what a child parents to and
+    what ``traceparent`` carries across process boundaries."""
+
+    trace_id: str  # 32 lowercase hex chars
+    span_id: str  # 16 lowercase hex chars
+    sampled: bool = True
+
+    def traceparent(self) -> str:
+        return (
+            f"00-{self.trace_id}-{self.span_id}-"
+            f"{'01' if self.sampled else '00'}"
+        )
+
+
+def parse_traceparent(header: str | None) -> TraceContext | None:
+    """Parse a W3C ``traceparent`` header; None on absent/malformed
+    (a bad header must start a fresh trace, never fail the request)."""
+    if not header:
+        return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if m is None:
+        return None
+    trace_id, span_id, flags = m.groups()
+    if trace_id == "0" * 32 or span_id == "0" * 16:
+        return None  # the spec's forbidden all-zero ids
+    return TraceContext(trace_id, span_id, sampled=bool(int(flags, 16) & 1))
+
+
+def new_trace_id() -> str:
+    return os.urandom(16).hex()
+
+
+def new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+class Span:
+    """One timed hop of a trace. Context manager: entering activates it
+    on the current :mod:`contextvars` context (children find it),
+    exiting records it into the tracer ring when sampled. ``_recorded``
+    False makes a *carrier* span — pure context, never stored (how
+    :func:`use_context` adopts a remote parent without re-recording
+    it)."""
+
+    __slots__ = (
+        "name", "trace_id", "span_id", "parent_id", "sampled", "start",
+        "attrs", "events", "duration_s", "_t0", "_tracer", "_recorded",
+        "_token",
+    )
+
+    def __init__(
+        self,
+        tracer: "Tracer | None",
+        name: str,
+        trace_id: str,
+        parent_id: str | None,
+        sampled: bool,
+        attrs: dict[str, Any] | None = None,
+        span_id: str | None = None,
+        recorded: bool = True,
+    ):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id or new_span_id()
+        self.parent_id = parent_id
+        self.sampled = sampled
+        self.start = time.time()
+        self._t0 = time.monotonic()
+        self.duration_s: float | None = None
+        self.attrs: dict[str, Any] = dict(attrs) if attrs else {}
+        self.events: list[dict[str, Any]] = []
+        self._tracer = tracer
+        self._recorded = recorded
+        self._token: contextvars.Token | None = None
+
+    # -- annotation (cheap, list/dict ops only) -------------------------------
+
+    def annotate(self, **attrs: Any) -> None:
+        self.attrs.update(attrs)
+
+    def add_event(self, name: str, **attrs: Any) -> None:
+        self.events.append({"time": time.time(), "name": name, **attrs})
+
+    @property
+    def context(self) -> TraceContext:
+        return TraceContext(self.trace_id, self.span_id, self.sampled)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def __enter__(self) -> "Span":
+        self._token = _current.set(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._token is not None:
+            _current.reset(self._token)
+            self._token = None
+        if exc_type is not None:
+            self.attrs.setdefault("error", f"{exc_type.__name__}: {exc}")
+        self.finish()
+
+    def finish(self) -> None:
+        if self.duration_s is None:
+            self.duration_s = time.monotonic() - self._t0
+        if (self._recorded and self.sampled and self._tracer is not None):
+            self._tracer._store(self)
+            self._tracer = None  # idempotent: a second finish won't re-store
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start": self.start,
+            "duration_ms": (
+                round(self.duration_s * 1e3, 3)
+                if self.duration_s is not None else None
+            ),
+            "attrs": dict(self.attrs),
+            "events": list(self.events),
+        }
+
+
+class _NoopSpan:
+    """The disabled/unsampled stand-in: every method a no-op, safe to
+    enter/annotate from any call site without branching."""
+
+    __slots__ = ()
+    name = ""
+    trace_id = ""
+    span_id = ""
+    parent_id = None
+    sampled = False
+    context = None
+
+    def annotate(self, **attrs: Any) -> None:
+        pass
+
+    def add_event(self, name: str, **attrs: Any) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
+
+    def to_dict(self) -> dict[str, Any]:
+        return {}
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        pass
+
+
+NOOP_SPAN = _NoopSpan()
+
+#: The active span of the current (thread/task) context. Handler
+#: threads each see their own request; worker threads see None unless
+#: they adopted a context via :func:`use_context`.
+_current: contextvars.ContextVar[Span | None] = contextvars.ContextVar(
+    "hops_tpu_trace_span", default=None
+)
+
+
+class Tracer:
+    """Sampling recorder with a bounded in-memory ring of finished
+    spans. One process-global :data:`TRACER` serves the stack; tests
+    may build private ones."""
+
+    def __init__(self, ring_size: int = 512, sample_rate: float = 1.0,
+                 seed: int | None = None):
+        if not 0.0 <= sample_rate <= 1.0:
+            raise ValueError(f"sample_rate must be in [0,1], got {sample_rate}")
+        self.sample_rate = sample_rate
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        # guarded by: self._lock
+        self._ring: collections.deque[Span] = collections.deque(
+            maxlen=ring_size)
+
+    @property
+    def ring_size(self) -> int:
+        return self._ring.maxlen or 0
+
+    def _sample(self) -> bool:
+        if self.sample_rate >= 1.0:
+            return True
+        if self.sample_rate <= 0.0:
+            return False
+        with self._lock:
+            return self._rng.random() < self.sample_rate
+
+    def _store(self, span: Span) -> None:
+        with self._lock:
+            self._ring.append(span)
+        _m_spans.inc(name=span.name)
+
+    # -- read surface (GET /debug/traces) -------------------------------------
+
+    def spans(self) -> list[Span]:
+        with self._lock:
+            return list(self._ring)
+
+    def get_trace(self, trace_id: str) -> list[dict[str, Any]]:
+        """All recorded spans of one trace, oldest-start first."""
+        rows = [s.to_dict() for s in self.spans() if s.trace_id == trace_id]
+        rows.sort(key=lambda r: r["start"])
+        return rows
+
+    def traces(self, limit: int = 50,
+               since: float | None = None) -> list[dict[str, Any]]:
+        """Newest-first trace summaries over the ring. ``since`` (wall
+        time) drops traces whose earliest span started before it — the
+        ``GET /debug/traces?since=`` incremental-poll contract."""
+        by_trace: dict[str, list[Span]] = {}
+        for s in self.spans():
+            by_trace.setdefault(s.trace_id, []).append(s)
+        out = []
+        for tid, spans in by_trace.items():
+            start = min(s.start for s in spans)
+            if since is not None and start < since:
+                continue
+            end = max(s.start + (s.duration_s or 0.0) for s in spans)
+            roots = [s for s in spans if s.parent_id is None]
+            # The root can be missing (fell off the ring, or lives in
+            # another process) — name the oldest span instead.
+            head = roots[0] if roots else min(spans, key=lambda s: s.start)
+            out.append({
+                "trace_id": tid,
+                "root": head.name,
+                "spans": len(spans),
+                "start": start,
+                "duration_ms": round((end - start) * 1e3, 3),
+            })
+        out.sort(key=lambda r: -r["start"])
+        return out[:limit]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+#: Module-level fast path: every entry point checks this one bool first.
+_ENABLED = os.environ.get("HOPS_TPU_TRACING", "1") not in ("0", "false", "")
+
+#: The process-global tracer (ring + sampling decision).
+TRACER = Tracer(
+    ring_size=int(_env_float("HOPS_TPU_TRACE_RING", 512)),
+    sample_rate=_env_float("HOPS_TPU_TRACE_SAMPLE", 1.0),
+)
+
+
+def configure(
+    enabled: bool | None = None,
+    sample_rate: float | None = None,
+    ring_size: int | None = None,
+    seed: int | None = None,
+) -> Tracer:
+    """Reconfigure tracing in-process (tests, benches). Changing
+    ``ring_size`` rebuilds the ring (spans are dropped). Returns the
+    active tracer."""
+    global _ENABLED, TRACER
+    if enabled is not None:
+        _ENABLED = bool(enabled)
+    if ring_size is not None or seed is not None:
+        TRACER = Tracer(
+            ring_size=ring_size if ring_size is not None else TRACER.ring_size,
+            sample_rate=(
+                sample_rate if sample_rate is not None else TRACER.sample_rate
+            ),
+            seed=seed,
+        )
+    elif sample_rate is not None:
+        if not 0.0 <= sample_rate <= 1.0:
+            raise ValueError(f"sample_rate must be in [0,1], got {sample_rate}")
+        TRACER.sample_rate = sample_rate
+    return TRACER
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+# -- the instrumentation surface ----------------------------------------------
+
+
+def current_span() -> Span | None:
+    """The active span, None when the calling context carries none."""
+    if not _ENABLED:
+        return None
+    return _current.get()
+
+
+def current_context() -> TraceContext | None:
+    """The active span's propagatable context (capture this in a
+    handler thread to attribute worker-thread time back to the
+    request)."""
+    span = current_span()
+    return span.context if span is not None else None
+
+
+def current_trace_id() -> str | None:
+    span = current_span()
+    return span.trace_id if span is not None else None
+
+
+def start_trace(
+    name: str,
+    headers: Any = None,
+    parent: TraceContext | None = None,
+    force_sample: bool = False,
+    **attrs: Any,
+) -> Span | _NoopSpan:
+    """Start a server-side root span: extend the trace an incoming
+    ``traceparent`` header (or explicit ``parent``) carries, or start a
+    fresh trace under this tracer's sampling decision. The returned
+    span is a context manager; entering activates it for the handler's
+    context. ``force_sample`` overrides both the local decision and an
+    incoming unsampled flag — how ``X-Hops-Debug: timeline`` guarantees
+    the breakdown it promises even under aggressive sampling."""
+    if not _ENABLED:
+        return NOOP_SPAN
+    if parent is None and headers is not None:
+        get = getattr(headers, "get", None)
+        parent = parse_traceparent(get(TRACEPARENT_HEADER) if get else None)
+    if parent is not None:
+        trace_id, parent_id, sampled = (
+            parent.trace_id, parent.span_id, parent.sampled)
+    else:
+        trace_id, parent_id, sampled = new_trace_id(), None, TRACER._sample()
+    if force_sample:
+        sampled = True
+    if not sampled:
+        # Unsampled requests still need context continuity (the
+        # decision must ride to downstream hops), but nothing records:
+        # carry a context-only span.
+        return Span(None, name, trace_id, parent_id, sampled=False,
+                    attrs=None, recorded=False)
+    return Span(TRACER, name, trace_id, parent_id, sampled=True, attrs=attrs)
+
+
+def child_span(name: str, **attrs: Any) -> Span | _NoopSpan:
+    """A child of the active span — or a no-op when the calling context
+    carries none (a child never STARTS a trace; that is the server
+    edge's job). This is the one hot-path entry: one bool + one
+    contextvar read when tracing is on but the request untraced."""
+    if not _ENABLED:
+        return NOOP_SPAN
+    parent = _current.get()
+    if parent is None:
+        return NOOP_SPAN
+    if not parent.sampled:
+        return Span(None, name, parent.trace_id, parent.span_id,
+                    sampled=False, recorded=False)
+    return Span(TRACER, name, parent.trace_id, parent.span_id,
+                sampled=True, attrs=attrs)
+
+
+def record_span(
+    name: str,
+    parent: TraceContext | Span | None,
+    start: float,
+    duration_s: float,
+    span_id: str | None = None,
+    **attrs: Any,
+) -> str | None:
+    """Retroactively record a finished span under ``parent`` with an
+    explicit wall-clock ``start`` and ``duration_s`` — how worker
+    threads (batcher, LM engine) attribute queue-wait and shared
+    compute back to the request that experienced them. Returns the new
+    span id (None when unrecorded: disabled, no parent, or parent
+    unsampled)."""
+    if not _ENABLED or parent is None:
+        return None
+    ctx = parent.context if isinstance(parent, Span) else parent
+    if ctx is None or not ctx.sampled:
+        return None
+    span = Span(TRACER, name, ctx.trace_id, ctx.span_id, sampled=True,
+                attrs=attrs, span_id=span_id)
+    span.start = start
+    span.duration_s = max(0.0, float(duration_s))
+    span.finish()
+    return span.span_id
+
+
+@contextlib.contextmanager
+def use_context(ctx: TraceContext | None) -> Iterator[None]:
+    """Adopt a request's context in a worker thread for the with-block:
+    child spans created inside parent to ``ctx`` (the carrier span
+    itself is never recorded). ``None`` adopts nothing."""
+    if not _ENABLED or ctx is None:
+        yield
+        return
+    carrier = Span(None, "carrier", ctx.trace_id, None, sampled=ctx.sampled,
+                   span_id=ctx.span_id, recorded=False)
+    token = _current.set(carrier)
+    try:
+        yield
+    finally:
+        _current.reset(token)
+
+
+def annotate(**attrs: Any) -> None:
+    """Attach attributes to the active span; no-op without one (how
+    resilience/faultinject annotate whatever request they fire under)."""
+    if not _ENABLED:
+        return
+    span = _current.get()
+    if span is not None:
+        span.annotate(**attrs)
+
+
+def add_event(name: str, **attrs: Any) -> None:
+    """Append a timestamped event to the active span; no-op without
+    one."""
+    if not _ENABLED:
+        return
+    span = _current.get()
+    if span is not None:
+        span.add_event(name, **attrs)
+
+
+def timeline(span: Span | _NoopSpan | None) -> list[dict[str, Any]]:
+    """The per-hop timing breakdown for ``span``'s trace, as served
+    inline when a request carries ``X-Hops-Debug: timeline``: every
+    recorded span of the trace in this process's ring, plus ``span``
+    itself (duration-so-far) when it hasn't finished yet, sorted by
+    start time."""
+    if span is None or isinstance(span, _NoopSpan) or not span.sampled:
+        return []
+    rows = TRACER.get_trace(span.trace_id)
+    if not any(r["span_id"] == span.span_id for r in rows):
+        d = span.to_dict()
+        d["duration_ms"] = round((time.monotonic() - span._t0) * 1e3, 3)
+        d["in_progress"] = True
+        rows.append(d)
+        rows.sort(key=lambda r: r["start"])
+    return rows
+
+
+def inject_headers(headers: dict[str, str]) -> dict[str, str]:
+    """Add the active span's ``traceparent`` to an outgoing header dict
+    (mutates and returns it); no-op without an active span."""
+    ctx = current_context()
+    if ctx is not None:
+        headers[TRACEPARENT_HEADER] = ctx.traceparent()
+    return headers

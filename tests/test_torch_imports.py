@@ -35,6 +35,18 @@ def test_every_module_imports_with_jax_blocked():
     assert "hops_tpu_torch.modelrepo.serving" in mods
     assert {"hops_tpu_torch.ops.xent", "hops_tpu_torch.models.common"} <= set(mods)
     assert "hops_tpu_torch.modelrepo.paged" in mods
+    assert {
+        "hops_tpu_torch.experiment.core", "hops_tpu_torch.experiment.registry",
+        "hops_tpu_torch.experiment.tensorboard", "hops_tpu_torch.runtime.checkpoint",
+        "hops_tpu_torch.runtime.preemption", "hops_tpu_torch.runtime.config",
+        "hops_tpu_torch.runtime.fs", "hops_tpu_torch.runtime.rundir",
+        "hops_tpu_torch.runtime.logging", "hops_tpu_torch.runtime.flight",
+        "hops_tpu_torch.runtime.faultinject", "hops_tpu_torch.runtime.resilience",
+        "hops_tpu_torch.telemetry.metrics", "hops_tpu_torch.telemetry.tracing",
+        "hops_tpu_torch.telemetry.spans", "hops_tpu_torch.messaging.searchindex",
+        "hops_tpu_torch.parallel.multihost", "hops_tpu_torch.models.mnist",
+        "hops_tpu_torch.models.resnet", "hops_tpu_torch.models.layers",
+    } <= set(mods)
     code = (
         "import sys, importlib, json\n"
         f"for name in {BLOCKED!r}:\n"
@@ -66,7 +78,9 @@ def _imported_roots(path: Path) -> set[str]:
     sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
 )
 def test_no_source_imports_jax_or_the_jax_package(path):
-    assert not _imported_roots(REPO / path) & set(BLOCKED)
+    # safetensors: checkpoints are torch.save files, needing nothing the
+    # card's machine lacks.
+    assert not _imported_roots(REPO / path) & (set(BLOCKED) | {"safetensors"})
 
 
 def _no_card():
@@ -112,7 +126,20 @@ def _entry_predictor(tmp_path):
     LMEnginePredictor(tmp_path / "lm", {"slots": 2})
 
 
-@pytest.mark.parametrize("entry", ["transformer", "generate", "engine", "predictor"])
+def _entry_classifier(name):
+    from hops_tpu_torch.models import mnist, resnet
+
+    {"cnn": mnist.CNN, "ffn": mnist.FFN, "resnet": resnet.ResNet18ish}[name]()
+
+
+def _entry_synthetic_data():
+    from hops_tpu_torch.models.common import SyntheticClassData
+
+    next(SyntheticClassData().batches(2, 1))
+
+
+@pytest.mark.parametrize("entry", ["transformer", "generate", "engine", "predictor",
+                                   "cnn", "ffn", "resnet", "synthetic_data"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path):
     _no_card()
     call = {
@@ -120,6 +147,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path)
         "generate": _entry_generate,
         "engine": _entry_engine,
         "predictor": lambda: _entry_predictor(tmp_path),
+        "cnn": lambda: _entry_classifier("cnn"),
+        "ffn": lambda: _entry_classifier("ffn"),
+        "resnet": lambda: _entry_classifier("resnet"),
+        "synthetic_data": _entry_synthetic_data,
     }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()
