@@ -165,7 +165,35 @@ failure exits non-zero:
    step ms, images or tokens per second, the checkpoint's bytes, the
    time a save holds the loop (the copy to host memory), the background
    write (with publish and checksums) and the restore, beside the
-   card's name and power limit.
+   card's name and power limit;
+10. levers — phase 4's artifact and layer-skip drafts (the target's
+   embedding, first blocks, final norm and head: 2 blocks, and 11) are
+   registered in the port's model registry, and the predictor and the
+   engine serve at full width: (a) dense speculation with the 2-block
+   draft by name, ``spec_k`` 4, on phase 4's requests (acceptance,
+   tokens per dispatch, decode tokens/s, TTFT, and a profiled dispatch
+   at 4 busy slots); the target as its own draft must accept at least
+   0.9; the 11-block draft on 4 requests; (b) ``decode_horizon`` 8 on the
+   dense engine and on phase 8 (b)'s paged engine, whose streams on
+   phase 4's first 4 requests (one admission wave) must equal horizon
+   1's bit for bit, with dispatches, read-backs per token, decode
+   tokens/s and a profiled horizon dispatch; (c) a 300-token prefix (4
+   pages of 64 and 44 tokens) in front of phase 4's prompts, on the
+   dense engine and on the paged one with the 2-block draft, bf16 and
+   int8: the
+   first request prefills the prefix, the other 7 must hit it, a shared
+   page must reach refcount 2, streams are held to the dense engine of
+   the same cache dtype on the full prompts, and the layout's kernels
+   must launch (K4's wide calls on the 64-row body for the dense bf16
+   suffix appends); (d) priority admission on 2 slots, 6 batch requests
+   then 2 interactive ones, the interactive ones admitted first; (e)
+   ``run_offline`` on phase 4's requests; (f) ``generate_speculative``
+   (batch 2, k 4) against greedy ``generate``, ``beam_search`` with beam
+   1 equal to greedy and, with beam 4, scores within ``1e-2 * |score|``
+   of the fp32 plain model's log-probability of the returned tokens. A
+   stream may leave its reference only at a near tie: the two tokens'
+   logits under the plain attention over the common prefix within
+   ``NEAR_TIE_REL * ||logits||inf``. Every kernel of the path must launch.
 
 The rounding bound of a bf16 tensor-core body (K1's and K5's wide o,
 K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -185,7 +213,10 @@ width of a 256-token prefill chunk of every slot (their tensor-core
 chunk body, ``paged_decode_attention_chunk`` and
 ``paged_decode_attention_q8_chunk``), and K5 at the int8 engine's
 admission prefill, 4 prompts in the 2048 bucket causal over their own
-int8 keys (the forward body, ``decode_attention_q8_chunk``). The
+int8 keys (the forward body, ``decode_attention_q8_chunk``). After phase
+10, K4's wide calls (``decode_attention_rows``, the 64-row body) at a
+dense prefix's suffix append, beside their launches in phase 10; the
+records of K1 and K4-K7 add phase 10's launches. The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -276,6 +307,7 @@ SPLIT_CASES = (
     (64, 2048, 2, 1, [1000, 700, 513, 2048, 1], 100),  # leading splits empty; GQA rows 4
     (16, 2000, 8, 5, [5, 258, 1531, 2000, 1999], None),  # rows 5; cap not a multiple of L
     (24, 2064, 2, 2, [2064, 255, 257, 0, 1025], 300),  # page 24; rows 8
+    (64, 2048, 8, 4, [4, 130, 1303, 2047, 2048], None),  # a verify call of spec_k 4, ragged
 )
 # Phase 3, K4's split-K body (128-key splits) on the dense cache:
 # (capacity, kv heads of 8 query heads, query tokens, valid_len per row,
@@ -285,6 +317,7 @@ DENSE_SPLIT_CASES = (
     (2048, 2, 1, [1000, 700, 513, 2048, 1], 100),  # leading splits empty; GQA rows 4
     (2000, 8, 5, [5, 258, 1531, 2000, 1999], None),  # rows 5; cap not a multiple of L
     (2048, 8, 8, [3, 255, 257, 0, 1025], 300),  # rows 8, valid_len 3 < s
+    (2048, 8, 4, [4, 130, 1303, 2047, 2048], None),  # a verify call of spec_k 4, ragged
 )
 # Phase 8b: two 60-token prompts with 70 new tokens each need 3 blocks
 # of 64 apiece at their deepest write; the pool has 5.
@@ -315,6 +348,29 @@ CACHE_KERNELS = {
     "paged_decode_attention_q8": ("paged_decode_attention_q8.cu", 965),
     "paged_decode_attention_q8_chunk": ("decode_chunk.cuh", 965),
 }
+
+# Phase 10: the engine's levers on phase 4's artifact. The draft is the
+# target cut to its first DRAFT_LAYERS blocks (embedding, blocks, final
+# norm and head shared); PREFIX_LEN prefix tokens are 4 full pages of 64
+# and 44 more, so a prefix hit recomputes from an incomplete page.
+SPEC_K, DRAFT_LAYERS, HORIZON, PREFIX_LEN = 4, 2, 8, 300
+# At random weights the 2-layer draft's proposals are almost never the
+# target's; a draft of the first 11 blocks accepts some and rejects
+# others, so (a) also runs rows that rewind by different counts.
+NEAR_DRAFT_LAYERS = 11
+PAGED_CFG = CACHE_SLICES[1][1]  # phase 8 (b)'s paged engine
+PERFECT_ACCEPTANCE = 0.9
+# A stream may leave phase 4's only at a near tie: the two tokens' logits
+# (plain attention over the common prefix) within this share of the
+# largest logit, about the bf16 model's own distance from fp32.
+NEAR_TIE_REL = 3e-2  # about 4 bf16 units in the last place of the largest logit
+PRIORITY_SLOTS, PRIORITY_BATCH, PRIORITY_INTERACTIVE, PRIORITY_NEW = 2, 6, 2, 8
+SPEC_NEW, BEAM, BEAM_NEW, BEAM_PROMPT, BEAM_REL = 48, 4, 32, 16, 1e-2
+# The kernels phase 10 must launch, by launch-count name.
+LEVER_KERNELS = ("flash_fwd", "decode_attention", "decode_attention_rows", "decode_attention_q8",
+                 "decode_attention_q8_chunk", "paged_decode_attention",
+                 "paged_decode_attention_chunk", "paged_decode_attention_q8",
+                 "paged_decode_attention_q8_chunk")
 
 
 def fail(msg: str) -> int:
@@ -532,7 +588,8 @@ def report_tc_bodies(_build, report) -> None:
 def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
     """Phase 3. Returns the worst error per kernel and input dtype;
     raises on a miss."""
-    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in ("flash_fwd", "decode_attention")}
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0}
+             for k in ("flash_fwd", "decode_attention", "decode_attention_rows")}
     bad = []
 
     cases = [(s, s, c, None) for s in (16, 128, 1000, 2048) for c in (True, False)]
@@ -584,7 +641,10 @@ def check_kernels(A, torch, gen, dev) -> dict[str, dict[str, float]]:
                         else:
                             err, tol, ok = close(o, ref, atol, rel)
                             bound_note = f"bound {tol:.3e}"
-                        worst["decode_attention"][dname] = max(worst["decode_attention"][dname], err)
+                        # Calls of more than SPLIT_ROWS rows run the 64-row body.
+                        key = ("decode_attention" if (8 // hkv) * s <= A.SPLIT_ROWS
+                               else "decode_attention_rows")
+                        worst[key][dname] = max(worst[key][dname], err)
                         name = (f"decode_attention {dname} b4 h8 hkv {hkv} d{d} s {s} cap 2048 "
                                 f"valid_len [0,1,700,2048] window={window}")
                         print(f"  {name}: err {err:.3e} ({bound_note})", flush=True)
@@ -1194,9 +1254,9 @@ def drawn_logits(engine, taps: dict):
     """Keep the logits the ``engine`` draws each token from, in its own
     batch: ``taps[(ticket, j)]`` is the ``(vocab,)`` row that token j of
     that ticket came from. Wraps ``logits`` of the engine's model
-    instance while the block runs. Paged engines draw every token from
-    one ``(slots, vocab)`` call; the dense engine draws a wave's first
-    tokens from ``(wave, vocab)`` and decode tokens from ``(slots, 1,
+    instance while the block runs. Decode steps draw from ``(slots, 1,
+    vocab)``; a paged engine's fused prompt-chunk calls from ``(slots,
+    vocab)``, and the dense engine's admission waves from ``(wave,
     vocab)``."""
     model = engine.model
     real = model.logits
@@ -1204,18 +1264,18 @@ def drawn_logits(engine, taps: dict):
 
     def tap(hidden):
         out = real(hidden)
-        if paged and out.dim() == 2:  # the engine's (slots, vocab) draw
+        if out.dim() == 3:  # a decode step over every slot
+            for r, st in enumerate(engine._slot_state):
+                if st is not None:
+                    taps[(st.ticket, len(st.emitted))] = out[r, -1]
+        elif paged:  # a fused prompt-chunk call's (slots, vocab) draw
             for r, st in enumerate(engine._slot_state):
                 if st is None or (st.pending is not None and st.pending.size > engine.prefill_chunk):
                     continue  # a free row, or a prompt chunk before the last
                 taps[(st.ticket, 0 if st.pending is not None else len(st.emitted))] = out[r]
-        elif not paged and out.dim() == 2:  # an admission wave, in _admitting's order
+        else:  # an admission wave, in _admitting's order
             for i, req in enumerate(engine._admitting):
                 taps[(req.ticket, 0)] = out[i]
-        elif not paged:  # a decode step over every slot
-            for r, st in enumerate(engine._slot_state):
-                if st is not None:
-                    taps[(st.ticket, len(st.emitted))] = out[r, -1]
         return out
 
     model.logits = tap
@@ -1253,8 +1313,8 @@ def first_difference_margins(torch, taps: dict, answers, dense_answers) -> list[
 
 def kv_bytes(cache) -> int:
     """Persistent bytes of a KV cache: values, scales, page table, index."""
-    tensors = [*cache.k, *cache.v, *(cache.k_scale or []), *(cache.v_scale or []), cache.idx]
-    return sum(t.nbytes for t in tensors) + (cache.pages.nbytes if hasattr(cache, "pages") else 0)
+    return (sum(t.nbytes for t in [*cache.tensors(), cache.idx])
+            + (cache.pages.nbytes if hasattr(cache, "pages") else 0))
 
 
 def time_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
@@ -2160,6 +2220,361 @@ def launch_phase(A, torch, dev, seed: int, card_line: str) -> dict[str, int]:
     return launches
 
 
+def near_ties(model, torch, prompts, got, want, dev, what: str) -> list[str]:
+    """For each stream of ``got`` that leaves ``want``: at its first
+    differing token j, the gap between the two tokens' logits under a
+    full forward of ``model`` with the plain attention over the prompt
+    and ``want``'s first j tokens. Raises unless the gap is a near tie
+    (``NEAR_TIE_REL * ||logits||inf``)."""
+    plain = model.clone(attention_impl="reference")
+    notes = []
+    for i, (a, d) in enumerate(zip(got, want)):
+        if len(a) != len(d):
+            raise AssertionError(f"{what}: stream {i} has {len(a)} tokens, not {len(d)}")
+        j = next((k for k, (x, y) in enumerate(zip(a, d)) if x != y), None)
+        if j is None:
+            continue
+        seq = torch.tensor(list(prompts[i]) + list(d[:j]), device=dev)[None]
+        with torch.inference_mode():
+            logits = plain(seq)[0, -1].float()
+        gap, scale = (logits[a[j]] - logits[d[j]]).abs().item(), logits.abs().max().item()
+        notes.append(f"stream {i} at token {j}: gap {gap:.3e} ({gap / scale:.1e} of "
+                     "||logits||inf)")
+        if not gap <= NEAR_TIE_REL * scale:
+            raise AssertionError(f"{what}: stream {i} leaves the reference at token {j} "
+                                 f"without a near tie ({notes[-1]})")
+    del plain
+    return notes
+
+
+def same_lead(got, want) -> list[int]:
+    """Per stream, how many leading tokens equal the reference's."""
+    return [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+            for a, b in zip(got, want)]
+
+
+def profile_dispatch(engine, torch, prompts, what: str, per_dispatch: int) -> str:
+    """One decode dispatch of ``engine`` at 4 busy slots (every prompt
+    prefilled, two warm dispatches first) under ``torch.profiler``:
+    device busy, idle share, launches, and the split body's share (K4-K7
+    decode calls). ``per_dispatch``: the most tokens a dispatch emits per
+    row; the budgets cover the prefill steps, three dispatches and the
+    profiled one at that rate."""
+    for p in prompts[:4]:
+        engine.submit(p, max_new_tokens=16 + 4 * per_dispatch)
+    while any(st is None or st.pending is not None for st in engine._slot_state):
+        engine.step()
+    for _ in range(2):
+        engine.step()
+    busy_slots, before = engine.stats()["slots_busy"], engine.tokens_emitted
+    wall_ms, busy, kernels = device_profile(torch, engine.step)
+    emitted = engine.tokens_emitted - before
+    engine.run()
+    if busy_slots != 4:
+        raise AssertionError(f"phase 10 {what} profile: {busy_slots} busy slots, not 4")
+    split = [(ms, n) for key, ms, n in kernels if any(k in key for k in SPLIT_KERNEL_NAMES)]
+    split_ms = sum(ms for ms, _ in split)
+    line = (f"wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall_ms:.3f}, {sum(n for _, _, n in kernels)} kernel launches, "
+            f"{emitted} tokens; split body and combine {split_ms:.4f} ms ({split_ms / busy:.1%} "
+            f"of busy, {sum(n for _, n in split)} launches)")
+    print(f"phase 10 {what} profile: one dispatch at 4 busy slots: {line}", flush=True)
+    for key, ms, n in kernels[:5]:
+        print(f"  {ms:.4f} ms ({ms / busy:.1%} of busy, {n}) {key[:90]}", flush=True)
+    if not split or any(ROWS_KERNEL_NAME in key for key, _, _ in kernels):
+        raise AssertionError(f"phase 10 {what}: decode dispatches must run the split body")
+    return line
+
+
+def serve(art, cfg, batches, torch):
+    """A predictor on ``cfg`` answering each list of ``batches`` in turn;
+    returns (answers, stats, ttft, wall, predictor), the predictor
+    stopped so that its engine can be driven from this thread."""
+    from hops_tpu_torch.modelrepo.serving import LMEnginePredictor
+
+    predictor = LMEnginePredictor(art, cfg)
+    answers, ttft = [], []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            answers += predictor.predict(batch)
+            ttft += predictor.last_ttft_s
+        wall = time.perf_counter() - t0
+        stats = predictor.stats()
+    finally:
+        predictor.stop()
+    return answers, stats, ttft, wall, predictor
+
+
+def describe(stats, ttft, wall) -> str:
+    spec = (f"acceptance {stats['spec_acceptance']}, " if "spec_acceptance" in stats else "")
+    return (f"{spec}{stats['tokens_per_dispatch']} tokens per dispatch, {stats['dispatches']} "
+            f"dispatches, {stats['readbacks']} decode read-backs for {stats['decode_tokens']} "
+            f"decode tokens ({stats['readbacks'] / max(stats['decode_tokens'], 1):.3f} per token), "
+            f"decode {stats['decode_tokens'] / stats['decode_s']:.1f} tokens/s, ttft_ms "
+            f"{[round(t * 1e3, 1) for t in ttft]}, wall {wall:.3f} s")
+
+
+def levers_phase(A, torch, art, params, prompts, instances, answers, dev,
+                 card_line) -> dict[str, int]:
+    """Phase 10; returns its launch counts."""
+    from hops_tpu_torch.models.generation import beam_search, generate, generate_speculative
+    from hops_tpu_torch.modelrepo import registry
+    from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+    from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, load_lm_artifact
+    from hops_tpu_torch.runtime import config
+
+    config.configure(workspace=str(ROOT / "_smoke" / "registry"), project="chip_smoke")
+    target = registry.export(art, "smoke-lm", metrics={"layers": MODEL["num_layers"]})
+
+    def layer_skip(layers: int, name: str) -> dict:
+        keep = {k: v for k, v in params.items()
+                if not re.match(r"block_\d+/", k) or int(k.split("/")[0][6:]) < layers}
+        return registry.save_lm(dict(MODEL, num_layers=layers), keep, name,
+                                metrics={"layers": layers})
+
+    draft = layer_skip(DRAFT_LAYERS, "smoke-draft")
+    layer_skip(NEAR_DRAFT_LAYERS, "smoke-draft-near")
+    print(f"phase 10 registry: {target['name']} v{target['version']} ({MODEL['num_layers']} "
+          f"layers), {draft['name']} v{draft['version']} (the target's first {DRAFT_LAYERS} "
+          f"blocks, embedding, final norm and head); best by layers: "
+          f"{registry.get_best_model('smoke-lm', 'layers')['version']}", flush=True)
+    spec = {"draft_model": "smoke-draft", "spec_k": SPEC_K}
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    def delta(before):
+        after = A.launch_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    # (a) dense speculation.
+    got, stats, ttft, wall, pred = serve(art, dict(slots=4, **spec), [instances], torch)
+    notes = near_ties(pred.engine.model, torch, prompts, got, answers, dev, "phase 10 (a)")
+    print(f"phase 10 (a) dense speculation, draft smoke-draft, spec_k {SPEC_K}: "
+          f"{describe(stats, ttft, wall)}; streams equal phase 4's: leading tokens "
+          f"{same_lead(got, answers)}; " + ("; ".join(notes) or "all identical")
+          + f"; card {card_line}", flush=True)
+    profile_dispatch(pred.engine, torch, prompts, "(a) speculative", SPEC_K)
+    del pred
+    target_model = load_lm_artifact(art, dev)
+    for name, what in (("smoke-lm", "the target as its own draft"),
+                       ("smoke-draft-near", f"the first {NEAR_DRAFT_LAYERS} blocks as the draft")):
+        got, stats, ttft, wall, pred = serve(
+            art, dict(slots=4, draft_model=name, spec_k=SPEC_K), [instances[:4]], torch)
+        del pred
+        notes = near_ties(target_model, torch, prompts, got, answers[:4], dev, "phase 10 (a)")
+        print(f"phase 10 (a) {what} (4 requests): {describe(stats, ttft, wall)}; "
+              + ("; ".join(notes) or "streams identical to phase 4's"), flush=True)
+        if name == "smoke-lm" and not stats["spec_acceptance"] >= PERFECT_ACCEPTANCE:
+            raise AssertionError(f"phase 10 (a): the target as its own draft accepted "
+                                 f"{stats['spec_acceptance']}")
+    del target_model
+    torch.cuda.empty_cache()
+
+    # (b) decode horizons: 4 requests fill the 4 slots in one wave, so
+    # horizon 1 and HORIZON see the same admissions.
+    batches = [instances[:4]]
+    for name, cfg in (("dense", {"slots": 4}), ("paged", PAGED_CFG)):
+        one, stats1, ttft1, wall1, pred1 = serve(art, cfg, batches, torch)
+        del pred1
+        many, stats8, ttft8, wall8, pred8 = serve(art, dict(cfg, decode_horizon=HORIZON),
+                                                  batches, torch)
+        if many != one:
+            raise AssertionError(f"phase 10 (b) {name}: horizon {HORIZON} streams differ from "
+                                 f"horizon 1's: leading tokens {same_lead(many, one)}")
+        print(f"phase 10 (b) {name}: horizon {HORIZON} streams bit-identical to horizon 1's; "
+              f"horizon 1: {describe(stats1, ttft1, wall1)}; horizon {HORIZON}: "
+              f"{describe(stats8, ttft8, wall8)}; card {card_line}", flush=True)
+        profile_dispatch(pred8.engine, torch, prompts, f"(b) {name} horizon {HORIZON}", HORIZON)
+        del pred8
+        torch.cuda.empty_cache()
+
+    # (c) prefixes, dense and paged (with the draft), bf16 and int8,
+    # against the dense engine of the same cache dtype on the full
+    # prompts. The dense prefix runs without the draft (the CPU tests
+    # hold the two together): its suffix appends are K4's wide calls.
+    rng = torch.Generator().manual_seed(len(prompts))
+    prefix = torch.randint(0, MODEL["vocab_size"], (PREFIX_LEN,), generator=rng).tolist()
+    full = [prefix + p for p in prompts]
+    full_instances = [dict(i, prompt=f) for i, f in zip(instances, full)]
+    sfx_instances = [dict(i, prefix_id="system") for i in instances]
+    for dtype in ("bfloat16", "int8"):
+        cache = {} if dtype == "bfloat16" else {"kv_cache_dtype": "int8"}
+        want, stats, ttft, wall, pred = serve(art, dict(slots=4, **cache), [full_instances],
+                                              torch)
+        del pred
+        print(f"phase 10 (c) dense {dtype}, full prompts ({PREFIX_LEN} + prompt), no draft: "
+              f"{describe(stats, ttft, wall)}", flush=True)
+        for layout, base in (("dense", {"slots": 4}), ("paged", dict(PAGED_CFG, **spec))):
+            cfg = dict(base, **cache, prefixes={"system": prefix})
+            before = A.launch_counts()
+            # The first request prefills the prefix (paged: and publishes
+            # its complete pages); the other 7 hit it.
+            got, stats, ttft, wall, pred = serve(art, cfg, [sfx_instances[:1]], torch)
+            engine = pred.engine
+            tickets = [engine.submit(**LMEnginePredictor._parse(i)) for i in sfx_instances[1:]]
+            peak_ref = 0
+            t0 = time.perf_counter()
+            while engine.has_work:
+                engine.step()
+                entry = engine._prefixes["system"]
+                if layout == "paged" and entry.blocks:
+                    peak_ref = max(peak_ref, max(engine._pool.refcount(b) for b in entry.blocks))
+            wall += time.perf_counter() - t0
+            ttft += [engine.ttft_s.get(t) for t in tickets]
+            got += [engine.take_result(t) for t in tickets]
+            stats = engine.stats()
+            launched = delta(before)
+            notes = near_ties(engine.model, torch, full, got, want, dev, f"phase 10 (c) {layout}")
+            print(f"phase 10 (c) {layout} {dtype} + prefix {PREFIX_LEN}"
+                  + (" + draft" if layout == "paged" else "") + ": prefix hits "
+                  f"{stats['prefix_hits']} of {len(instances)}"
+                  + (f", peak refcount of a shared block {peak_ref}" if layout == "paged" else "")
+                  + f"; {describe(stats, ttft, wall)}; streams equal the dense {dtype} engine's "
+                  f"on the full prompts: leading tokens {same_lead(got, want)}; "
+                  + ("; ".join(notes) or "all identical") + f"; launches {launched}", flush=True)
+            if stats["prefix_hits"] < len(instances) - 1:
+                raise AssertionError(f"phase 10 (c) {layout} {dtype}: {stats['prefix_hits']} "
+                                     "prefix hits")
+            if layout == "paged" and peak_ref < 2:
+                raise AssertionError(f"phase 10 (c) paged {dtype}: no shared block reached "
+                                     "refcount 2")
+            kernel = {("dense", "bfloat16"): ("decode_attention", "decode_attention_rows"),
+                      ("dense", "int8"): ("decode_attention_q8", "decode_attention_q8_chunk"),
+                      ("paged", "bfloat16"): ("paged_decode_attention",
+                                              "paged_decode_attention_chunk"),
+                      ("paged", "int8"): ("paged_decode_attention_q8",
+                                          "paged_decode_attention_q8_chunk")}[layout, dtype]
+            if not all(launched.get(k) for k in kernel):
+                raise AssertionError(f"phase 10 (c) {layout} {dtype}: {kernel} must launch: "
+                                     f"{launched}")
+            del pred, engine
+            torch.cuda.empty_cache()
+
+    # (d) priority admission on 2 slots: 6 batch requests, then 2
+    # interactive ones.
+    model = load_lm_artifact(art, dev, ragged_decode=True)
+    engine = LMEngine(model, slots=PRIORITY_SLOTS)
+    short = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:4]
+    kinds = ["batch"] * PRIORITY_BATCH + ["interactive"] * PRIORITY_INTERACTIVE
+    tickets = {engine.submit(prompts[short[i % 4]], max_new_tokens=PRIORITY_NEW,
+                             priority=kind): kind for i, kind in enumerate(kinds)}
+    order = []
+    while engine.has_work:
+        engine.step()
+        for st in engine._slot_state:
+            if st is not None and st.ticket not in order:
+                order.append(st.ticket)
+    results = engine.run()
+    print(f"phase 10 (d) priority: {PRIORITY_BATCH} batch then {PRIORITY_INTERACTIVE} interactive "
+          f"requests on {PRIORITY_SLOTS} slots, admission order "
+          f"{[f'{t}:{tickets[t]}' for t in order]}", flush=True)
+    if set(order[:PRIORITY_INTERACTIVE]) != {t for t, k in tickets.items() if k == "interactive"}:
+        raise AssertionError("phase 10 (d): the interactive requests were not admitted first")
+    if sorted(order) != sorted(tickets) or any(len(results[t]) != PRIORITY_NEW for t in tickets):
+        raise AssertionError("phase 10 (d): a batch request did not complete")
+    del engine
+
+    # (e) run_offline.
+    engine = LMEngine(model, slots=4)
+    tickets = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, NEW_TOKENS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run_offline()
+    wall = time.perf_counter() - t0
+    got = [results[t] for t in tickets]
+    notes = near_ties(model, torch, prompts, got, answers, dev, "phase 10 (e)")
+    print(f"phase 10 (e) run_offline: {engine.dispatches} dispatches ({engine.admission_waves} "
+          f"waves, {engine.readbacks} read-backs), {engine.tokens_emitted} tokens in {wall:.3f} s "
+          f"({engine.tokens_emitted / wall:.1f} tokens/s, prefill included); leading tokens "
+          f"equal phase 4's {same_lead(got, answers)}; " + ("; ".join(notes) or "all identical")
+          + f"; card {card_line}", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # (f) generate_speculative and beam_search.
+    plain = load_lm_artifact(art, dev)
+    small = load_lm_artifact(registry.lm_artifact("smoke-draft"), dev)
+    pp = [p[:BEAM_PROMPT] for p in prompts[:2]]
+    batch = torch.tensor(pp, device=dev)
+    greedy = generate(plain, batch, max_new_tokens=SPEC_NEW, temperature=0.0)
+    t0 = time.perf_counter()
+    fast = generate_speculative(plain, small, batch, max_new_tokens=SPEC_NEW, k=SPEC_K)
+    wall = time.perf_counter() - t0
+    g_list = greedy[:, BEAM_PROMPT:].tolist()
+    notes = near_ties(plain, torch, pp, fast[:, BEAM_PROMPT:].tolist(), g_list, dev,
+                      "phase 10 (f) generate_speculative")
+    print(f"phase 10 (f) generate_speculative (batch 2, k {SPEC_K}, {SPEC_NEW} new tokens, "
+          f"{wall:.3f} s): leading tokens equal greedy generate's "
+          f"{same_lead(fast[:, BEAM_PROMPT:].tolist(), g_list)}; "
+          + ("; ".join(notes) or "identical"), flush=True)
+    one, _ = beam_search(plain, batch, max_new_tokens=BEAM_NEW, beam_size=1)
+    if not torch.equal(one, greedy[:, : BEAM_PROMPT + BEAM_NEW]):
+        raise AssertionError("phase 10 (f): beam_search with beam 1 differs from greedy generate")
+    t0 = time.perf_counter()
+    beams, scores = beam_search(plain, batch, max_new_tokens=BEAM_NEW, beam_size=BEAM)
+    wall = time.perf_counter() - t0
+    fp32 = plain.clone(dtype="float32", attention_impl="reference")
+    with torch.inference_mode():
+        logp = torch.log_softmax(fp32(beams)[:, BEAM_PROMPT - 1: -1].float(), dim=-1)
+    ref = torch.gather(logp, 2, beams[:, BEAM_PROMPT:, None])[..., 0].sum(-1)
+    err = (scores - ref).abs()
+    print(f"phase 10 (f) beam_search (beam {BEAM}, 2 prompts, {BEAM_NEW} new tokens, {wall:.3f} "
+          f"s): beam 1 equals greedy; scores {[round(x, 4) for x in scores.tolist()]}, fp32 plain "
+          f"log-probabilities {[round(x, 4) for x in ref.tolist()]}, |diff| "
+          f"{[round(x, 4) for x in err.tolist()]} (bound {BEAM_REL} * |score|)", flush=True)
+    if not bool((err <= BEAM_REL * scores.abs()).all()):
+        raise AssertionError("phase 10 (f): a beam's score is not its log-probability")
+    del plain, small, fp32
+    torch.cuda.empty_cache()
+    launches = A.launch_counts()
+    missing = [k for k in LEVER_KERNELS if not launches[k]]
+    print(f"phase 10 launches: { {k: launches[k] for k in LEVER_KERNELS} } "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if missing:
+        raise AssertionError(f"phase 10: {missing} never launched")
+    return launches
+
+
+def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
+    """Phase 5's row for K4's wide calls (the 64-row body) at a dense
+    prefix's suffix append: the first request's suffix (its 2048 bucket,
+    cut to the room past the prefix) against a cache of one row holding
+    the prefix, causal with the offset."""
+    F = torch.nn.functional
+    h, d, cap = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"], MODEL["max_decode_len"]
+    s = cap - PREFIX_LEN
+    vl = PREFIX_LEN + s
+    q = torch.randn(1, h, s, d, generator=gen).to(dev, torch.bfloat16)
+    k, v = (torch.randn(1, h, cap, d, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    o = A.decode_attention(q, k, v, vl)
+    ref = A.decode_attention_reference(q.float(), k.float(), v.float(), vl)
+    err, tol, ok = close(o, ref, BF16_ATOL, BF16_REL)
+    if not ok:
+        raise AssertionError(f"decode_attention_rows at the prefix append: {err:.3e} > {tol:.3e}")
+    worst["decode_attention_rows"]["bfloat16"] = max(worst["decode_attention_rows"]["bfloat16"],
+                                                     err)
+    rows_q = torch.arange(s, device=dev)[:, None] + (vl - s)
+    mask = torch.arange(vl, device=dev)[None, :] <= rows_q
+    pairs = h * (s * (vl - s) + s * (s + 1) // 2)
+    nbytes = 2 * h * s * d * 2 + 2 * h * vl * d * 2 + 4
+    return dict(
+        name="decode_attention_rows", route="cuda",
+        source="hops_tpu_torch/ops/csrc/decode_rows.cuh", replaces="hops_tpu/ops/attention.py:643",
+        shape=f"q (1,{h},{s},{d}) bf16 against cache (1,{h},{cap},{d}), valid_len {vl} "
+              f"(a suffix appended to a {PREFIX_LEN}-token prefix)",
+        launches=launches["decode_attention_rows"],
+        max_abs_err=worst["decode_attention_rows"]["bfloat16"],
+        ms=cuda_ms(lambda i=0: A.decode_attention(q, k, v, vl), 10),
+        plain_ms=cuda_ms(lambda i=0: A.decode_attention_reference(q, k, v, vl), 3),
+        library_ms=cuda_ms(lambda i=0: F.scaled_dot_product_attention(
+            q, k[:, :, :vl], v[:, :, :vl], attn_mask=mask), 10),
+        **bound(4 * d * pairs, nbytes),
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2320,7 +2735,19 @@ def main() -> int:
         print("phase 9 launch:", flush=True)
         launch_launches = launch_phase(A, torch, dev, args.seed, card_line)
         print("phase 9 ok", flush=True)
-        k1 = rows[0]
+        print("phase 10 levers:", flush=True)
+        lever_launches = levers_phase(A, torch, art, params, prompts, instances, answers,
+                                      dev, card_line)
+        print("phase 10 ok", flush=True)
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            rows_row = time_prefix_append(A, torch, gen, dev, lever_launches, worst)
+        print(f"phase 5 {rows_row['name']} at {rows_row['shape']}: {rows_row['ms']:.4f} ms; "
+              f"{rows_row['launches']} launches in phase 10; bound {rows_row['bound_ms']:.4f} ms "
+              f"({rows_row['bound_by']}); plain {rows_row['plain_ms']:.4f} ms; "
+              f"scaled_dot_product_attention {rows_row['library_ms']:.4f} ms; card {card_line}",
+              flush=True)
+        k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
         k1["launches"] += train_launches["flash_fwd"] + launch_launches["flash_fwd"]
@@ -2328,7 +2755,13 @@ def main() -> int:
             r["launches_by_path"] = {"training": r["launches"],
                                      "launch": launch_launches[r["name"]]}
             r["launches"] += launch_launches[r["name"]]
-        rows = [k1, *bwd_rows, rows[1], *cache_rows]
+        for r, path in ((k1, None), (k4, "serving"), *((r, "caches") for r in cache_rows)):
+            if path:
+                r["launches_by_path"] = {path: r["launches"]}
+            r["launches_by_path"]["levers"] = lever_launches[r["name"]]
+            r["launches"] += lever_launches[r["name"]]
+        rows_row["launches_by_path"] = {"levers": rows_row["launches"]}
+        rows = [k1, *bwd_rows, k4, rows_row, *cache_rows]
     finally:
         if predictor is not None:
             predictor.stop()

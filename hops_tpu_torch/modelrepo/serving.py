@@ -3,8 +3,9 @@
 
 An artifact is a directory holding ``lm_config.json`` (the TransformerLM
 fields) and ``params.npz`` (flat ``'/'``-joined flax parameter names,
-:func:`hops_tpu_torch.models.convert.save_npz`). This slice has no HTTP
-server, tracing, brownout or QoS classes.
+:func:`hops_tpu_torch.models.convert.save_npz`); the registry
+(:mod:`hops_tpu_torch.modelrepo.registry`) versions them. This slice
+has no HTTP server and no tracing.
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ import torch
 
 from hops_tpu_torch.models.convert import load_npz, save_npz
 from hops_tpu_torch.models.transformer import TransformerLM
+from hops_tpu_torch.modelrepo import registry
 from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+from hops_tpu_torch.runtime import qos
 from hops_tpu_torch.runtime.devices import resolve_device
 
 log = logging.getLogger(__name__)
-
-_LATER_SLICES = ("draft_model", "prefixes")
 
 
 def save_lm_artifact(
@@ -36,6 +37,16 @@ def save_lm_artifact(
     (artifact_dir / "lm_config.json").write_text(json.dumps(dict(lm_config), indent=1))
     save_npz(artifact_dir / "params.npz", params)
     return artifact_dir
+
+
+def load_lm_artifact(artifact_dir: str | Path, device: torch.device,
+                     **changes: Any) -> TransformerLM:
+    """The artifact's TransformerLM on ``device``, with ``changes``
+    applied to its fields."""
+    artifact_dir = Path(artifact_dir)
+    cfg = json.loads((artifact_dir / "lm_config.json").read_text())
+    module = TransformerLM(**{**cfg, **changes}, device=device)
+    return module.load_flax(load_npz(artifact_dir / "params.npz"))
 
 
 class LMEnginePredictor:
@@ -53,10 +64,18 @@ class LMEnginePredictor:
     Predictions are generated-token lists, prompt excluded.
 
     ``lm_config`` holds the engine options: ``slots`` (default 4),
-    ``prefill_buckets``, ``max_queue``, ``decode_horizon`` (1 only),
-    ``kv_cache_dtype`` (``"int8"``: the quantized KV cache) and the
-    paged cache with chunked prefill, ``kv_page_size``,
-    ``kv_pool_blocks`` and ``prefill_chunk``.
+    ``prefill_buckets``, ``max_queue``, ``decode_horizon``,
+    ``kv_cache_dtype`` (``"int8"``: the quantized KV cache, for the
+    target and the draft), the paged cache with chunked prefill
+    (``kv_page_size``, ``kv_pool_blocks``, ``prefill_chunk``),
+    speculative decoding (``draft_model``: a registry name, resolved in
+    the current project, ``draft_version``, default the newest, and
+    ``spec_k``, default 4), ``prefixes`` (``{name: [ids]}``, registered at
+    start; an instance opts in with ``"prefix_id"``) and
+    ``brownout_max_new_tokens`` (default 16: under a brownout at
+    :data:`~hops_tpu_torch.runtime.qos.DEGRADE` or above, decode budgets
+    are clamped to it). Each request is admitted at the priority class of
+    the caller's :func:`~hops_tpu_torch.runtime.qos.priority_scope`.
     """
 
     def __init__(
@@ -66,17 +85,15 @@ class LMEnginePredictor:
         device: str | torch.device | None = None,
     ):
         cfg = dict(lm_config or {})
-        for key in _LATER_SLICES:
-            if cfg.get(key):
-                raise NotImplementedError(f"lm_config[{key!r}] is a later slice")
         device = resolve_device(device)
-        artifact_dir = Path(artifact_dir)
-        model_cfg = json.loads((artifact_dir / "lm_config.json").read_text())
-        model_cfg["ragged_decode"] = True
+        cache = {"ragged_decode": True}
         if cfg.get("kv_cache_dtype"):
-            model_cfg["kv_cache_dtype"] = str(cfg["kv_cache_dtype"])
-        module = TransformerLM(**model_cfg, device=device)
-        module.load_flax(load_npz(artifact_dir / "params.npz"))
+            cache["kv_cache_dtype"] = str(cfg["kv_cache_dtype"])
+        module = load_lm_artifact(artifact_dir, device, **cache)
+        draft = None
+        if cfg.get("draft_model"):
+            draft_dir = registry.lm_artifact(cfg["draft_model"], cfg.get("draft_version"))
+            draft = load_lm_artifact(draft_dir, device, **cache)
 
         def optional_int(key):
             return int(cfg[key]) if cfg.get(key) else None
@@ -88,12 +105,17 @@ class LMEnginePredictor:
                 tuple(cfg["prefill_buckets"]) if "prefill_buckets" in cfg else None
             ),
             decode_horizon=int(cfg.get("decode_horizon", 1)),
+            draft_model=draft,
+            spec_k=int(cfg.get("spec_k", 4)),
             kv_page_size=optional_int("kv_page_size"),
             kv_pool_blocks=optional_int("kv_pool_blocks"),
             prefill_chunk=optional_int("prefill_chunk"),
             max_queue=int(cfg.get("max_queue", 1024)),
             device=device,
         )
+        for name, tokens in (cfg.get("prefixes") or {}).items():
+            self._engine.register_prefix(name, tokens)
+        self._brownout_max_new = int(cfg.get("brownout_max_new_tokens", 16))
         #: Time to first token (seconds) of each instance of the last
         #: :meth:`predict` call, in instance order.
         self.last_ttft_s: list[float | None] = []
@@ -148,6 +170,15 @@ class LMEnginePredictor:
 
     def predict(self, instances: list[Any]) -> list[Any]:
         parsed = [self._parse(i) for i in instances]
+        # The caller's class orders admission; a brownout shortens
+        # answers rather than shedding them.
+        priority = qos.request_priority()
+        degrade = qos.brownout_level() >= qos.DEGRADE
+        for kw in parsed:
+            kw["priority"] = priority
+            if degrade:
+                kw["max_new_tokens"] = max(1, min(kw.get("max_new_tokens", 32),
+                                                  self._brownout_max_new))
         with self._cv:
             if self._stopping:
                 raise RuntimeError("serving stopped")

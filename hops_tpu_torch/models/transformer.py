@@ -160,6 +160,46 @@ class KVCache:
     def capacity(self) -> int:
         return self.k[0].shape[2]
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Every per-layer tensor: k, v and, int8, their scales."""
+        return [*self.k, *self.v, *(self.k_scale or ()), *(self.v_scale or ())]
+
+    def _map(self, fn, idx: torch.Tensor) -> "KVCache":
+        def each(ts):
+            return None if ts is None else [fn(t) for t in ts]
+
+        return KVCache(each(self.k), each(self.v), idx, each(self.k_scale), each(self.v_scale))
+
+    def rows_view(self, start: int, stop: int) -> "KVCache":
+        """Rows ``[start, stop)`` as a cache over this one's storage: a
+        model call on it writes these rows in place (and assigns the
+        view's own ``idx``)."""
+        return self._map(lambda t: t[start:stop], self.idx[start:stop])
+
+    def copy_prefix(self, row: int, length: int) -> "KVCache":
+        """A one-row copy of ``row``'s first ``length`` positions (values
+        and int8 scales): a stored prefix for :meth:`load_prefix`."""
+        idx = torch.full((1,), length, dtype=self.idx.dtype, device=self.idx.device)
+        return self._map(lambda t: t[row: row + 1, :, :length].clone(), idx)
+
+    def load_prefix(self, row: int, prefix: "KVCache") -> None:
+        """Copy a stored prefix into ``row`` and set its index to the
+        prefix's length; the positions past it keep what they held."""
+        length = prefix.k[0].shape[2]
+        for dst, src in zip(self.tensors(), prefix.tensors()):
+            dst[row, :, :length] = src[0]
+        self.idx[row] = length
+
+    def reorder_rows(self, rows: torch.Tensor, length: int) -> None:
+        """Row i takes the contents of row ``rows[i]`` (beam search's
+        back-pointers): one ``index_select`` per tensor over the first
+        ``length`` positions, the only ones written."""
+        for t in self.tensors():
+            part = t[:, :, :length]
+            part.copy_(part.index_select(0, rows))
+        if self.idx.ndim:
+            self.idx = self.idx.index_select(0, rows)
+
 
 @dataclasses.dataclass
 class PagedKVCache:
@@ -188,6 +228,10 @@ class PagedKVCache:
     @property
     def page_size(self) -> int:
         return self.k[0].shape[2]
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every per-layer pool: k, v and, int8, their scales."""
+        return [*self.k, *self.v, *(self.k_scale or ()), *(self.v_scale or ())]
 
 
 class Attention(nn.Module):

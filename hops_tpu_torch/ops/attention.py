@@ -47,10 +47,12 @@ NEG_INF = float("-inf")
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 #: A decode kernel's wide bf16 calls (rows > ``SPLIT_ROWS``: prefill) run
 #: a tensor-core body (K5: K1's forward body over int8 K/V; K6, K7: the
-#: chunk body) and count under ``<kernel>_chunk``.
+#: chunk body) and count under ``<kernel>_chunk``; K4's wide calls (a
+#: suffix appended to a stored prefix) run the 64-row body and count
+#: under ``decode_attention_rows``.
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-    "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
+    "decode_attention_rows": 0, "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
     "paged_decode_attention_chunk": 0, "paged_decode_attention_q8": 0,
     "paged_decode_attention_q8_chunk": 0,
 }
@@ -759,10 +761,13 @@ def decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
         )
     _build.check(name, rc)
-    # K5's wide bf16 calls ran the tensor-core forward body: counted on
-    # their own.
-    chunk = quantized and rows > SPLIT_ROWS and q.dtype == torch.bfloat16
-    LAUNCHES[name + "_chunk" if chunk else name] += 1
+    # K5's wide bf16 calls ran the tensor-core forward body, K4's wide
+    # calls the 64-row body: each counted on its own.
+    if rows > SPLIT_ROWS and not quantized:
+        name += "_rows"
+    elif rows > SPLIT_ROWS and q.dtype == torch.bfloat16:
+        name += "_chunk"
+    LAUNCHES[name] += 1
     return o
 
 

@@ -162,7 +162,8 @@ def test_launch_counts_reset_and_cpu_launches_nothing():
     T.paged_decode_attention(q, gq, gq, torch.tensor([16, 16]), pages, k_scale=gs, v_scale=gs)
     assert T.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-        "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
+        "decode_attention_rows": 0, "decode_attention_q8": 0, "decode_attention_q8_chunk": 0,
+        "paged_decode_attention": 0,
         "paged_decode_attention_chunk": 0, "paged_decode_attention_q8": 0,
         "paged_decode_attention_q8_chunk": 0,
     }

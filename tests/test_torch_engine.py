@@ -120,12 +120,18 @@ def test_queue_bound_and_later_slices(setup):
         engine.submit(prompts[0], max_new_tokens=2)
     with pytest.raises(ValueError, match="max_decode_len"):
         engine.submit(prompts[0], max_new_tokens=CFG["max_decode_len"])
-    for kw in (dict(decode_horizon=4), dict(draft_model=model), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            LMEngine(model, device="cpu", **kw)
+    # The JAX engine's validation cases; tensor parallelism stays unported.
+    with pytest.raises(NotImplementedError):
+        LMEngine(model, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="decode_horizon"):
+        LMEngine(model, device="cpu", decode_horizon=0)
+    with pytest.raises(ValueError, match="spec_k"):
+        LMEngine(model, device="cpu", draft_model=model, spec_k=1)
+    with pytest.raises(ValueError, match="draft_model needs ragged_decode"):
+        LMEngine(model, device="cpu", draft_model=_model(params))
     with pytest.raises(ValueError, match="prefill_chunk requires"):
         LMEngine(model, device="cpu", prefill_chunk=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown prefix_id"):
         engine.submit(prompts[0], prefix_id="system")
     with pytest.raises(ValueError, match="ragged_decode"):
         LMEngine(_model(params), device="cpu")

@@ -19,7 +19,10 @@ from hops_tpu.modelrepo import lm_engine as JE
 from hops_tpu_torch.models import generation as TG
 from hops_tpu_torch.models.transformer import TransformerLM
 from hops_tpu_torch.modelrepo import lm_engine as TE
+from hops_tpu_torch.modelrepo import registry
 from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, save_lm_artifact
+from hops_tpu_torch.runtime import config, faultinject
+from hops_tpu_torch.telemetry.metrics import REGISTRY
 
 CFG = dict(vocab_size=64, d_model=64, num_heads=4, num_layers=2, max_decode_len=48)
 
@@ -138,7 +141,56 @@ def test_predictor_raises_the_step_failure(lm, tmp_path, monkeypatch):
             predictor.predict([prompt[0].tolist()])
         monkeypatch.undo()
         assert len(predictor.predict([{"prompt": prompt[0].tolist(), "max_new_tokens": 3}])[0]) == 3
-        with pytest.raises(NotImplementedError):
-            LMEnginePredictor(tmp_path / "lm", {"draft_model": "draft"}, device="cpu")
     finally:
         predictor.stop()
+    # The draft comes from the registry by name (here the target itself,
+    # so every proposal is accepted).
+    monkeypatch.setattr(config, "_current", config.runtime())
+    config.configure(workspace=str(tmp_path / "torch_ws"), project="testproj")
+    registry.export(tmp_path / "lm", "draft")
+    speculative = LMEnginePredictor(tmp_path / "lm", {"slots": 2, "draft_model": "draft"},
+                                    device="cpu")
+    try:
+        answer = speculative.predict([{"prompt": prompt[0].tolist(), "max_new_tokens": 5}])
+        alone = TE.LMEngine(TransformerLM(**CFG, dtype="float32", ragged_decode=True,
+                                          device="cpu").load_flax(params), slots=1, device="cpu")
+        t = alone.submit(prompt[0], max_new_tokens=5)
+        assert answer == [alone.run()[t]]
+        assert speculative.stats()["spec_acceptance"] == 1.0
+    finally:
+        speculative.stop()
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "speculative"])
+def test_dispatch_fault_point_fails_only_inflight(lm, kind):
+    """The ``lm_engine.dispatch`` fault point (the JAX package's chaos
+    case): an injected error fails the in-flight requests alone, frees
+    their slots and blocks, counts a dispatch failure, and the engine
+    serves what was queued and what comes next."""
+    _, params, _ = lm
+    model = TransformerLM(**CFG, dtype="float32", ragged_decode=True,
+                          device="cpu").load_flax(params)
+    kw = {"dense": dict(prefill_buckets=(8, 16)), "paged": dict(kv_page_size=8, prefill_chunk=8),
+          "speculative": dict(draft_model=model, spec_k=3)}[kind]
+    engine = TE.LMEngine(model, slots=2, device="cpu", **kw)
+    failures = REGISTRY.counter("hops_tpu_lm_dispatch_failures_total")
+    before = failures.value()
+    rs = np.random.RandomState(0)
+    inflight = [engine.submit(rs.randint(1, 64, (10,)), max_new_tokens=12) for _ in range(2)]
+    engine.step()
+    engine.step()
+    queued = [engine.submit(rs.randint(1, 64, (10,)), max_new_tokens=4) for _ in range(3)]
+    faultinject.arm("lm_engine.dispatch=error:RuntimeError@times=1")
+    try:
+        assert engine.step() == []
+    finally:
+        faultinject.disarm()
+    for t in inflight:
+        assert isinstance(engine.error(t), RuntimeError) and engine.result(t) is None
+    assert all(st is None for st in engine._slot_state)
+    assert failures.value() == before + 1
+    res = engine.run()
+    assert all(len(res[t]) == 4 for t in queued)
+    if kind == "paged":
+        assert engine._pool.used == 0
+    assert engine.take_error(inflight[0]) is not None and engine.take_error(inflight[0]) is None

@@ -35,6 +35,8 @@ def test_every_module_imports_with_jax_blocked():
     assert "hops_tpu_torch.modelrepo.serving" in mods
     assert {"hops_tpu_torch.ops.xent", "hops_tpu_torch.models.common"} <= set(mods)
     assert "hops_tpu_torch.modelrepo.paged" in mods
+    assert {"hops_tpu_torch.runtime.qos", "hops_tpu_torch.modelrepo.registry",
+            "hops_tpu_torch.modelrepo.lm_engine", "hops_tpu_torch.models.generation"} <= set(mods)
     assert {
         "hops_tpu_torch.experiment.core", "hops_tpu_torch.experiment.registry",
         "hops_tpu_torch.experiment.tensorboard", "hops_tpu_torch.runtime.checkpoint",
@@ -117,6 +119,20 @@ def _entry_engine():
     LMEngine(model, slots=2)
 
 
+def _entry_speculative():
+    from hops_tpu_torch.models.generation import generate_speculative
+
+    model, _ = _tiny_model()
+    generate_speculative(model, model, np.zeros((1, 4), np.int32), max_new_tokens=2)
+
+
+def _entry_beam_search():
+    from hops_tpu_torch.models.generation import beam_search
+
+    model, _ = _tiny_model()
+    beam_search(model, np.zeros((1, 4), np.int32), max_new_tokens=2)
+
+
 def _entry_predictor(tmp_path):
     from hops_tpu_torch.models.convert import random_params
     from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, save_lm_artifact
@@ -139,7 +155,8 @@ def _entry_synthetic_data():
 
 
 @pytest.mark.parametrize("entry", ["transformer", "generate", "engine", "predictor",
-                                   "cnn", "ffn", "resnet", "synthetic_data"])
+                                   "cnn", "ffn", "resnet", "synthetic_data",
+                                   "generate_speculative", "beam_search"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path):
     _no_card()
     call = {
@@ -151,6 +168,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path)
         "ffn": lambda: _entry_classifier("ffn"),
         "resnet": lambda: _entry_classifier("resnet"),
         "synthetic_data": _entry_synthetic_data,
+        "generate_speculative": _entry_speculative,
+        "beam_search": _entry_beam_search,
     }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()

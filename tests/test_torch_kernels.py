@@ -213,9 +213,11 @@ def test_decode_kernel_matches_plain(d, hkv, s, window):
     q = torch.randn(4, 8, s, d, generator=g).to(dev, torch.bfloat16)
     k, v = (torch.randn(4, hkv, 2048, d, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     vl = torch.tensor([0, 1, 700, 2048], dtype=torch.int32, device=dev)
-    before = T.launch_counts()["decode_attention"]
+    # Calls of more than SPLIT_ROWS rows run the 64-row body, counted apart.
+    name = "decode_attention" if (8 // hkv) * s <= T.SPLIT_ROWS else "decode_attention_rows"
+    before = T.launch_counts()[name]
     o = T.decode_attention(q, k, v, vl, window=window)
-    assert T.launch_counts()["decode_attention"] == before + 1
+    assert T.launch_counts()[name] == before + 1
     ref = T.decode_attention_reference(q.float(), k.float(), v.float(), vl, window=window)
     if (8 // hkv) * s <= T.SPLIT_ROWS:
         _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # the split body: output rounding
@@ -456,6 +458,7 @@ SPLIT_CASES = {
     "page_24": (24, 2064, 2, 1, [2064, 255, 257, 0], None),
     "capacity_not_a_multiple": (16, 2000, 8, 1, [2000, 1999, 1793, 1], 600),
     "one_split": (16, 128, 8, 1, [128, 65, 64, 1], None),
+    "verify_spec_k4": (64, 2048, 8, 4, [4, 130, 1303, 2047], None),  # speculative verify
 }
 
 
@@ -513,6 +516,7 @@ DENSE_SPLIT_CASES = {
     "rows_8": (2048, 8, 8, [3, 130, 1024, 2048], 200),  # valid_len 3 < s: rows that see no key
     "capacity_not_a_multiple": (2000, 8, 1, [2000, 1999, 1793, 1], 600),
     "one_split": (128, 8, 1, [128, 65, 64, 1], None),
+    "verify_spec_k4": (2048, 8, 4, [4, 130, 1303, 2047], None),  # speculative verify
 }
 
 
