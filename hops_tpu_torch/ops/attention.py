@@ -12,7 +12,9 @@ tensors and their plain PyTorch versions on CPU tensors:
   flash-attention-2 split of the JAX custom VJP;
 - :func:`decode_attention` -> ``csrc/decode_attention.cu`` (K4,
   ``_decode_kernel``), the dense, unquantized cache (decode steps on a
-  split-K body and a combine kernel, splits from :func:`decode_splits`);
+  split-K body and a combine kernel, splits from :func:`decode_splits`;
+  bf16 appends to a warm cache on K1's tensor-core forward body,
+  counted apart as ``decode_attention_chunk``);
   with ``k_scale`` / ``v_scale`` (:func:`decode_attention_q8`)
   ``csrc/decode_attention_q8.cu`` (K5, ``_decode_q8_kernel``), the dense
   int8 cache (decode steps on the split-K body; bf16 prefill on K1's
@@ -45,16 +47,15 @@ from hops_tpu_torch.ops import _build
 NEG_INF = float("-inf")
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
-#: A decode kernel's wide bf16 calls (rows > ``SPLIT_ROWS``: prefill) run
-#: a tensor-core body (K5: K1's forward body over int8 K/V; K6, K7: the
-#: chunk body) and count under ``<kernel>_chunk``; K4's wide calls (a
-#: suffix appended to a stored prefix) run the 64-row body and count
-#: under ``decode_attention_rows``.
+#: A decode kernel's wide bf16 calls (rows > ``SPLIT_ROWS``: a prefill,
+#: or a suffix appended to a stored prefix) run a tensor-core body (K4,
+#: K5: K1's forward body over bf16 or int8 K/V; K6, K7: the chunk body)
+#: and count under ``<kernel>_chunk``.
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-    "decode_attention_rows": 0, "decode_attention_q8": 0, "decode_attention_q8_chunk": 0, "paged_decode_attention": 0,
-    "paged_decode_attention_chunk": 0, "paged_decode_attention_q8": 0,
-    "paged_decode_attention_q8_chunk": 0,
+    "decode_attention_chunk": 0, "decode_attention_q8": 0, "decode_attention_q8_chunk": 0,
+    "paged_decode_attention": 0, "paged_decode_attention_chunk": 0,
+    "paged_decode_attention_q8": 0, "paged_decode_attention_q8_chunk": 0,
 }
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -223,6 +224,19 @@ def _normalize_valid_len(valid_len, b: int, device) -> torch.Tensor:
             f"valid_len must be a scalar or shape ({b},), got {tuple(vl.shape)}"
         )
     return vl.contiguous()
+
+
+def _sees_a_key(vl: torch.Tensor, s: int, capacity: int, window: int | None) -> torch.Tensor:
+    """``(b, s)``: whether query row i of each batch row (position
+    ``valid_len - s + i``) sees a key of the cache: its newest visible
+    key, ``min(position, capacity - 1)``, exists and lies within
+    ``window``."""
+    pos = vl[:, None] - s + torch.arange(s, device=vl.device)
+    newest = torch.clamp_max(pos, capacity - 1)
+    sees = newest >= 0
+    if window is not None:
+        sees = sees & (pos - newest < window)
+    return sees
 
 
 def decode_attention_reference(
@@ -706,13 +720,15 @@ def decode_attention(
     ``csrc/decode_attention_q8.cu`` (K5) (bf16 or fp32 queries, head_dim
     64 or 128): a call of at most ``SPLIT_ROWS`` rows (``g * s``, every
     decode step) runs the split-K body, ``decode_splits`` splits of the
-    capacity merged by a combine kernel; a wider call runs the 64-row
-    body, except K5's bf16 ones (the int8 engine's admission prefill),
-    which run K1's tensor-core forward body over the int8 K/V (one block
-    per 128 rows of a query head, reading kv head ``head // (h // hkv)``),
-    counted as ``decode_attention_q8_chunk``. CPU tensors run
-    :func:`decode_attention_reference` (int8: on the dequantized caches in
-    fp32, cast to q's dtype).
+    capacity merged by a combine kernel; a wider bf16 call (a prefix
+    hit's suffix appended to a warm cache; K5: the int8 engine's
+    admission prefill) runs K1's tensor-core forward body over the bf16
+    or int8 K/V (one block per 128 rows of a query head, reading kv head
+    ``head // (h // hkv)``), counted as ``decode_attention_chunk`` or
+    ``decode_attention_q8_chunk``; a wider fp32 call runs the 64-row
+    body. CPU tensors run :func:`decode_attention_reference` (int8: on
+    the dequantized caches in fp32, cast to q's dtype), with a row that
+    sees no key at 0 as the kernels write it.
     """
     quantized = _check_scales(k_scale, v_scale)
     if window is not None and window < 1:
@@ -734,8 +750,10 @@ def decode_attention(
     vl = _normalize_valid_len(valid_len, b, q.device)
     if _device_of("decode_attention", q) == "cpu":
         if quantized:
-            return decode_attention_q8_reference(q, k, v, k_scale, v_scale, vl, sm_scale, window)
-        return decode_attention_reference(q, k, v, vl, sm_scale, window)
+            o = decode_attention_q8_reference(q, k, v, k_scale, v_scale, vl, sm_scale, window)
+        else:
+            o = decode_attention_reference(q, k, v, vl, sm_scale, window)
+        return torch.where(_sees_a_key(vl, s, cap, window)[:, None, :, None], o, 0.0)
     q = q.contiguous()
     o = torch.empty_like(q)
     rows = (h // hkv) * s
@@ -761,11 +779,8 @@ def decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), o.data_ptr(), *common,
         )
     _build.check(name, rc)
-    # K5's wide bf16 calls ran the tensor-core forward body, K4's wide
-    # calls the 64-row body: each counted on its own.
-    if rows > SPLIT_ROWS and not quantized:
-        name += "_rows"
-    elif rows > SPLIT_ROWS and q.dtype == torch.bfloat16:
+    # A wide bf16 call ran the tensor-core forward body: counted on its own.
+    if rows > SPLIT_ROWS and q.dtype == torch.bfloat16:
         name += "_chunk"
     LAUNCHES[name] += 1
     return o

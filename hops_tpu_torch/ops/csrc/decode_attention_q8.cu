@@ -24,39 +24,6 @@
 #include "decode_split.cuh"
 #include "flash_fwd_tc.cuh"
 
-namespace {
-
-// The wide bf16 calls, on the forward body over int8 K/V: q (b, h, s,
-// D) bf16 with h = hkv * g; k, v (b * hkv, cap, D) int8; k_scale, v_scale
-// (b * hkv, cap) fp32; valid_len (b,) int32; o like q. Causal at offset
-// valid_len - s. Returns 0 or a cudaError_t code.
-int launch_q8(const void* q, const void* k, const void* v, const float* k_scale,
-              const float* v_scale, const int* valid_len, void* o, int b, int h, int hkv, int s,
-              int cap, int head_dim, float sm_scale, int window, cudaStream_t stream) {
-  const long long bh = static_cast<long long>(b) * h;
-  if (b < 1 || hkv < 1 || h % hkv || s < 1 || cap < 1 || bh > 2147483647LL ||
-      (s + hops::fwd::BM - 1) / hops::fwd::BM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  hops::fwd::Args a{};
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.valid_len = valid_len;
-  a.k_scale = k_scale;
-  a.v_scale = v_scale;
-  a.seq_q = s;
-  a.seq_k = cap;
-  a.h = h;
-  a.g = h / hkv;
-  a.sm_scale = sm_scale;
-  a.causal = 1;
-  a.window = window;
-  const int nq = static_cast<int>(bh);
-  if (head_dim == 64) return hops::fwd::launch_body<64, true>(q, k, v, a, nq, b * hkv, stream);
-  if (head_dim == 128) return hops::fwd::launch_body<128, true>(q, k, v, a, nq, b * hkv, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
-
 extern "C" {
 
 // q: (b*hkv, rows, head_dim) with rows = g*s (the query's (b, h, s, d)
@@ -94,10 +61,11 @@ int hops_decode_attention_q8(const void* q, const void* k, const void* v,
   if (n_splits != 1) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     if (rows % s) return (int)cudaErrorInvalidValue;
-    return launch_q8(q, k, v, a.k_scale, a.v_scale, a.valid_len, o, b, hkv * (rows / s), hkv, s,
-                     cap, head_dim, sm_scale, window, static_cast<cudaStream_t>(stream));
+    return hops::fwd::launch_decode</*Q8=*/true>(
+        q, k, v, a.k_scale, a.v_scale, a.valid_len, o, b, hkv * (rows / s), hkv, s, cap,
+        head_dim, sm_scale, window, static_cast<cudaStream_t>(stream));
   }
-  return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/false>(a, b, head_dim, is_bf16, stream);
+  return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/false>(a, b, head_dim, stream);
 }
 
 // Dynamic shared memory (bytes) of the tensor-core forward body over

@@ -1,16 +1,16 @@
 // Decode attention that reads each key through a row index, for Hopper
 // (sm_90a): the 64-row FMA body of the four decode kernels, for the
 // calls no faster body takes: fp32 queries wider than split::MAX_ROWS
-// rows (and K4's wider bf16 calls, a multi-token append to a warm
-// cache, off the main path):
-//   K4 decode_attention.cu         (`_decode_kernel`, dense bf16/fp32 cache),
+// rows (the checks' type, and fp32 engines' prefill chunks and appends):
+//   K4 decode_attention.cu         (`_decode_kernel`, dense fp32 cache),
 //   K5 decode_attention_q8.cu      (`_decode_q8_kernel`, dense int8 cache),
-//   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, bf16/fp32 pools),
+//   K6 paged_decode_attention.cu   (`_paged_decode_kernel`, fp32 pools),
 //   K7 paged_decode_attention_q8.cu (`_paged_decode_q8_kernel`, int8 pools).
 // Decode steps (rows <= 16) of all four take the split-K body of
-// decode_split.cuh; wide bf16 calls of K5, K6 and K7 (prefill) the
-// tensor-core body of decode_chunk.cuh. So this body now serves only
-// fp32 wide calls (and K4's wide bf16 calls). The kernels are in
+// decode_split.cuh; wide bf16 calls of K4 and K5 take K1's tensor-core
+// forward body (flash_fwd_tc.cuh), those of K6 and K7 the tensor-core
+// chunk body of decode_chunk.cuh. So this body serves fp32 wide calls alone and is
+// instantiated for fp32 queries only. The kernels are in
 // hops_tpu/ops/attention.py. This body: one block per (batch*kv_head, 64-row
 // query tile), the g query heads of a kv head folded into g*s rows,
 // valid_len read on the device, only the key tiles of
@@ -48,9 +48,9 @@
 // byte: bound by the bytes it reads, which are O(valid_len). This body
 // is simple (fp32 FMAs from shared memory, one block walking its key
 // range alone), and fills only b*hkv SMs at one row tile. It stays for
-// the calls above and for fp32 checks; every decode step moved to the
-// split-K body (flash-decoding), which fills all SMs at small batch, and
-// the bf16 prefill calls to the tensor-core body.
+// the fp32 calls above; every decode step moved to the split-K body
+// (flash-decoding), which fills all SMs at small batch, and every bf16
+// wide call to a tensor-core body.
 
 #pragma once
 
@@ -317,6 +317,7 @@ int launch(const Args& a, int bhkv, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The cache element type of a kernel over T queries: T, or int8.
 template <typename T, bool Q8>
 struct kv_of {
   using type = T;
@@ -326,25 +327,19 @@ struct kv_of<T, true> {
   using type = int8_t;
 };
 
-// The C entry points' common tail: check the sizes, pick the
-// instantiation for (query dtype, head_dim), launch. Returns 0 or a
+// The C entry points' common tail for the wide fp32 calls: check the
+// sizes, pick the instantiation for head_dim, launch. Returns 0 or a
 // cudaError_t code.
 template <bool Q8, bool PAGED>
-int dispatch(const Args& a, int b, int head_dim, int is_bf16, void* stream) {
+int dispatch(const Args& a, int b, int head_dim, void* stream) {
   const long long bhkv = (long long)b * a.hkv;
   if (b < 1 || a.hkv < 1 || bhkv > 65535 || a.rows < 1 || a.s < 1 || a.rows % a.s ||
       a.cap < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    using KV = typename kv_of<__nv_bfloat16, Q8>::type;
-    if (head_dim == 64) return launch<__nv_bfloat16, KV, 64, PAGED>(a, (int)bhkv, st);
-    if (head_dim == 128) return launch<__nv_bfloat16, KV, 128, PAGED>(a, (int)bhkv, st);
-  } else {
-    using KV = typename kv_of<float, Q8>::type;
-    if (head_dim == 64) return launch<float, KV, 64, PAGED>(a, (int)bhkv, st);
-    if (head_dim == 128) return launch<float, KV, 128, PAGED>(a, (int)bhkv, st);
-  }
+  using KV = typename kv_of<float, Q8>::type;
+  if (head_dim == 64) return launch<float, KV, 64, PAGED>(a, (int)bhkv, st);
+  if (head_dim == 128) return launch<float, KV, 128, PAGED>(a, (int)bhkv, st);
   return (int)cudaErrorInvalidValue;
 }
 

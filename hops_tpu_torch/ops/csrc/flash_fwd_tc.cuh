@@ -1,7 +1,9 @@
 // The tensor-core forward body of K1 (`_fwd_kernel` in
-// hops_tpu/ops/attention.py; flash_fwd.cu, bf16 calls) and of K5's wide
-// bf16 calls (`_decode_q8_kernel`, the int8 engine's admission prefill;
-// decode_attention_q8.cu), for Hopper (sm_90a).
+// hops_tpu/ops/attention.py; flash_fwd.cu, bf16 calls) and of the wide
+// bf16 calls of the dense decode kernels: K4's (`_decode_kernel`, a
+// suffix appended to a warm cache; decode_attention.cu) over bf16 K/V
+// and K5's (`_decode_q8_kernel`, the int8 engine's admission prefill;
+// decode_attention_q8.cu) over int8 K/V, for Hopper (sm_90a).
 //
 // What it computes, per query head `bh` = b * h + head of q (b, h, seq_q,
 // d) and its kv head `bi * (h / g) + head / g` of (b, h / g, seq_k, d)
@@ -11,10 +13,18 @@
 //         log, -inf when a row sees no key)
 // Query row i sits at position i + off and sees the keys at positions
 // below kv_len, at or below its own (causal) and within `window`. K1:
-// off = q_offset, kv_len = seq_k, causal as asked. K5: off = valid_len[b]
-// - seq_q and kv_len = min(valid_len[b], seq_k), read on the device per
-// batch row; always causal. A row that sees no key writes o = 0 (and lse
-// = -inf).
+// off = q_offset, kv_len = seq_k, causal as asked. K4, K5 (`valid_len`
+// set): off = valid_len[b] - seq_q and kv_len = min(valid_len[b],
+// seq_k), read on the device per batch row and selected before the
+// first wgmma; always causal. A row that sees no key writes o = 0 (and
+// lse = -inf).
+//
+// K4's K/V are cache memory up to seq_k (the capacity): the keys at or
+// past kv_len in the last tile a block visits are stale slots, possibly
+// NaN or +-1e30. Their scores are -inf by a select; their V rows are
+// zeroed in shared memory before that tile's P.V (p = 0 times a NaN row
+// would still be NaN), so neither reaches a sum. K1's keys past seq_k
+// are TMA zero-fills.
 //
 // K5's K/V are int8 with an fp32 scale per key (k_scale, v_scale of shape
 // (b * hkv, seq_k)), as the JAX kernel reads them: score = (q . k_int8) *
@@ -53,7 +63,7 @@
 //   serialize every wgmma. No 256-thread barrier runs per tile. Each warp
 //   marks a stage "empty" (an mbarrier, one arrival per warp) once its
 //   P.V of the stage's tile is done.
-// - bf16 K/V (K1): Q once, then 128-key K and V tiles by TMA straight
+// - bf16 K/V (K1, K4): Q once, then 128-key K and V tiles by TMA straight
 //   into the 128-byte-swizzled panels that wgmma reads, through a 3-stage
 //   ring (229,376 bytes of tiles at d 128) with full mbarriers for K and
 //   V apart, so S can start before V lands. Thread 0 loads Q and tiles
@@ -109,14 +119,14 @@ constexpr float LN2 = 0.6931471805599453f;
 
 struct Args {
   bf16* o;                 // (b * h, seq_q, D)
-  float* lse;              // K1: (b * h, seq_q); K5: null
-  const int* valid_len;    // K5: (b,)
+  float* lse;              // K1: (b * h, seq_q); K4, K5: null
+  const int* valid_len;    // K4, K5: (b,); K1: null
   const float* k_scale;    // K5: (b * hkv, seq_k)
   const float* v_scale;
   int seq_q, seq_k;
   int h, g;                // query heads per batch row; query heads per kv head
   float sm_scale;
-  int causal, q_offset, window;  // K5: causal, q_offset unused; window <= 0: none
+  int causal, q_offset, window;  // K4, K5: causal, q_offset unused; window <= 0: none
 };
 
 // bf16 K/V: 128-key tiles, 3 stages, loaded straight into the panels.
@@ -241,8 +251,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const int bhk = bi * (a.h / a.g) + (bh % a.h) / a.g;
   const int causal = Q8 ? 1 : a.causal;
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  // K4, K5: the offset and key count of this batch row, from valid_len.
+  // Scalars chosen here, before any wgmma: no wgmma sits on a branch.
+  const bool ragged = Q8 || a.valid_len != nullptr;
   int off = a.q_offset, kv_len = a.seq_k;
-  if constexpr (Q8) {
+  if (ragged) {
     const int vl = a.valid_len[bi];
     off = vl - a.seq_q;
     kv_len = max(min(vl, a.seq_k), 0);
@@ -259,7 +272,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     bf16* o = a.o + (base + q0) * D;
     for (int i = tid; i < nrows * D / 8; i += THREADS)
       reinterpret_cast<uint4*>(o)[i] = make_uint4(0, 0, 0, 0);
-    if (!Q8 && tid < nrows) a.lse[base + q0 + tid] = -INFINITY;
+    if (a.lse != nullptr && tid < nrows) a.lse[base + q0 + tid] = -INFINITY;
     return;
   }
 
@@ -414,7 +427,22 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       if constexpr (HS) mbar_wait(&sm.ready[s], ph);
     } else {
       if constexpr (HS) mbar_wait(&sm.k_full[s], ph);
-      if constexpr (HP) mbar_wait(&sm.v_full[sp], ((k - 1) / STAGES) & 1);
+      if constexpr (HP) {
+        mbar_wait(&sm.v_full[sp], ((k - 1) / STAGES) & 1);
+        // K4: tile k - 1 (the walk's last when it crosses kv_len) holds
+        // cache slots at or past kv_len; zero their V rows before this
+        // warpgroup's P.V reads them. Each warpgroup zeroes them for its
+        // own P.V (the other may write the same zeros); the turn's
+        // barrier below orders this warpgroup's stores before its wgmma.
+        const int r0v = kv_len - (lo + k - 1) * BN;  // >= 1: the tile holds key kv_len - 1
+        if (ragged && r0v < BN) {
+          const int nz = (BN - r0v) * 8;  // 16-byte chunks to zero per 64-column panel
+          for (int i = t; i < nz * (D / 64); i += 128)
+            reinterpret_cast<uint4*>(sm.v[sp] + (i / nz) * BN * 64)[r0v * 8 + i % nz] =
+                make_uint4(0, 0, 0, 0);
+          fence_proxy_async();
+        }
+      }
     }
     named_bar_sync(1 + wg, THREADS);
     // S = Q K^T over tile k (raw scores, 64 rows x BN keys), then O += P V
@@ -497,7 +525,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     for (int jn = 0; jn < D / 8; ++jn)
       *reinterpret_cast<uint32_t*>(orow + 8 * jn + c0) =
           pack_bf16(acc[4 * jn + 2 * h] * inv, acc[4 * jn + 2 * h + 1] * inv);
-    if (!Q8 && lane % 4 == 0)
+    if (a.lse != nullptr && lane % 4 == 0)
       a.lse[base + row] = m[h] == -INFINITY ? -INFINITY : (m[h] + log2f(l_safe)) * LN2;
   }
 }
@@ -523,6 +551,37 @@ int launch_body(const void* q, const void* k, const void* v, const Args& a, int 
   const dim3 grid(bh, (a.seq_q + BM - 1) / BM);
   fwd_kernel<D, Q8><<<grid, THREADS, smem, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide bf16 calls of the dense decode kernels (K4: Q8 false, bf16
+// K/V; K5: int8 K/V with k_scale, v_scale (b * hkv, cap) fp32): q (b, h,
+// s, D) bf16 with h = hkv * g; k, v (b * hkv, cap, D); valid_len (b,)
+// int32; o like q. Causal at offset valid_len - s. Returns 0 or a
+// cudaError_t code.
+template <bool Q8>
+int launch_decode(const void* q, const void* k, const void* v, const float* k_scale,
+                  const float* v_scale, const int* valid_len, void* o, int b, int h, int hkv,
+                  int s, int cap, int head_dim, float sm_scale, int window, cudaStream_t stream) {
+  const long long bh = static_cast<long long>(b) * h;
+  if (b < 1 || hkv < 1 || h % hkv || s < 1 || cap < 1 || bh > 2147483647LL ||
+      (s + BM - 1) / BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.o = static_cast<bf16*>(o);
+  a.valid_len = valid_len;
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.seq_q = s;
+  a.seq_k = cap;
+  a.h = h;
+  a.g = h / hkv;
+  a.sm_scale = sm_scale;
+  a.causal = 1;
+  a.window = window;
+  const int nq = static_cast<int>(bh);
+  if (head_dim == 64) return launch_body<64, Q8>(q, k, v, a, nq, b * hkv, stream);
+  if (head_dim == 128) return launch_body<128, Q8>(q, k, v, a, nq, b * hkv, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory (bytes) of the body at head_dim, or -1 for a

@@ -55,7 +55,7 @@ int hops_paged_decode_attention(const void* q, const void* k, const void* v,
                                                  split_keys, stream);
   if (n_splits != 1) return (int)cudaErrorInvalidValue;
   if (is_bf16) return hops::chunk::dispatch</*Q8=*/false>(a, b, head_dim, stream);
-  return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
+  return hops::decode::dispatch</*Q8=*/false, /*PAGED=*/true>(a, b, head_dim, stream);
 }
 
 // Dynamic shared memory (bytes) of the tensor-core body at head_dim, or

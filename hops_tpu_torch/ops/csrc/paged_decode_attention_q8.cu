@@ -49,7 +49,7 @@ int hops_paged_decode_attention_q8(const void* q, const void* k, const void* v,
         a, b, head_dim, is_bf16, static_cast<float*>(workspace), n_splits, split_keys, stream);
   if (n_splits != 1) return (int)cudaErrorInvalidValue;
   if (is_bf16) return hops::chunk::dispatch</*Q8=*/true>(a, b, head_dim, stream);
-  return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/true>(a, b, head_dim, is_bf16, stream);
+  return hops::decode::dispatch</*Q8=*/true, /*PAGED=*/true>(a, b, head_dim, stream);
 }
 
 // Dynamic shared memory (bytes) of the int8 tensor-core body at

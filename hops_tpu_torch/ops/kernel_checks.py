@@ -1,7 +1,7 @@
-"""Check cases and operands of the cache kernels (K5 dense int8, K6 and K7
-paged), shared by ``chip_smoke.py`` phase 3c and
-``tests/test_torch_kernels.py``, so that both hold the kernels to the
-same cases with the same operands.
+"""Check cases and operands of the cache kernels (K4's wide calls, K5
+dense int8, K6 and K7 paged), shared by ``chip_smoke.py`` phases 3 and
+3c and ``tests/test_torch_kernels.py``, so that both hold the kernels to
+the same cases with the same operands.
 
 Nothing here launches a kernel by itself: :func:`q8_call` goes through
 the public entry points, which run the kernel on CUDA tensors and the
@@ -23,8 +23,8 @@ Q8_SPLIT_CASES = {
     "gqa_rows_16_page_24": (24, 2064, 2, 4, [2064, 255, 257, 0, 1025], 300),
     "rows_5": (64, 2048, 8, 5, [5, 258, 1531, 2048], None),
 }
-# The wide bf16 calls (rows > 16: K6 and K7's tensor-core chunk body, K5's
-# tensor-core forward body): name -> (kv heads of 8 query heads, query
+# The wide bf16 calls (rows > 16: K6 and K7's tensor-core chunk body, K4's
+# and K5's tensor-core forward body): name -> (kv heads of 8 query heads, query
 # tokens, capacity); rows 17, 100, 256, GQA 20 and 100 (64-row chunk tiles
 # that span heads), s = capacity, the full causal form of the int8
 # engine's admission prefill (4 of the forward body's 128-row tiles), and
@@ -121,3 +121,16 @@ def q8_poisoned(kv, vl, pages) -> list[torch.Tensor]:
     k[where], v[where] = 127, -127
     ks, vs = torch.where(where, junk, ks), torch.where(where, junk, vs)
     return [k, v, ks, vs]
+
+
+def dense_poisoned(k: torch.Tensor, v: torch.Tensor, vl: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Copies of K4's dense ``(b, hkv, cap, d)`` caches whose positions at
+    or past each row's valid_len (stale slots of a reused cache) hold
+    garbage: NaN at even positions, +1e30 in K and -1e30 in V at odd ones
+    (a NaN value reaches an output through p·v even with p = 0)."""
+    pos = torch.arange(k.shape[2], device=k.device)
+    past = (pos[None, :] >= vl[:, None])[:, None, :, None]
+    k2, v2 = (torch.where(past, torch.where(pos[:, None] % 2 == 0, float("nan"), sign * 1e30)
+                          .to(t.dtype), t) for t, sign in ((k, 1.0), (v, -1.0)))
+    return k2, v2

@@ -114,6 +114,46 @@ def test_decode_attention_ragged_matches_jax_kernel(hkv, s, window):
     assert not got[0].any()  # vl == 0 row: zeros
 
 
+@pytest.mark.parametrize("hkv", [4, 2])
+@pytest.mark.parametrize("s", [40, 129])
+@pytest.mark.parametrize("window", [None, 40])
+def test_decode_attention_wide_matches_jax_kernel(hkv, s, window):
+    """Wide calls (rows g*s of 40 to 258, all over SPLIT_ROWS: a suffix
+    appended to a warm cache) against the interpreted JAX decode kernel,
+    with valid_len 17 < s: the rows before position 0 see no key, and the
+    port's CPU entry point writes 0 there as JAX's kernel and the port's
+    CUDA kernels do (no NaN)."""
+    b, h, cap, d = 4, 4, 256, 32
+    q = _rand(13, b, h, s, d)
+    k, v = _rand(14, b, hkv, cap, d), _rand(15, b, hkv, cap, d)
+    vl = np.array([0, 17, 130, 256], np.int32)
+    want = np.asarray(J.decode_attention(q, k, v, jnp.asarray(vl), window=window, block_k=128))
+    got = T.decode_attention(*_t(q, k, v), torch.from_numpy(vl), window=window)
+    assert (h // hkv) * s > T.SPLIT_ROWS
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[0].any() and not got[1, :, :s - 17].any()
+
+
+def test_decode_attention_q8_wide_matches_jax_kernel():
+    """The int8 cache at a wide call with rows before position 0: the
+    port's CPU entry point against JAX's interpreted int8 decode kernel
+    on the same int8 values and scales, NaN-free."""
+    b, h, hkv, s, cap, d = 4, 4, 2, 40, 256, 32
+    q = _rand(16, b, h, s, d)
+    (kq, ks), (vq, vs) = (T.quantize_kv(torch.from_numpy(_rand(n, b, hkv, cap, d)))
+                          for n in (17, 18))
+    vl = np.array([0, 17, 130, 256], np.int32)
+    want = np.asarray(J.decode_attention_q8(
+        *(jnp.asarray(a) for a in (q, kq.numpy(), vq.numpy(), ks.numpy(), vs.numpy(), vl)),
+        window=40, block_k=128, interpret=True))
+    got = T.decode_attention_q8(torch.from_numpy(q), kq, vq, ks, vs, torch.from_numpy(vl),
+                                window=40)
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[0].any() and not got[1, :, :s - 17].any()
+
+
 def test_decode_attention_scalar_valid_len_matches_jax():
     q = _rand(8, 2, 4, 1, 32)
     k, v = _rand(9, 2, 4, 128, 32), _rand(10, 2, 4, 128, 32)
@@ -162,7 +202,7 @@ def test_launch_counts_reset_and_cpu_launches_nothing():
     T.paged_decode_attention(q, gq, gq, torch.tensor([16, 16]), pages, k_scale=gs, v_scale=gs)
     assert T.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
-        "decode_attention_rows": 0, "decode_attention_q8": 0, "decode_attention_q8_chunk": 0,
+        "decode_attention_chunk": 0, "decode_attention_q8": 0, "decode_attention_q8_chunk": 0,
         "paged_decode_attention": 0,
         "paged_decode_attention_chunk": 0, "paged_decode_attention_q8": 0,
         "paged_decode_attention_q8_chunk": 0,

@@ -7,22 +7,21 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: the bf16 tensor-core bodies (K1's o, K2's dq, K3's dk and
-dv, K5's wide o on K1's body over int8 K/V, the prefill-chunk o of K6
-and K7) against the fp32 plain version
+dv, K4's and K5's wide o on K1's body over bf16 and int8 K/V, the
+prefill-chunk o of K6 and K7) against the fp32 plain version
 per element within their rounding, ``2**-8 * (mag + |plain|) + slack``
 (``mag``: the product whose operand the body rounds to bf16, over
 magnitudes, with int8 values dequantized; ``slack``: the kernel's fp32
 bound), and K1's lse within ``1e-4``; the split-K body of K4-K7, which
 computes in fp32 and rounds only its output, per element within
-``2**-8 * |plain| + 1e-4``; the other
-kernels' bf16 inputs ``max err <= 2e-2 + 2e-2 * max|plain|``; fp32
-inputs ``atol 1e-5`` for the forward
+``2**-8 * |plain| + 1e-4``; fp32 inputs ``atol 1e-5`` for the forward
 and decode kernels, ``atol 1e-4`` for the int8 and paged decode kernels
 at capacity 2048 (the phase-3 rule of ``chip_smoke.py``) and ``1e-4 *
 max(1, max|plain|)`` for the backward kernels, whose outputs grow with
 the row length (same arithmetic, another summation order); gradients
-and weights of a train step ``1e-4``; the scratch-block checks and two
-launches of the bf16 flash kernels on the same inputs are bit-exact.
+and weights of a train step ``1e-4``; the scratch-block and poisoned-slot
+checks and two launches of the bf16 flash kernels on the same inputs
+are bit-exact.
 """
 
 from __future__ import annotations
@@ -31,8 +30,9 @@ import pytest
 import torch
 
 from hops_tpu_torch.ops import attention as T
-from hops_tpu_torch.ops.kernel_checks import (Q8_SPLIT_CASES, WIDE_CASES, q8_call, q8_operands,
-                                              q8_plain, q8_poisoned, shuffled_table, wide_lengths)
+from hops_tpu_torch.ops.kernel_checks import (Q8_SPLIT_CASES, WIDE_CASES, dense_poisoned, q8_call,
+                                              q8_operands, q8_plain, q8_poisoned, shuffled_table,
+                                              wide_lengths)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,13 +41,6 @@ def _card() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda", 0)
-
-
-def _close_bf16(out, ref):
-    ref = torch.nan_to_num(ref.float(), nan=0.0)
-    tol = 2e-2 + 2e-2 * ref.abs().max().item()
-    assert torch.isfinite(out.float()).all()
-    assert (out.float() - ref).abs().max().item() <= tol
 
 
 def _close_rounded(out, ref, mag, slack):
@@ -213,16 +206,19 @@ def test_decode_kernel_matches_plain(d, hkv, s, window):
     q = torch.randn(4, 8, s, d, generator=g).to(dev, torch.bfloat16)
     k, v = (torch.randn(4, hkv, 2048, d, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     vl = torch.tensor([0, 1, 700, 2048], dtype=torch.int32, device=dev)
-    # Calls of more than SPLIT_ROWS rows run the 64-row body, counted apart.
-    name = "decode_attention" if (8 // hkv) * s <= T.SPLIT_ROWS else "decode_attention_rows"
+    # Calls of more than SPLIT_ROWS rows run K1's forward body, counted apart.
+    split = (8 // hkv) * s <= T.SPLIT_ROWS
+    name = "decode_attention" if split else "decode_attention_chunk"
     before = T.launch_counts()[name]
     o = T.decode_attention(q, k, v, vl, window=window)
     assert T.launch_counts()[name] == before + 1
-    ref = T.decode_attention_reference(q.float(), k.float(), v.float(), vl, window=window)
-    if (8 // hkv) * s <= T.SPLIT_ROWS:
+    f = [t.float() for t in (q, k, v)]
+    ref = T.decode_attention_reference(*f, vl, window=window)
+    if split:
         _close_rounded(o, ref, torch.zeros_like(ref), 1e-4)  # the split body: output rounding
-    else:
-        _close_bf16(o, ref)
+    else:  # the forward body rounds p for p·v
+        _close_rounded(o, ref, T.decode_attention_reference(*f[:2], f[2].abs(), vl, window=window),
+                       1e-4)
     assert not o[0].any()
 
 
@@ -241,15 +237,19 @@ def test_fp32_kernels_match_plain_closely():
     )
 
 
-def test_decode_kernel_ignores_garbage_past_valid_len():
+@pytest.mark.parametrize("h,hkv,s", [(1, 1, 1), (8, 2, 40)], ids=["split", "wide"])
+def test_decode_kernel_ignores_garbage_past_valid_len(h, hkv, s):
+    """K4 with NaN and +-1e30 in the cache slots at or past valid_len (K
+    and V): the split body (one row) and the forward body (rows 160, a
+    key tile that crosses valid_len) give the same bits."""
     dev = _card()
     g = torch.Generator().manual_seed(3)
-    q = torch.randn(1, 1, 1, 64, generator=g).to(dev, torch.bfloat16)
-    k, v = (torch.randn(1, 1, 256, 64, generator=g).to(dev, torch.bfloat16) for _ in range(2))
-    clean = T.decode_attention(q, k, v, 100)
-    k[:, :, 100:] = 1e30
-    v[:, :, 100:] = -1e30
-    torch.testing.assert_close(T.decode_attention(q, k, v, 100), clean, rtol=0, atol=0)
+    q = torch.randn(1, h, s, 64, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(1, hkv, 256, 64, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    vl = torch.tensor([100], dtype=torch.int32, device=dev)
+    clean = T.decode_attention(q, k, v, vl)
+    torch.testing.assert_close(T.decode_attention(q, *dense_poisoned(k, v, vl), vl), clean,
+                               rtol=0, atol=0)
 
 
 def test_unsupported_head_dim_raises_on_the_card():
@@ -550,6 +550,40 @@ def test_dense_split_body_matches_plain(dtype, d, case):
     for r, n in enumerate(valid):
         if n == 0:
             assert not o[r].any()
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hkv,s,cap", list(WIDE_CASES.values()), ids=list(WIDE_CASES))
+def test_dense_wide_body_matches_plain(hkv, s, cap, d, window):
+    """K4 on wide bf16 calls (rows > 16: K1's tensor-core forward body over
+    the dense bf16 cache, one launch counted as ``decode_attention_chunk``)
+    against the plain version per element within its rounding bound
+    (``mag = p·|v|``): valid_len 0, a length below s (rows before
+    position 0 write 0), a tile edge + 1, 1300 and full capacity (at s =
+    capacity, full causal); then NaN and +-1e30 in every slot at or past
+    valid_len change no bit."""
+    dev = _card()
+    g = torch.Generator().manual_seed(25)
+    valid, _ = wide_lengths(s, 64, cap)
+    q = torch.randn(len(valid), 8, s, d, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(len(valid), hkv, cap, d, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    assert (8 // hkv) * s > T.SPLIT_ROWS
+    before = T.launch_counts()
+    o = T.decode_attention(q, k, v, vl, window=window)
+    after = T.launch_counts()
+    assert after["decode_attention_chunk"] == before["decode_attention_chunk"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    f = [t.float() for t in (q, k, v)]
+    ref = T.decode_attention_reference(*f, vl, window=window)
+    mag = T.decode_attention_reference(*f[:2], f[2].abs(), vl, window=window)
+    _close_rounded(o, ref, mag, 1e-4)
+    assert not o[0].any()
+    assert not o[1, :, :s - valid[1]].any()  # positions below 0
+    dirty = T.decode_attention(q, *dense_poisoned(k, v, vl), vl, window=window)
+    torch.testing.assert_close(dirty, o, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("window", [None, 256])
