@@ -201,6 +201,31 @@ failure exits non-zero:
    stream may leave its reference only at a near tie: the two tokens'
    logits under the plain attention over the common prefix within
    ``NEAR_TIE_REL * ||logits||inf``. Every kernel of the path must launch.
+11. serving — the HTTP serving host (``modelrepo.serving``) in its own
+   workspace: (a) phase 4's artifact, registered in the port's registry,
+   behind an ``LM`` endpoint (4 slots, phase 10's prefix as ``"sys"``):
+   phase 4's 8 requests from 8 concurrent client threads through
+   ``make_inference_request``, then its first 4 again with ``"prefix_id":
+   "sys"`` from 4 threads; each stream must equal phase 4's (the prefix
+   requests: phase 10 (c)'s dense bf16 engine on the full prompts) up to
+   the near-tie rule; prints the client-seen latency p50/p99 and the
+   engine's TTFT p50, and K1, K4 and K4's wide calls must launch; (b)
+   ResNet-50 (phase 9's model at 224x224, bf16, seeded weights with
+   redrawn BatchNorm statistics) saved as a classifier bundle behind a
+   ``batching_enabled`` endpoint (``max_batch_size`` 16): two rounds of
+   16 concurrent one-image requests in packed frames (the first meets
+   cuDNN cold), the predictor alone on the 16 rows timed and profiled,
+   each row's argmax (second round) equal to the
+   module's own eval forward of the 16 rows (bar near ties), the logits'
+   distance from the fp32 forward within ``CLASSIFIER_REL`` times the
+   bf16 forward's own, fewer batches than requests, and a packed reply
+   (``Accept``) that decodes to the JSON reply of the same rows; (c)
+   ``/healthz`` 200, ``/metrics`` with the request counter and the batch
+   fill histogram, and a request past ``max_inflight`` answered 503 with
+   ``Retry-After``; (d) the model at 2 layers started with
+   ``standalone=True``: a ``serving_host`` process of its own on the
+   card answers one request as the in-process endpoint does, and
+   ``stop`` ends the process and closes its port.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -225,7 +250,8 @@ int8 keys (the forward body, ``decode_attention_q8_chunk``). After phase
 the bf16 cache) at a dense prefix's suffix append, beside their
 launches in phase 10, and at a GQA speculative verify (2 kv heads, 5
 tokens, 20 rows; its own line, and under ``gqa_verify`` in the record);
-the records of K1 and K4-K7 add phase 10's launches. The
+the records of K1 and K4-K7 add phase 10's launches, and those of K1,
+K4 and K4's wide calls phase 11's (under ``launches_by_path``, ``http``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -241,6 +267,7 @@ import re
 import shutil
 import statistics
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -379,6 +406,16 @@ PERFECT_ACCEPTANCE = 0.9
 NEAR_TIE_REL = 3e-2  # about 4 bf16 units in the last place of the largest logit
 PRIORITY_SLOTS, PRIORITY_BATCH, PRIORITY_INTERACTIVE, PRIORITY_NEW = 2, 6, 2, 8
 SPEC_NEW, BEAM, BEAM_NEW, BEAM_PROMPT, BEAM_REL = 48, 4, 32, 16, 1e-2
+# Phase 11: the serving host. CLASSIFIER_REQUESTS one-image requests
+# against a batcher capped at CLASSIFIER_BATCH rows and an endpoint
+# admitting as many at once; the served logits' distance from the fp32
+# forward within CLASSIFIER_REL times the bf16 forward's own (as phase 4
+# holds the LM's logits). The standalone host serves phase 4's model cut
+# to STANDALONE_LAYERS blocks.
+CLASSIFIER_REQUESTS = CLASSIFIER_BATCH = 16
+CLASSIFIER_REL = 1.5
+STANDALONE_LAYERS = 2
+SERVING_KERNELS = ("flash_fwd", "decode_attention", "decode_attention_chunk")
 # The kernels phase 10 must launch, by launch-count name.
 LEVER_KERNELS = ("flash_fwd", "decode_attention", "decode_attention_chunk", "decode_attention_q8",
                  "decode_attention_q8_chunk", "paged_decode_attention",
@@ -2388,8 +2425,10 @@ def describe(stats, ttft, wall) -> str:
 
 
 def levers_phase(A, torch, art, params, prompts, instances, answers, dev,
-                 card_line) -> dict[str, int]:
-    """Phase 10; returns its launch counts."""
+                 card_line, keep: dict | None = None) -> dict[str, int]:
+    """Phase 10; returns its launch counts. ``keep`` receives the prefix
+    (``"prefix"``) and the dense bf16 engine's streams on the full
+    prompts (``"prefix_want"``), which phase 11 holds its prefix hits to."""
     from hops_tpu_torch.models.generation import beam_search, generate, generate_speculative
     from hops_tpu_torch.modelrepo import registry
     from hops_tpu_torch.modelrepo.lm_engine import LMEngine
@@ -2476,6 +2515,8 @@ def levers_phase(A, torch, art, params, prompts, instances, answers, dev,
         want, stats, ttft, wall, pred = serve(art, dict(slots=4, **cache), [full_instances],
                                               torch)
         del pred
+        if keep is not None and dtype == "bfloat16":
+            keep.update(prefix=prefix, prefix_want=want)
         print(f"phase 10 (c) dense {dtype}, full prompts ({PREFIX_LEN} + prompt), no draft: "
               f"{describe(stats, ttft, wall)}", flush=True)
         for layout, base in (("dense", {"slots": 4}), ("paged", dict(PAGED_CFG, **spec))):
@@ -2608,6 +2649,290 @@ def levers_phase(A, torch, art, params, prompts, instances, answers, dev,
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     if missing:
         raise AssertionError(f"phase 10: {missing} never launched")
+    return launches
+
+
+def _concurrently(fn, args: list) -> list:
+    """``fn(arg)`` for each of ``args`` on a thread of its own, all
+    started together; the results in order. Raises the first error."""
+
+    out: list = [None] * len(args)
+    errors: list = []
+
+    def run(i):
+        try:
+            out[i] = fn(args[i])
+        except BaseException as e:  # re-raised below, in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("phase 11: a client thread did not finish in 300 s")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _http(port: int, path: str, body: bytes | None = None, headers: dict | None = None):
+    """(status, body, headers) of a request to the endpoint on ``port``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _timed(fn):
+    """``fn`` wrapped to return (its result, its wall seconds)."""
+    def run(arg):
+        t0 = time.perf_counter()
+        out = fn(arg)
+        return out, time.perf_counter() - t0
+    return run
+
+
+def _pcts(seconds) -> str:
+    ms = sorted(x * 1e3 for x in seconds)
+    return (f"p50 {statistics.median(ms):.1f} ms, p99 "
+            f"{ms[min(len(ms) - 1, math.ceil(0.99 * len(ms)) - 1)]:.1f} ms")
+
+
+def serving_phase(A, torch, art, params, prompts, instances, answers, prefix, prefix_want,
+                  dev, seed: int, card_line: str) -> dict[str, int]:
+    """Phase 11; returns the launch counts of (a)."""
+    import numpy as np
+
+    from hops_tpu_torch.models.convert import params_to_flax
+    from hops_tpu_torch.models.layers import BatchNorm
+    from hops_tpu_torch.models.resnet import ResNet50
+    from hops_tpu_torch.modelrepo import registry, serving
+    from hops_tpu_torch.modelrepo.serving import load_lm_artifact
+    from hops_tpu_torch.runtime import config, faultinject, wirecodec
+
+    config.configure(workspace=str(ROOT / "_smoke" / "serving"), project="chip_smoke")
+    t_phase = time.perf_counter()
+
+    # (a) the LM endpoint.
+    registry.export(art, "smoke-lm", metrics={"layers": MODEL["num_layers"]})
+    serving.create_or_update("smoke-lm", model_name="smoke-lm", model_server="LM",
+                             lm_config={"slots": 4, "prefixes": {"sys": prefix}})
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = serving.start("smoke-lm")  # loads the model and prefills the prefix
+    start_s = time.perf_counter() - t0
+    ttfts: list[float] = []
+    try:
+        engine = serving._servers["smoke-lm"].predictor.engine
+        observe = engine._observe_ttft
+
+        def keep_ttft(req):  # the engine drops a ticket's TTFT when its result is taken
+            observe(req)
+            ttfts.append(engine.ttft_s[req.ticket])
+
+        engine._observe_ttft = keep_ttft
+        ask = _timed(lambda inst: serving.make_inference_request(
+            "smoke-lm", {"instances": [inst]})["predictions"][0])
+        plain = _concurrently(ask, instances)
+        sfx = _concurrently(ask, [dict(i, prefix_id="sys") for i in instances[:4]])
+        torch.cuda.synchronize()
+        launches = A.launch_counts()
+        stats = serving.get_model_status("smoke-lm")["engine"]
+    finally:
+        serving.stop("smoke-lm")
+    got, got_sfx = [a for a, _ in plain], [a for a, _ in sfx]
+    model = load_lm_artifact(art, dev)
+    notes = near_ties(model, torch, prompts, got, answers, dev, "phase 11 (a)")
+    full = [prefix + p for p in prompts[:4]]
+    notes_sfx = near_ties(model, torch, full, got_sfx, prefix_want[:4], dev,
+                          "phase 11 (a) prefix")
+    del model
+    torch.cuda.empty_cache()
+    missing = [k for k in SERVING_KERNELS if not launches[k]]
+    print(f"phase 11 (a) LM endpoint on port {cfg['port']} (start {start_s:.1f} s, prefix "
+          f"{len(prefix)} tokens): 8 concurrent requests, client latency "
+          f"{_pcts([t for _, t in plain])}; 4 concurrent prefix requests, client latency "
+          f"{_pcts([t for _, t in sfx])}; engine TTFT p50 of the 8 "
+          f"{statistics.median(ttfts[:8]) * 1e3:.1f} ms, of the 4 prefix hits "
+          f"{statistics.median(ttfts[8:]) * 1e3:.1f} ms; prefix hits {stats['prefix_hits']}, "
+          f"{stats['dispatches']} dispatches, admission waves {stats['admission_waves']}; "
+          f"streams equal phase 4's: leading tokens {same_lead(got, answers)}; "
+          + ("; ".join(notes) or "all identical") + "; prefix streams equal phase 10 (c)'s: "
+          f"leading tokens {same_lead(got_sfx, prefix_want[:4])}; "
+          + ("; ".join(notes_sfx) or "all identical")
+          + f"; launches { {k: launches[k] for k in SERVING_KERNELS} }; card {card_line}",
+          flush=True)
+    if missing:
+        raise AssertionError(f"phase 11 (a): {missing} never launched")
+    if len(ttfts) != 12 or stats["prefix_hits"] < 4:
+        raise AssertionError(f"phase 11 (a): {len(ttfts)} TTFTs, {stats['prefix_hits']} "
+                             "prefix hits")
+
+    # (b) ResNet-50 behind a batching classifier endpoint.
+    model = ResNet50(RESNET_CLASSES, device=dev, seed=seed)
+    g = torch.Generator().manual_seed(seed + 11)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, BatchNorm):
+                m.mean.copy_(torch.randn(m.mean.shape, generator=g) * 0.1)
+                m.var.copy_(torch.rand(m.var.shape, generator=g) + 0.5)
+                if name.endswith("BatchNorm_2"):  # zero-initialised: open the branch
+                    m.scale.copy_(torch.rand(m.scale.shape, generator=g) * 0.2)
+    model.eval()
+    fields = {"stage_sizes": [3, 4, 6, 3], "num_classes": RESNET_CLASSES, "dtype": "bfloat16"}
+    registry.save_classifier("ResNet", fields, params_to_flax(model), "smoke-resnet")
+    serving.create_or_update("smoke-resnet", model_name="smoke-resnet", batching_enabled=True,
+                             batching_config={"max_batch_size": CLASSIFIER_BATCH},
+                             # More handler threads than admitted requests, so that
+                             # one past the cap reaches admission and is shed.
+                             resilience_config={"max_inflight": CLASSIFIER_REQUESTS,
+                                                "http_workers": 2 * CLASSIFIER_REQUESTS})
+    x = torch.randn(CLASSIFIER_REQUESTS, RESNET_IMAGE, RESNET_IMAGE, 3, generator=g).numpy()
+    t0 = time.perf_counter()
+    cfg = serving.start("smoke-resnet")
+    start_s = time.perf_counter() - t0
+    port = cfg["port"]
+    packed = {"Content-Type": wirecodec.MEDIA_TYPE}
+    path = "/v1/models/smoke-resnet:predict"
+
+    def classify(i):
+        code, body, _ = _http(port, path, wirecodec.encode_instances(x[i:i + 1]), packed)
+        if code != 200:
+            raise AssertionError(f"phase 11 (b): request {i} answered {code}: {body[:200]}")
+        return json.loads(body)["predictions"][0]
+
+    try:
+        batcher = serving._servers["smoke-resnet"].batcher
+        # Two rounds: the first meets cuDNN and the allocator cold.
+        cold = _concurrently(_timed(classify), list(range(CLASSIFIER_REQUESTS)))
+        cold_batches = batcher.batches_run
+        rows = _concurrently(_timed(classify), list(range(CLASSIFIER_REQUESTS)))
+        batches = batcher.batches_run - cold_batches
+        code_j, body_j, _ = _http(port, path, wirecodec.encode_instances(x[:2]), packed)
+        code_p, body_p, hdrs = _http(port, path, wirecodec.encode_instances(x[:2]),
+                                     {**packed, "Accept": wirecodec.MEDIA_TYPE})
+        # (c) routes, on the same endpoint.
+        code_h, _, _ = _http(port, "/healthz")
+        code_m, metrics, _ = _http(port, "/metrics")
+        metrics = metrics.decode()
+        faultinject.arm(f"serving.handle=latency:1.0@times={CLASSIFIER_REQUESTS}")
+        try:
+            held = []
+            holders = threading.Thread(target=lambda: held.append(_concurrently(
+                lambda i: _http(port, path, wirecodec.encode_instances(x[i:i + 1]), packed)[0],
+                list(range(CLASSIFIER_REQUESTS)))))
+            holders.start()
+            time.sleep(0.5)  # every slot is held inside the handler
+            code_o, _, hdrs_o = _http(port, path, wirecodec.encode_instances(x[:1]), packed)
+            holders.join(timeout=300)
+        finally:
+            faultinject.disarm()
+        # Where a warm request's time goes: the predictor alone on the 16
+        # rows (this thread, no HTTP, no batcher), timed and profiled.
+        predictor = serving._servers["smoke-resnet"].predictor
+        direct_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            predictor.predict(x)  # ends in a copy to the host
+            direct_s.append(time.perf_counter() - t0)
+        wall_p, busy_p, kernels_p = device_profile(torch, lambda: predictor.predict(x))
+    finally:
+        serving.stop("smoke-resnet")
+    served = torch.tensor([r for r, _ in rows])
+    with torch.inference_mode():
+        xt = torch.from_numpy(x).to(dev)
+        direct = model(xt).float().cpu()
+        ref = ResNet50(RESNET_CLASSES, dtype="float32", device=dev)
+        ref.load_state_dict(model.state_dict())
+        ref32 = ref.eval()(xt).float().cpu()
+    del model, ref, xt
+    torch.cuda.empty_cache()
+    d_bf16 = (direct - ref32).abs().max().item()
+    d_served = (served - ref32).abs().max().item()
+    top2 = direct.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) <= 2 * d_bf16
+    differ = (served.argmax(1) != direct.argmax(1))
+    json_rows = np.asarray(json.loads(body_j)["predictions"])
+    print(f"phase 11 (b) ResNet-50 endpoint (batching, max_batch_size {CLASSIFIER_BATCH}; start "
+          f"{start_s:.1f} s): {CLASSIFIER_REQUESTS} concurrent one-image packed requests in "
+          f"{batches} batches, client latency {_pcts([t for _, t in rows])} (the first round, "
+          f"cold: {cold_batches} batches, {_pcts([t for _, t in cold])}); argmax differs "
+          f"from the direct eval forward in {int(differ.sum())} rows ({int((differ & near).sum())} "
+          f"at a near tie); ||served - fp32||inf {d_served:.4e}, ||bf16 forward - fp32||inf "
+          f"{d_bf16:.4e} (bound {CLASSIFIER_REL}x); packed reply {hdrs.get('Content-Type')}; "
+          f"card {card_line}", flush=True)
+    if bool((differ & ~near).any()):
+        raise AssertionError("phase 11 (b): an argmax differs from the direct forward's "
+                             "without a near tie")
+    if not d_served <= CLASSIFIER_REL * d_bf16:
+        raise AssertionError(f"phase 11 (b): served logits {d_served:.4e} from fp32, over "
+                             f"{CLASSIFIER_REL} x {d_bf16:.4e}")
+    if not batches < CLASSIFIER_REQUESTS:
+        raise AssertionError(f"phase 11 (b): {batches} batches for {CLASSIFIER_REQUESTS} "
+                             "requests")
+    if not (code_j == code_p == 200 and hdrs.get("Content-Type") == wirecodec.MEDIA_TYPE
+            and np.array_equal(wirecodec.decode_predictions(body_p), json_rows)):
+        raise AssertionError("phase 11 (b): the packed reply does not decode to the JSON reply")
+    convs = sum(ms for key, ms, _ in kernels_p if re.search(CONV_KERNELS, key))
+    print(f"phase 11 (b) the predictor alone on the {CLASSIFIER_REQUESTS} rows: "
+          f"{statistics.median(direct_s) * 1e3:.1f} ms (median of 3, host clock); profiled: wall "
+          f"{wall_p:.1f} ms, device busy {busy_p:.3f} ms, idle share {1 - busy_p / wall_p:.3f}, "
+          f"{sum(n for _, _, n in kernels_p)} launches, convolutions and the matrix product "
+          f"{convs:.3f} ms ({convs / busy_p:.1%} of busy); card {card_line}", flush=True)
+    fill = re.search(r'^hops_tpu_serving_batch_fill_ratio_count\{[^}]*model="smoke-resnet"\} '
+                     r'(\S+)', metrics, re.M)
+    count = re.search(r'^hops_tpu_serving_requests_total\{[^}]*model="smoke-resnet"\} (\S+)',
+                      metrics, re.M)
+    print(f"phase 11 (c) routes: /healthz {code_h}; /metrics {code_m}, requests_total "
+          f"{count and count.group(1)}, batch fill observations {fill and fill.group(1)}; a "
+          f"request past max_inflight {CLASSIFIER_REQUESTS} (each slot held 1 s by an injected "
+          f"latency): {code_o}, Retry-After {hdrs_o.get('Retry-After')}; the holders answered "
+          f"{held}", flush=True)
+    if not (code_h == code_m == 200 and fill and count and code_o == 503
+            and hdrs_o.get("Retry-After") and held == [[200] * CLASSIFIER_REQUESTS]):
+        raise AssertionError("phase 11 (c): a route answered wrong")
+
+    # (d) a standalone host on the card, at 2 layers.
+    keep = {k: v for k, v in params.items()
+            if not re.match(r"block_\d+/", k) or int(k.split("/")[0][6:]) < STANDALONE_LAYERS}
+    registry.save_lm(dict(MODEL, num_layers=STANDALONE_LAYERS), keep, "smoke-lm-2")
+    serving.create_or_update("smoke-lm-2", model_name="smoke-lm-2", model_server="LM",
+                             lm_config={"slots": 4})
+    serving.start("smoke-lm-2")
+    try:
+        want = serving.make_inference_request("smoke-lm-2", {"instances": instances[1:2]})
+    finally:
+        serving.stop("smoke-lm-2")
+    t0 = time.perf_counter()
+    cfg = serving.start("smoke-lm-2", standalone=True, timeout_s=300)
+    up_s = time.perf_counter() - t0
+    pid, port = cfg["pid"], cfg["port"]
+    try:
+        got = serving.make_inference_request("smoke-lm-2", {"instances": instances[1:2]})
+    finally:
+        serving.stop("smoke-lm-2")
+    alive, listening = serving._pid_alive(pid), serving._port_alive(port)
+    print(f"phase 11 (d) standalone host: pid {pid} up on port {port} in {up_s:.1f} s "
+          f"(its own interpreter and CUDA context); its answer "
+          f"{'equals' if got == want else 'differs from'} the in-process endpoint's "
+          f"({len(got['predictions'][0])} tokens); after stop: process alive {alive}, port "
+          f"open {listening} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if got != want:
+        model = load_lm_artifact(registry.lm_artifact("smoke-lm-2"), dev)
+        near_ties(model, torch, prompts[1:2], got["predictions"], want["predictions"], dev,
+                  "phase 11 (d)")
+        del model
+    if alive or listening:
+        raise AssertionError("phase 11 (d): stop left the standalone host running")
     return launches
 
 
@@ -2844,8 +3169,9 @@ def main() -> int:
         launch_launches = launch_phase(A, torch, dev, args.seed, card_line)
         print("phase 9 ok", flush=True)
         print("phase 10 levers:", flush=True)
+        kept: dict = {}
         lever_launches = levers_phase(A, torch, art, params, prompts, instances, answers,
-                                      dev, card_line)
+                                      dev, card_line, kept)
         print("phase 10 ok", flush=True)
         torch.cuda.empty_cache()
         with torch.inference_mode():
@@ -2857,6 +3183,12 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} ms; scaled_dot_product_attention {r['library_ms']:.4f} ms"
                   + (" (on the broadcast kv heads)" if r is not wide_row else "")
                   + f"; card {card_line}", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 11 serving:", flush=True)
+        http_launches = serving_phase(A, torch, art, params, prompts, instances, answers,
+                                      kept["prefix"], kept["prefix_want"], dev, args.seed,
+                                      card_line)
+        print("phase 11 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -2871,6 +3203,9 @@ def main() -> int:
             r["launches_by_path"]["levers"] = lever_launches[r["name"]]
             r["launches"] += lever_launches[r["name"]]
         wide_row["launches_by_path"] = {"levers": wide_row["launches"]}
+        for r in (k1, k4, wide_row):
+            r["launches_by_path"]["http"] = http_launches[r["name"]]
+            r["launches"] += http_launches[r["name"]]
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
     finally:
         if predictor is not None:

@@ -10,7 +10,9 @@ The port serves the TransformerLM through the continuous-batching engine
 on seven CUDA kernels written for Hopper (``ops/csrc``); it runs
 experiments through ``experiment.launch`` with preemption-safe
 checkpoints (``runtime.checkpoint``, ``runtime.preemption``) and trains
-the classifiers of ``models.mnist`` and ``models.resnet``.
+the classifiers of ``models.mnist`` and ``models.resnet``. The HTTP
+serving host (``modelrepo.serving``, ``modelrepo.serving_host``) serves
+both behind the TF-Serving REST contract.
 
 The package imports ``torch`` and numpy only — never ``jax``, ``flax``,
 ``optax``, ``orbax`` or ``hops_tpu`` — and its entry points run on the

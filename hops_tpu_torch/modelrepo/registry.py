@@ -6,10 +6,12 @@ project (:mod:`hops_tpu_torch.runtime.fs`), with a ``model.json`` of
 metadata; ``get_best_model(name, metric, Metric.MAX)`` returns the
 metadata ``{'name', 'version', 'metrics', ...}`` of the best version.
 
-The port stores a language model in its own artifact format, not as a
-pickled flax module: ``lm_config.json`` and ``params.npz``
-(:func:`save_lm`, written by
-:func:`hops_tpu_torch.modelrepo.serving.save_lm_artifact`).
+The port stores a model in its own artifact format, not as a pickled
+flax module (the JAX package's ``save_flax`` / ``load_flax``): a language
+model as ``lm_config.json`` and ``params.npz`` (:func:`save_lm`), a
+classifier as ``classifier.json`` and ``params.npz``
+(:func:`save_classifier`, which also converts a JAX bundle's weights).
+Both are written by :mod:`hops_tpu_torch.modelrepo.serving`.
 """
 
 from __future__ import annotations
@@ -87,6 +89,46 @@ def save_lm(
     with tempfile.TemporaryDirectory() as tmp:
         save_lm_artifact(tmp, lm_config, params)
         return export(tmp, name, metrics=metrics, description=description)
+
+
+def save_classifier(
+    module: str,
+    fields: Mapping[str, Any],
+    variables: Mapping[str, Any],
+    name: str,
+    metrics: dict[str, Any] | None = None,
+    description: str = "",
+) -> dict[str, Any]:
+    """Export a classifier (``CNN``, ``FFN`` or ``ResNet``) as a servable
+    bundle — the counterpart of the JAX package's ``save_flax``.
+
+    ``module`` is the class name, ``fields`` its constructor fields (a
+    JAX module's dataclass fields, dtypes included), ``variables`` its
+    weights: ``{"params": ..., "batch_stats": ...}`` as numpy trees.
+    Given a JAX ``save_flax`` bundle's ``params`` and
+    ``extra_variables`` (converted to numpy by the caller: this module
+    never unpickles one, since that needs flax), this converts it;
+    given :func:`~hops_tpu_torch.models.convert.params_to_flax` of a port
+    module, it saves that module
+    (:func:`~hops_tpu_torch.modelrepo.serving.save_classifier_artifact`)."""
+    from hops_tpu_torch.modelrepo.serving import save_classifier_artifact
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_classifier_artifact(tmp, module, fields, variables)
+        return export(tmp, name, metrics=metrics, description=description)
+
+
+def load_classifier(name: str, version: int | None = None, device: Any = None):
+    """A registered classifier on ``device`` (``None``: the card), in eval
+    mode — the counterpart of ``load_flax`` for :func:`save_classifier`
+    bundles."""
+    from hops_tpu_torch.modelrepo.serving import load_classifier_artifact
+
+    path = Path(get_model(name, version)["path"])
+    if not (path / "classifier.json").is_file():
+        raise ValueError(f"model {name!r} is not a classifier bundle "
+                         f"(no classifier.json in {path})")
+    return load_classifier_artifact(path, device)
 
 
 def lm_artifact(name: str, version: int | None = None) -> Path:

@@ -9,7 +9,8 @@ request tracing (counterpart of ``hops_tpu/telemetry``).
   training loops.
 - :mod:`~hops_tpu_torch.telemetry.tracing` — W3C-style distributed
   request tracing.
-
-The JAX package's ``export`` and ``workload`` modules are not ported
-yet.
+- :mod:`~hops_tpu_torch.telemetry.export` — Prometheus and JSON
+  exposition (the ``/metrics`` and ``/debug`` routes of every serving).
+- :mod:`~hops_tpu_torch.telemetry.workload` — workload capture, replay
+  and scenario synthesis.
 """

@@ -49,6 +49,14 @@ def test_every_module_imports_with_jax_blocked():
         "hops_tpu_torch.parallel.multihost", "hops_tpu_torch.models.mnist",
         "hops_tpu_torch.models.resnet", "hops_tpu_torch.models.layers",
     } <= set(mods)
+    assert {
+        "hops_tpu_torch.jobs", "hops_tpu_torch.jobs.api", "hops_tpu_torch.telemetry.workload",
+        "hops_tpu_torch.telemetry.workload.capture", "hops_tpu_torch.telemetry.workload.replay",
+        "hops_tpu_torch.telemetry.workload.synthesize", "hops_tpu_torch.telemetry.export",
+        "hops_tpu_torch.runtime.wirecodec", "hops_tpu_torch.runtime.httpserver",
+        "hops_tpu_torch.runtime.httpclient", "hops_tpu_torch.messaging.pubsub",
+        "hops_tpu_torch.modelrepo.serving_host",
+    } <= set(mods)
     code = (
         "import sys, importlib, json\n"
         f"for name in {BLOCKED!r}:\n"
@@ -148,6 +156,16 @@ def _entry_classifier(name):
     {"cnn": mnist.CNN, "ffn": mnist.FFN, "resnet": resnet.ResNet18ish}[name]()
 
 
+def _entry_classifier_predictor(tmp_path):
+    from hops_tpu_torch.models.convert import params_to_flax
+    from hops_tpu_torch.models.mnist import FFN
+    from hops_tpu_torch.modelrepo.serving import ClassifierPredictor, save_classifier_artifact
+
+    model = FFN(in_features=4, device="cpu")
+    save_classifier_artifact(tmp_path / "ffn", "FFN", {}, params_to_flax(model))
+    ClassifierPredictor(tmp_path / "ffn")
+
+
 def _entry_synthetic_data():
     from hops_tpu_torch.models.common import SyntheticClassData
 
@@ -155,7 +173,8 @@ def _entry_synthetic_data():
 
 
 @pytest.mark.parametrize("entry", ["transformer", "generate", "engine", "predictor",
-                                   "cnn", "ffn", "resnet", "synthetic_data",
+                                   "classifier_predictor", "cnn", "ffn", "resnet",
+                                   "synthetic_data",
                                    "generate_speculative", "beam_search"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path):
     _no_card()
@@ -164,6 +183,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path)
         "generate": _entry_generate,
         "engine": _entry_engine,
         "predictor": lambda: _entry_predictor(tmp_path),
+        "classifier_predictor": lambda: _entry_classifier_predictor(tmp_path),
         "cnn": lambda: _entry_classifier("cnn"),
         "ffn": lambda: _entry_classifier("ffn"),
         "resnet": lambda: _entry_classifier("resnet"),
