@@ -226,6 +226,31 @@ failure exits non-zero:
    ``standalone=True``: a ``serving_host`` process of its own on the
    card answers one request as the in-process endpoint does, and
    ``stop`` ends the process and closes its port.
+12. distribute — the distribution layer, within ``PHASE12_BUDGET_S``:
+   (a) a child process started by ``python -m hops_tpu_torch.launch
+   --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0
+   chip_smoke.py --distribute-worker <spec>`` (a NCCL group of one rank,
+   left in the child) trains phase 7's LM from phase 7's weights, batch
+   and seed: 8 steps through ``experiment.collective_all_reduce`` (DDP,
+   composable ``replicate``), whose losses must equal phase 7's bit for
+   bit (one rank's all-reduce is a copy, its divide by 1), then 8 steps of
+   ``ShardedStrategy(fsdp=-1)`` (FSDP2) from the same weights, each loss
+   within ``FSDP_LOSS_REL`` of DDP's; K1-K3 launch ``num_layers`` times
+   a step on both; (b) ``diagnostics.trace`` around 2 more DDP steps, then
+   ``roofline_report`` against ``device_peaks`` of the card's name (K1-K3
+   counted by PERF.md §2's count at their shapes) and ``top_ops``: the
+   trace's kernel count of each of K1-K3 must equal its ``LAUNCHES``
+   delta, and no category may read over 100% of a peak; (c)
+   ``lm_generate_with_model`` on phase 4's registered artifact with phase
+   4's requests, greedy (streams equal phase 4's up to the near-tie rule;
+   K1 and K4 launch), and ``predict_with_model`` on phase 11's ResNet-50
+   bundle over 100 images at ``per_chip_batch`` 32 (each argmax equal to
+   the module's direct forward bar near ties, as phase 11 (b)); (d)
+   ``experiment.launch`` trains ``WideAndDeep`` at the taxi pipeline's
+   vocabularies (embed 8, hidden (128, 64), bf16) 50 Adam steps on
+   ``make_taxi_batch`` 1024 (the loss must fall), and ``batch_predict`` of
+   10 000 feature vectors must equal the direct forward within bf16
+   rounding.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -251,7 +276,8 @@ the bf16 cache) at a dense prefix's suffix append, beside their
 launches in phase 10, and at a GQA speculative verify (2 kv heads, 5
 tokens, 20 rows; its own line, and under ``gqa_verify`` in the record);
 the records of K1 and K4-K7 add phase 10's launches, and those of K1,
-K4 and K4's wide calls phase 11's (under ``launches_by_path``, ``http``). The
+K4 and K4's wide calls phase 11's (under ``launches_by_path``, ``http``), and
+those of K1-K4 phase 12's (``distribute``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -416,6 +442,15 @@ CLASSIFIER_REQUESTS = CLASSIFIER_BATCH = 16
 CLASSIFIER_REL = 1.5
 STANDALONE_LAYERS = 2
 SERVING_KERNELS = ("flash_fwd", "decode_attention", "decode_attention_chunk")
+# Phase 12: the FSDP2 steps against the DDP steps (bf16 compute; the two
+# gather and reduce their weights and gradients through other buffers,
+# so a cuBLAS product may round differently), per step, relative.
+FSDP_LOSS_REL = 1e-3
+TRACED_STEPS = 2
+BATCH_IMAGES, BATCH_PER_CHIP = 100, 32  # a ragged tail of 4 rows
+TAXI_VOCAB = [24, 7, 100]  # examples/taxi_pipeline.py
+TAXI_BATCH, TAXI_STEPS, TAXI_ROWS, TAXI_LR = 1024, 50, 10_000, 1e-2
+PHASE12_BUDGET_S = 60.0
 # The kernels phase 10 must launch, by launch-count name.
 LEVER_KERNELS = ("flash_fwd", "decode_attention", "decode_attention_chunk", "decode_attention_q8",
                  "decode_attention_q8_chunk", "paged_decode_attention",
@@ -1942,9 +1977,11 @@ def device_profile(torch, run, steps: int = 1) -> tuple[float, float, list]:
     return wall_ms, busy, kernels
 
 
-def train_slice(A, torch, np, params, dev, seed: int, card_line: str) -> dict:
+def train_slice(A, torch, np, params, dev, seed: int, card_line: str,
+                out: dict | None = None) -> dict:
     """Phase 7: the full-width train step, timed; returns the launch
-    counts of the timed steps."""
+    counts of the timed steps (and puts the per-step losses and the step
+    ms into ``out``, which phase 12 holds its steps to)."""
     from hops_tpu_torch.models.common import create_train_state
     from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
 
@@ -1986,6 +2023,8 @@ def train_slice(A, torch, np, params, dev, seed: int, card_line: str) -> dict:
                            + 2 * TRAIN["d_model"] * TRAIN_SEQ * layers)
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TIMED_STEPS / elapsed
     step_ms = elapsed / TIMED_STEPS * 1e3
+    if out is not None:
+        out.update(losses=losses, step_ms=step_ms)
     mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
     print(f"phase 7 train: {n_params / 1e6:.1f}M params ({(n_params - n_embed) / 1e6:.1f}M matmul), "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: step {step_ms:.3f} ms, {tokens_per_s:.1f} tokens/s, "
@@ -2936,6 +2975,316 @@ def serving_phase(A, torch, art, params, prompts, instances, answers, prefix, pr
     return launches
 
 
+def distribute_worker(spec_path: str) -> int:
+    """Phase 12 (a) and (b), in the child that ``python -m
+    hops_tpu_torch.launch`` started as rank 0 of a one-rank NCCL group:
+    phase 7's train step through ``experiment.collective_all_reduce``
+    (DDP), 8 steps from phase 7's weights, then 2 more under
+    ``diagnostics.trace``; then 8 steps of ``ShardedStrategy(fsdp=-1)``
+    (FSDP2) from the same weights. Writes what it saw to
+    ``result.json`` beside the spec; the parent checks it."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hops_tpu_torch import experiment
+    from hops_tpu_torch.models.common import create_train_state
+    from hops_tpu_torch.models.convert import load_npz
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+    from hops_tpu_torch.ops import attention as A
+    from hops_tpu_torch.parallel import ShardedStrategy, get_strategy, multihost
+    from hops_tpu_torch.runtime import config, diagnostics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    work = Path(spec["work"])
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke")
+    params = load_npz(spec["params"])
+    seed = spec["seed"]
+    tokens = np.random.default_rng(seed + 2).integers(
+        0, TRAIN["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1))
+    kind = torch.cuda.get_device_name(0)
+    peaks = diagnostics.device_peaks(kind)
+    if peaks is None:
+        raise AssertionError(f"no tabulated peaks for {kind}")
+    shape = (TRAIN_BATCH, TRAIN["num_heads"], TRAIN_SEQ, TRAIN_SEQ,
+             TRAIN["d_model"] // TRAIN["num_heads"])
+    kernel_flops = {k: diagnostics.attention_flops(k, *shape) for k in TRAIN_KERNELS}
+    out: dict = {"backend": dist.get_backend(), "world": multihost.process_count(),
+                 "device": str(multihost.device())}
+    path_launches = {k: 0 for k in A.launch_counts()}
+
+    def take() -> dict[str, int]:
+        """The counts since the last take, added to the path's, reset."""
+        got = A.launch_counts()
+        for k, n in got.items():
+            path_launches[k] += n
+        A.reset_launch_counts()
+        return got
+
+    def train(strategy, prepare) -> tuple:
+        model = TransformerLM(**TRAIN, device=strategy.device).load_flax(params)
+        state = prepare(create_train_state(model, seed=seed, learning_rate=LEARNING_RATE))
+        step = strategy.step(make_lm_train_step(loss_chunk=LOSS_CHUNK))
+        batch = strategy.distribute_batch({"tokens": tokens})
+        losses = []
+        for _ in range(WARMUP_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        take()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        return state, step, batch, {"losses": [float(x) for x in losses], "step_ms": ms,
+                                    "launches": take()}
+
+    def ddp_fn():
+        s = get_strategy()
+        state, step, batch, out["ddp"] = train(s, s.replicate)
+        out["ddp"]["strategy"] = type(s).__name__
+        out["ddp"]["wrapped"] = getattr(state.model, "_hops_tpu_parallel", None)
+        with diagnostics.trace(str(work / "trace")) as target:
+            for _ in range(TRACED_STEPS):
+                state, _ = step(state, batch)
+        traced = take()
+        report = diagnostics.roofline_report(target, *peaks, steps=TRACED_STEPS,
+                                             kernel_flops=kernel_flops)
+        out["trace"] = {"launches": traced, "report": report,
+                        "top": diagnostics.top_ops(target, steps=TRACED_STEPS, n=8)}
+        return {"loss": out["ddp"]["losses"][-1]}
+
+    A.reset_launch_counts()
+    experiment.collective_all_reduce(ddp_fn, name="distribute")
+    gc.collect()
+    torch.cuda.empty_cache()
+    s = ShardedStrategy(fsdp=-1)
+    with s.scope():
+        state, _, _, out["fsdp"] = train(s, s.shard_state)
+        out["fsdp"]["mesh"] = s.mesh.shape
+        out["fsdp"]["dtensor"] = type(state.model.unembed.kernel).__name__
+    del state
+    take()
+    out["path_launches"] = path_launches
+    (work / "result.json").write_text(json.dumps(out))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def distribute_phase(A, torch, art, prompts, answers, dev, seed: int, card_line: str,
+                     phase7: dict) -> dict[str, int]:
+    """Phase 12; returns the launch counts of its path: (a) and (b) in a
+    child process (its own NCCL group of one rank, so none is left alive
+    in this one), (c) and (d) here."""
+    import subprocess
+
+    import numpy as np
+
+    from hops_tpu_torch import experiment
+    from hops_tpu_torch.models.common import cross_entropy_loss
+    from hops_tpu_torch.models.resnet import ResNet50
+    from hops_tpu_torch.models.widedeep import WideAndDeep, make_taxi_batch
+    from hops_tpu_torch.modelrepo import registry
+    from hops_tpu_torch.modelrepo.batch import (
+        batch_predict,
+        lm_generate_with_model,
+        predict_with_model,
+    )
+    from hops_tpu_torch.modelrepo.serving import load_lm_artifact
+    from hops_tpu_torch.parallel import Strategy
+    from hops_tpu_torch.runtime import config
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_smoke" / "distribute"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "spec.json").write_text(json.dumps(
+        {"params": str(art / "params.npz"), "seed": seed, "work": str(work)}))
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "hops_tpu_torch.launch", "--coordinator",
+           f"127.0.0.1:{_free_port()}", "--num-processes", "1", "--process-id", "0",
+           str(ROOT / "chip_smoke.py"), "--distribute-worker", str(work / "spec.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 12 (a) worker exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    res = json.loads((work / "result.json").read_text())
+    ddp, fsdp, tr = res["ddp"], res["fsdp"], res["trace"]
+    layers = TRAIN["num_layers"]
+    same = [a == b for a, b in zip(ddp["losses"], phase7["losses"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(fsdp["losses"], ddp["losses"])]
+    print(f"phase 12 (a) launch CLI child ({child_s:.1f} s): {res['backend']} group of "
+          f"{res['world']} rank on {res['device']}; DDP ({ddp['strategy']}, module wrapped "
+          f"{ddp['wrapped']}) losses {[round(x, 4) for x in ddp['losses']]}, equal phase 7's bit "
+          f"for bit at {sum(same)} of {len(same)} steps; step {ddp['step_ms']:.3f} ms "
+          f"(phase 7 {phase7['step_ms']:.3f} ms); FSDP2 (mesh {fsdp['mesh']}, parameters "
+          f"{fsdp['dtensor']}) losses {[round(x, 4) for x in fsdp['losses']]}, worst relative "
+          f"distance from DDP's {max(rel):.3e} (bound {FSDP_LOSS_REL:.0e}); step "
+          f"{fsdp['step_ms']:.3f} ms; launches over {TIMED_STEPS} timed steps DDP "
+          f"{ {k: ddp['launches'][k] for k in TRAIN_KERNELS} }, FSDP2 "
+          f"{ {k: fsdp['launches'][k] for k in TRAIN_KERNELS} }; card {card_line}", flush=True)
+    if res["backend"] != "nccl" or res["world"] != 1:
+        raise AssertionError(f"phase 12 (a): backend {res['backend']}, world {res['world']}")
+    if not all(same):
+        raise AssertionError(f"phase 12 (a): DDP losses {ddp['losses']} differ from phase 7's "
+                             f"{phase7['losses']}")
+    if not max(rel) <= FSDP_LOSS_REL:
+        raise AssertionError(f"phase 12 (a): FSDP2 losses {fsdp['losses']} over "
+                             f"{FSDP_LOSS_REL} from DDP's")
+    for name in TRAIN_KERNELS:
+        for what, got in (("DDP", ddp), ("FSDP2", fsdp)):
+            if got["launches"][name] != layers * TIMED_STEPS:
+                raise AssertionError(f"phase 12 (a) {what}: {name} launched "
+                                     f"{got['launches'][name]} times in {TIMED_STEPS} steps")
+
+    rep = tr["report"]
+    cats = {c["name"]: c for c in rep["categories"]}
+    print(f"phase 12 (b) diagnostics.trace over {TRACED_STEPS} DDP steps on {rep['device']} "
+          f"(roofs {rep['peak_tflops']:.0f} TFLOP/s, {rep['peak_gbps']:.0f} GB/s): "
+          f"{rep['total_ms']:.3f} device ms per step; " + "; ".join(
+              f"{c['name']} {c['ms']:.3f} ms ({c['share']:.1%}, {c['count']:.0f} launches"
+              + (f", {c['tflops_per_s']:.1f} TFLOP/s" if c["tflops_per_s"] is not None else "")
+              + (f", {c['gb_per_s']:.1f} GB/s" if c["gb_per_s"] is not None else "")
+              + (f", {c['peak_share']:.1%} of the {c['bound']} peak"
+                 if c["peak_share"] is not None else ", bound unknown") + ")"
+              for c in rep["categories"]) + f"; card {card_line}", flush=True)
+    for op in tr["top"]:
+        print(f"  {op['ms']:.4f} ms/step ({op['count']:.0f}/step, {op['category']}, from "
+              f"{op['source']}) {op['name'][:90]}", flush=True)
+    for name in TRAIN_KERNELS:
+        got = cats.get(name, {}).get("count", 0) * TRACED_STEPS
+        if got != tr["launches"][name] or not got:
+            raise AssertionError(f"phase 12 (b): the trace counts {got} {name} kernels, "
+                                 f"LAUNCHES {tr['launches'][name]}")
+    over = [c["name"] for c in rep["categories"] if (c["peak_share"] or 0) > 1.0]
+    if over:
+        raise AssertionError(f"phase 12 (b): {over} read over 100% of a peak")
+
+    # (c) batch inference from the registry phase 11 filled.
+    config.configure(workspace=str(ROOT / "_smoke" / "serving"), project="chip_smoke")
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = lm_generate_with_model("smoke-lm", prompts, max_new_tokens=list(NEW_TOKENS),
+                                 slots=4, device=dev)
+    lm_s = time.perf_counter() - t0
+    launches = A.launch_counts()
+    model = load_lm_artifact(art, dev)
+    notes = near_ties(model, torch, prompts, got, answers, dev, "phase 12 (c)")
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 12 (c) lm_generate_with_model: {sum(len(a) for a in got)} tokens for "
+          f"{len(got)} prompts in {lm_s:.2f} s (registry load included); streams equal phase "
+          f"4's: leading tokens {same_lead(got, answers)}; " + ("; ".join(notes) or
+                                                                "all identical")
+          + f"; launches { {k: launches[k] for k in SERVING_KERNELS} }", flush=True)
+    if not (launches["flash_fwd"] and launches["decode_attention"]):
+        raise AssertionError(f"phase 12 (c): a kernel of the LM path never launched: {launches}")
+    g = torch.Generator().manual_seed(seed + 12)
+    x = torch.randn(BATCH_IMAGES, RESNET_IMAGE, RESNET_IMAGE, 3, generator=g).numpy()
+    strategy = Strategy(device=dev)
+    t0 = time.perf_counter()
+    preds = predict_with_model("smoke-resnet", x, per_chip_batch=BATCH_PER_CHIP,
+                               strategy=strategy)
+    cold_s = time.perf_counter() - t0
+    clf = registry.load_classifier("smoke-resnet", device=dev)
+    t0 = time.perf_counter()
+    batch_predict(clf, x, BATCH_PER_CHIP, strategy)
+    warm_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        xt = torch.from_numpy(x).to(dev)
+        direct = clf(xt).float().cpu()
+        ref = ResNet50(RESNET_CLASSES, dtype="float32", device=dev)
+        ref.load_state_dict(clf.state_dict())
+        ref32 = ref.eval()(xt).float().cpu()
+    del clf, ref, xt
+    torch.cuda.empty_cache()
+    d_bf16 = (direct - ref32).abs().max().item()
+    top2 = direct.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) <= 2 * d_bf16
+    differ = torch.from_numpy(preds).argmax(1) != direct.argmax(1)
+    print(f"phase 12 (c) predict_with_model: ResNet-50 over {BATCH_IMAGES} images at "
+          f"per_chip_batch {BATCH_PER_CHIP}: {cold_s:.2f} s with the registry load, "
+          f"{BATCH_IMAGES / warm_s:.1f} images/s warm (batch_predict alone, host clock); "
+          f"argmax differs from the direct forward in {int(differ.sum())} rows "
+          f"({int((differ & near).sum())} at a near tie); card {card_line}", flush=True)
+    if preds.shape != (BATCH_IMAGES, RESNET_CLASSES) or bool((differ & ~near).any()):
+        raise AssertionError("phase 12 (c): batch predictions differ from the direct forward")
+
+    # (d) wide-and-deep through experiment.launch.
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke")
+    keep: dict = {}
+
+    def taxi_fn():
+        model = WideAndDeep(TAXI_VOCAB, device=dev, seed=seed)
+        opt = torch.optim.Adam(model.parameters(), lr=TAXI_LR)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        losses = []
+        for _ in range(TAXI_STEPS):
+            b = make_taxi_batch(gen, TAXI_BATCH, TAXI_VOCAB, device=dev)
+            loss = cross_entropy_loss(model(b), b["label"])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        keep["model"] = model.eval()
+        return {"first": float(losses[0]), "last": float(torch.stack(losses[-5:]).mean())}
+
+    t0 = time.perf_counter()
+    _, metrics = experiment.launch(taxi_fn, name="widedeep")
+    train_s = time.perf_counter() - t0
+    model = keep["model"]
+    rows = make_taxi_batch(torch.Generator(device=dev).manual_seed(seed + 1), TAXI_ROWS,
+                           TAXI_VOCAB, device=dev)
+    vectors = torch.cat([rows["dense"], rows["categorical"].float()], 1).cpu().numpy()
+    nd = rows["dense"].shape[1]
+
+    def apply(t):
+        return model({"dense": t[:, :nd], "categorical": t[:, nd:].long()})
+
+    t0 = time.perf_counter()
+    got_wd = batch_predict(apply, vectors, BATCH_PER_CHIP, strategy)
+    wd_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        direct_wd = model(rows).float().cpu().numpy()
+    diff = float(np.abs(got_wd - direct_wd).max())
+    bound = 2 ** -7 * float(np.abs(direct_wd).max())
+    print(f"phase 12 (d) WideAndDeep {TAXI_VOCAB} (embed 8, hidden (128, 64), bf16): "
+          f"{TAXI_STEPS} Adam steps at batch {TAXI_BATCH} through experiment.launch in "
+          f"{train_s:.2f} s, loss {metrics['first']:.4f} -> {metrics['last']:.4f} (mean of the "
+          f"last 5); batch_predict of {TAXI_ROWS} rows in {wd_s:.2f} s "
+          f"({TAXI_ROWS / wd_s:.0f} rows/s, host clock), ||batched - direct||inf {diff:.3e} "
+          f"(bound {bound:.3e}, bf16 rounding; {'bit-identical' if diff == 0 else 'not bit-identical'})",
+          flush=True)
+    if not metrics["last"] < metrics["first"]:
+        raise AssertionError(f"phase 12 (d): the loss did not fall: {metrics}")
+    if got_wd.shape != direct_wd.shape or not diff <= bound:
+        raise AssertionError(f"phase 12 (d): batch_predict {diff:.3e} from the direct forward")
+    del keep, model
+    torch.cuda.empty_cache()
+    total = {k: n + launches.get(k, 0) for k, n in res["path_launches"].items()}
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 12 took {phase_s:.1f} s (budget {PHASE12_BUDGET_S:.0f} s); launches of the "
+          f"path {total}", flush=True)
+    if phase_s > PHASE12_BUDGET_S:
+        raise AssertionError(f"phase 12 took {phase_s:.1f} s, over {PHASE12_BUDGET_S:.0f} s")
+    return total
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -3011,6 +3360,7 @@ def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--distribute-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # cuBLAS is deterministic on one stream only with a fixed workspace
@@ -3026,6 +3376,8 @@ def main() -> int:
     if not (ROOT / "hops_tpu_torch" / "ops" / "csrc").is_dir():
         return fail(f"no hops_tpu_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    if args.distribute_worker:  # phase 12's child, under python -m hops_tpu_torch.launch
+        return distribute_worker(args.distribute_worker)
     import numpy as np
 
     from hops_tpu_torch.models.convert import random_params
@@ -3133,7 +3485,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
 
         print("phase 7 training slice:", flush=True)
-        train_launches = train_slice(A, torch, np, params, dev, args.seed, card_line)
+        phase7: dict = {}
+        train_launches = train_slice(A, torch, np, params, dev, args.seed, card_line, phase7)
         print("phase 7 ok", flush=True)
         torch.cuda.empty_cache()
         check_grads(A, torch, np, params, dev, args.seed)
@@ -3189,6 +3542,11 @@ def main() -> int:
                                       kept["prefix"], kept["prefix_want"], dev, args.seed,
                                       card_line)
         print("phase 11 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 12 distribute:", flush=True)
+        dist_launches = distribute_phase(A, torch, art, prompts, answers, dev, args.seed,
+                                         card_line, phase7)
+        print("phase 12 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -3206,6 +3564,9 @@ def main() -> int:
         for r in (k1, k4, wide_row):
             r["launches_by_path"]["http"] = http_launches[r["name"]]
             r["launches"] += http_launches[r["name"]]
+        for r in (k1, *bwd_rows, k4, wide_row):
+            r["launches_by_path"]["distribute"] = dist_launches[r["name"]]
+            r["launches"] += dist_launches[r["name"]]
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
     finally:
         if predictor is not None:

@@ -2,9 +2,10 @@
 ``hops_tpu/experiment``).
 
 ``launch`` runs a wrapper function holding a whole training program in
-a run directory of its own and registers the run. The distributed
-launchers raise ``NotImplementedError`` until the distribution layer is
-ported; the hyperparameter search drivers are not ported yet.
+a run directory of its own and registers the run; ``mirrored``,
+``collective_all_reduce`` and ``parameter_server`` run it inside a
+data-parallel strategy's scope in every process of the run. The
+hyperparameter search launchers are not ported yet.
 """
 
 from hops_tpu_torch.experiment import registry, tensorboard  # noqa: F401

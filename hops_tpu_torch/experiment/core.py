@@ -12,8 +12,11 @@ records have the JAX package's layout.
 
 ``launch`` runs the wrapper in this process, on the card its code picks
 (``cuda:0`` by default). The data-parallel launchers (``mirrored``,
-``collective_all_reduce``, ``parameter_server``) need the distribution
-layer, a later slice of the port: they raise ``NotImplementedError``.
+``collective_all_reduce``, ``parameter_server``) run it inside a
+strategy's ``scope()`` (``parallel.get_strategy()`` returns it) in every
+process of the run (``python -m hops_tpu_torch.launch``): rank 0
+registers the run, and every rank writes into the one run directory
+that the shared session id names.
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ import torch
 
 from hops_tpu_torch.experiment import registry
 from hops_tpu_torch.parallel import multihost
+from hops_tpu_torch.parallel.strategy import (
+    CollectiveAllReduceStrategy,
+    MirroredStrategy,
+    Strategy,
+)
 from hops_tpu_torch.runtime import rundir
 from hops_tpu_torch.runtime.logging import attach_run_log, detach_run_log, get_logger, scalarize
 from hops_tpu_torch.telemetry.metrics import REGISTRY
@@ -75,6 +83,7 @@ def _run_wrapper(
     kind: str,
     local_logdir: bool,
     metric_key: str | None,
+    strategy: Strategy | None,
 ) -> tuple[str, dict[str, Any]]:
     """Shared launcher mechanics for all experiment kinds."""
     run = rundir.new_run(name=name, local_logdir=local_logdir)
@@ -92,7 +101,9 @@ def _run_wrapper(
         tee_out = _Tee(sys.stdout, out_file)
         try:
             with contextlib.redirect_stdout(tee_out):
-                result = fn(**kwargs) if kwargs else fn()
+                ctx = strategy.scope() if strategy is not None else contextlib.nullcontext()
+                with ctx:
+                    result = fn(**kwargs) if kwargs else fn()
                 # CUDA reports a kernel's fault when the stream is next
                 # synchronized: wait for the wrapper's queued work here,
                 # so its fault fails the run rather than surfacing after
@@ -136,7 +147,7 @@ def _run_wrapper(
                 "metric_key": metric_key,
                 "duration_s": time.time() - start,
                 "path": final_path,
-                "num_replicas": 1,
+                "num_replicas": strategy.num_replicas_in_sync if strategy else 1,
             }
         )
     if err is not None:
@@ -154,30 +165,57 @@ def launch(
 ) -> tuple[str, dict[str, Any]]:
     """Single experiment (reference: ``experiment.launch``,
     notebooks/ml/Experiment/Tensorflow/mnist.ipynb:228)."""
-    return _run_wrapper(fn, args, name, "launch", local_logdir, metric_key)
+    return _run_wrapper(fn, args, name, "launch", local_logdir, metric_key, None)
 
 
-def _later_slice(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"experiment.{kind} needs the distribution layer (strategies and "
-        "gradient communication), which is a later slice of the port"
+def mirrored(
+    fn: Callable[..., Any],
+    args: dict[str, Any] | None = None,
+    name: str = "no-name",
+    local_logdir: bool = False,
+    metric_key: str | None = None,
+    grad_comms: Any | None = None,
+) -> tuple[str, dict[str, Any]]:
+    """Single-host data-parallel training over this host's ranks
+    (reference: ``experiment.mirrored`` + ``MirroredStrategy``,
+    mirroredstrategy_mnist_example.ipynb:231). The wrapper sees the
+    strategy via ``parallel.get_strategy()``. ``grad_comms`` raises
+    ``NotImplementedError``: gradient communication is a later slice."""
+    return _run_wrapper(
+        fn, args, name, "mirrored", local_logdir, metric_key,
+        MirroredStrategy(grad_comms=grad_comms),
     )
 
 
-def mirrored(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> tuple[str, dict[str, Any]]:
-    """Single-host data-parallel training: a later slice."""
-    raise _later_slice("mirrored")
-
-
 def collective_all_reduce(
-    fn: Callable[..., Any], *args: Any, **kwargs: Any
+    fn: Callable[..., Any],
+    args: dict[str, Any] | None = None,
+    name: str = "no-name",
+    local_logdir: bool = False,
+    metric_key: str | None = None,
+    grad_comms: Any | None = None,
+    update_sharding: str = "replicated",
 ) -> tuple[str, dict[str, Any]]:
-    """Whole-slice data-parallel training: a later slice."""
-    raise _later_slice("collective_all_reduce")
+    """Data-parallel training over every rank of the run; gradients
+    all-reduced by DDP (reference: multi-worker ``experiment.mirrored``
+    with ``MultiWorkerMirroredStrategy`` + NCCL, and the
+    ``collective_all_reduce`` mode). ``grad_comms`` and
+    ``update_sharding`` other than ``"replicated"`` raise
+    ``NotImplementedError``: they are the gradient-communication slice."""
+    return _run_wrapper(
+        fn, args, name, "collective_all_reduce", local_logdir, metric_key,
+        CollectiveAllReduceStrategy(update_sharding=update_sharding, grad_comms=grad_comms),
+    )
 
 
 def parameter_server(
-    fn: Callable[..., Any], *args: Any, **kwargs: Any
+    fn: Callable[..., Any],
+    args: dict[str, Any] | None = None,
+    name: str = "no-name",
+    local_logdir: bool = False,
+    metric_key: str | None = None,
 ) -> tuple[str, dict[str, Any]]:
-    """Alias of :func:`collective_all_reduce`: a later slice."""
-    raise _later_slice("parameter_server")
+    """Alias of :func:`collective_all_reduce` — parameter servers have no
+    counterpart here; the docs-only reference mode lowers to the same
+    collective path (and registers its run under that kind)."""
+    return collective_all_reduce(fn, args, name, local_logdir, metric_key)

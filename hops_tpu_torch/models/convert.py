@@ -7,7 +7,9 @@ port's modules keep the flax names and shapes (the LM's
 ``block_i/attn/{qkv|q,kv,out}/kernel``, ``block_i/mlp/{gate,up,down}/kernel``,
 ``final_norm/scale``, ``unembed/kernel``; the classifiers'
 ``Conv_i/{kernel,bias}``, ``Dense_i/{kernel,bias}``, ``.../BatchNorm_i``
-and ``proj``/``proj_bn``, ``stem_conv``). A tree's ``batch_stats``
+and ``proj``/``proj_bn``, ``stem_conv``; wide-and-deep's
+``wide_i/kernel``, ``embed_i/embedding``, ``deep_j/{kernel,bias}`` and
+``deep_out/{kernel,bias}``). A tree's ``batch_stats``
 collection (BatchNorm's ``mean`` and ``var``) joins the ``params`` in one
 state dict, where they are the BatchNorm modules' buffers.
 

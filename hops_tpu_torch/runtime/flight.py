@@ -161,6 +161,33 @@ class FlightRecorder:
 FLIGHT = FlightRecorder()
 
 
+def _crash_flush_workload(dump_path: Path | None) -> Path | None:
+    """Crash-path companion to the flight dump: finalize any active
+    workload-capture segment and manifest (so the crashed run's
+    traffic is replayable post-mortem) and leave a pointer file next
+    to the flight dump naming the artifact. Never raises — this runs
+    on the way DOWN."""
+    try:
+        from hops_tpu_torch.telemetry import workload
+
+        artifact = workload.crash_flush()
+        if artifact is None:
+            return None
+        log.warning("workload capture flushed for post-mortem replay: %s",
+                    artifact)
+        if dump_path is not None:
+            pointer = Path(dump_path).with_name(
+                f"workload_{os.getpid()}.json")
+            pointer.write_text(json.dumps(
+                {"workload_artifact": str(artifact),
+                 "flight_dump": str(dump_path)}, indent=2))
+        return artifact
+    except Exception:  # graftlint: disable=swallowed-exception
+        # By contract: a crash-path flush failure must not replace the
+        # original exception — it is already being reported.
+        return None
+
+
 def record(kind: str, **data: Any) -> dict[str, Any] | None:
     """Record onto the process-global :data:`FLIGHT` ring."""
     return FLIGHT.record(kind, **data)
@@ -173,10 +200,12 @@ _installed = False  # guarded by: _install_lock
 def install_crash_handler() -> bool:
     """Chain the flight-recorder dump into ``sys.excepthook`` and
     ``threading.excepthook``: any unhandled exception records a
-    ``crash`` event and dumps the ring to the rundir before the previous
-    hook runs. (The JAX package also flushes its workload capture here;
-    the port has no workload capture yet.) Idempotent; returns True when
-    this call installed it."""
+    ``crash`` event, dumps the ring to the rundir, and finalizes any
+    active workload-capture segment + manifest (with a
+    ``workload_<pid>.json`` pointer next to the flight dump) so the
+    crashed run's traffic is replayable post-mortem — all before the
+    previous hook runs. Idempotent; returns True when this call
+    installed it."""
     global _installed
     with _install_lock:
         if _installed:
@@ -188,7 +217,8 @@ def install_crash_handler() -> bool:
         def _sys_hook(exc_type, exc, tb):
             FLIGHT.record("crash", where="main",
                           error=f"{exc_type.__name__}: {exc}")
-            FLIGHT.dump(reason=f"unhandled {exc_type.__name__}")
+            dumped = FLIGHT.dump(reason=f"unhandled {exc_type.__name__}")
+            _crash_flush_workload(dumped)
             prev_sys(exc_type, exc, tb)
 
         def _threading_hook(args):
@@ -197,8 +227,9 @@ def install_crash_handler() -> bool:
                 where=getattr(args.thread, "name", "?"),
                 error=f"{args.exc_type.__name__}: {args.exc_value}",
             )
-            FLIGHT.dump(reason=f"unhandled {args.exc_type.__name__} "
-                               f"in thread")
+            dumped = FLIGHT.dump(reason=f"unhandled {args.exc_type.__name__} "
+                                        f"in thread")
+            _crash_flush_workload(dumped)
             prev_threading(args)
 
         sys.excepthook = _sys_hook

@@ -7,6 +7,10 @@ framework-free wrapper launched by ``hops_tpu.experiment.launch`` and by
 the port's, each under its own project root, leaves the same registry
 records (but ``run_id``, ``time``, ``duration_s`` and ``path``), the
 same files in the run directory and the same ``output.log``.
+The
+distributed launchers' cases (``TestDistributedLaunchers``) run in one
+process and, through ``python -m hops_tpu_torch.launch --platform cpu``,
+in two gloo ranks that write into one session directory.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +27,7 @@ from hops_tpu.experiment import tensorboard as jax_tensorboard
 from hops_tpu.runtime import config as jax_config
 from hops_tpu_torch import experiment
 from hops_tpu_torch.experiment import registry, tensorboard
+from hops_tpu_torch.parallel import ParameterServerStrategy, get_strategy, multihost
 from hops_tpu_torch.runtime import config
 from hops_tpu_torch.runtime.logging import read_metrics
 from hops_tpu_torch.telemetry.metrics import REGISTRY
@@ -35,6 +41,15 @@ def port_workspace(tmp_path):
     config.configure(workspace=str(tmp_path / "port_ws"), project="testproj")
     yield tmp_path / "port_ws"
     config.configure(workspace=before.workspace, project=before.project)
+
+
+@pytest.fixture
+def cpu_process():
+    """This process's device is the CPU (as ``launch --platform cpu``
+    makes it); forgotten again after the test."""
+    multihost.initialize(device="cpu")
+    yield
+    multihost.shutdown()
 
 
 def test_launch_returns_path_and_metrics():
@@ -149,9 +164,134 @@ def test_profile_writes_a_trace_into_the_run_dir():
 
 
 @pytest.mark.parametrize("kind", ["mirrored", "collective_all_reduce", "parameter_server"])
-def test_distributed_launchers_are_a_later_slice(kind):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(experiment, kind)(lambda: None)
+def test_distributed_launchers_are_a_later_slice(kind, cpu_process):
+    """The launchers run since the distribution layer was ported; what
+    stays a later slice is explicit gradient communication, which each
+    refuses by name."""
+    _, metrics = getattr(experiment, kind)(lambda: {"ok": 1.0}, name=kind)
+    assert metrics["ok"] == 1.0
+    later = {"mirrored": dict(grad_comms=object()),
+             "collective_all_reduce": dict(update_sharding="cross_replica"),
+             "parameter_server": None}[kind]
+    if later is None:
+        with pytest.raises(NotImplementedError, match="later slice|slice of the port"):
+            ParameterServerStrategy(grad_comms=object())
+    else:
+        with pytest.raises(NotImplementedError, match="slice of the port"):
+            getattr(experiment, kind)(lambda: None, **later)
+
+
+class TestDistributedLaunchers:
+    """``tests/test_experiment.py``'s cases on the port, in one process
+    (one rank)."""
+
+    def test_mirrored_exposes_strategy(self, cpu_process):
+        def train_fn():
+            s = get_strategy()
+            return {"replicas": s.num_replicas_in_sync}
+
+        _, metrics = experiment.mirrored(train_fn, name="mir")
+        assert metrics["replicas"] == 1
+        assert registry.list_runs("mir")[0]["kind"] == "mirrored"
+
+    def test_collective_all_reduce_trains(self, cpu_process):
+        """End-to-end: data-parallel training of a tiny linear model
+        inside the launcher."""
+
+        def train_fn():
+            s = get_strategy()
+            w = s.replicate(torch.zeros(4))
+            rs = np.random.RandomState(0)
+            x = rs.randn(64, 4).astype("float32")
+            y = x @ np.array([1.0, -2.0, 3.0, 0.5], "float32")
+
+            def step(w, batch):
+                loss = ((batch["x"] @ w - batch["y"]) ** 2).mean()
+                (g,) = torch.autograd.grad(loss, w)
+                return w - 0.1 * g, {"loss": loss.detach()}
+
+            compiled = s.step(step, donate_state=False)
+            for _ in range(100):
+                w, m = compiled(w, s.distribute_batch({"x": x, "y": y}))
+            return {"final_loss": float(m["loss"])}
+
+        _, metrics = experiment.collective_all_reduce(train_fn, name="car")
+        assert metrics["final_loss"] < 1e-3
+
+    def test_parameter_server_alias(self, cpu_process):
+        _, metrics = experiment.parameter_server(lambda: {"ok": 1.0}, name="ps")
+        assert metrics["ok"] == 1.0
+        assert registry.list_runs("ps")[0]["kind"] == "collective_all_reduce"
+
+
+WORKER = """
+import json, sys
+from hops_tpu_torch import experiment
+from hops_tpu_torch.parallel import current_strategy, multihost
+from hops_tpu_torch.runtime import config, rundir
+
+config.configure(workspace=sys.argv[1], project="testproj")
+
+
+def train_fn():
+    s = current_strategy()
+    rundir.logdir()
+    open(f"rank{multihost.process_index()}.txt", "w").write("hi")
+    return {"replicas": s.num_replicas_in_sync, "procs": multihost.process_count()}
+
+
+path, metrics = experiment.collective_all_reduce(train_fn, name="mh_integration")
+print("WORKER_OK", json.dumps({"path": path, "replicas": metrics["replicas"],
+                               "procs": metrics["procs"], "session": rundir.session_id()}),
+      flush=True)
+"""
+
+
+def test_two_processes_write_one_session_directory(tmp_path):
+    """Two ranks through ``python -m hops_tpu_torch.launch --platform cpu``
+    run ``experiment.collective_all_reduce`` (as
+    ``tests/test_multihost_integration.py`` does for the JAX package):
+    they agree on the session, write into one run directory, and rank 0
+    alone registers the run."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    worker = tmp_path / "worker.py"
+    worker.write_text(WORKER)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": f"{root}{os.pathsep}{os.environ.get('PYTHONPATH', '')}",
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hops_tpu_torch.launch", "--platform", "cpu",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(i), str(worker), str(tmp_path / "ws")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(root),
+    ) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and "WORKER_OK" in out, f"rank {i}:\n{out[-3000:]}"
+    got = [json.loads(out.split("WORKER_OK", 1)[1].splitlines()[0]) for out in outs]
+    assert {g["replicas"] for g in got} == {g["procs"] for g in got} == {2}
+    assert len({g["session"] for g in got}) == 1
+    (path,) = {g["path"] for g in got}
+    assert (Path(path) / "rank0.txt").is_file() and (Path(path) / "rank1.txt").is_file()
+    index = tmp_path / "ws" / "testproj" / "Experiments" / "index.jsonl"
+    recs = [json.loads(line) for line in index.read_text().splitlines() if line.strip()]
+    assert [r["status"] for r in recs] == ["RUNNING", "FINISHED"]
+    assert recs[-1]["num_replicas"] == 2
 
 
 def _wrapper(tb):

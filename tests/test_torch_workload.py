@@ -189,3 +189,43 @@ def test_packed_capture_replays_as_packed_frames(tmp_path):
     with torch.inference_mode():
         want = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(np.asarray(json.loads(body)["predictions"]), want, atol=1e-6)
+
+
+def test_crash_handler_flushes_open_segment_for_postmortem(tmp_path):
+    """The JAX package's crash-flush case on the port: an unhandled
+    exception in a thread finalizes the active capture segment and
+    manifest, and leaves a ``workload_<pid>.json`` pointer next to the
+    flight dump, so the crashed run's traffic replays post-mortem."""
+    import os
+    import threading
+    import time
+    from pathlib import Path
+
+    from hops_tpu_torch.runtime import flight, rundir
+
+    flight.install_crash_handler()
+    workload.start_capture(tmp_path / "crashcap")
+    workload.record_request(surface="serving", endpoint="m",
+                            payload={"instances": [[1.0]]}, status=200)
+    # Before the crash the open segment is not yet manifested: the
+    # artifact verifies but replays as empty.
+    assert workload.load_artifact(tmp_path / "crashcap")["records"] == []
+
+    def boom():
+        raise RuntimeError("chaos: unhandled for workload flush")
+
+    t = threading.Thread(target=boom, name="wl-crash", daemon=True)
+    t.start()
+    t.join(timeout=10)
+    deadline = time.monotonic() + 5
+    records: list = []
+    while time.monotonic() < deadline and not records:
+        records = workload.load_artifact(tmp_path / "crashcap")["records"]
+        time.sleep(0.05)
+    assert len(records) == 1
+    # Capture survives another thread's crash still armed.
+    assert workload.capturing()
+    pointer = json.loads(
+        (Path(rundir.logdir()) / f"workload_{os.getpid()}.json").read_text())
+    assert pointer["workload_artifact"] == str(tmp_path / "crashcap")
+    assert pointer["flight_dump"].endswith(f"flight_{os.getpid()}.json")
