@@ -251,6 +251,38 @@ failure exits non-zero:
    ``make_taxi_batch`` 1024 (the loss must fall), and ``batch_predict`` of
    10 000 feature vectors must equal the direct forward within bf16
    rounding.
+13. scale-out — gradient communication, sequence parallelism and MoE,
+   within ``PHASE13_BUDGET_S``, all in a child started as phase 12
+   starts its own (``chip_smoke.py --scaleout-worker <spec>``, one NCCL
+   rank): (a) ResNet-50 (phase 9's model) through
+   ``experiment.collective_all_reduce`` for ``SCALEOUT_STEPS`` steps in
+   each of ``SCALEOUT_MODES`` under deterministic algorithms: at one rank
+   every mode's losses must equal ``none``'s (DDP) bit for bit (``hier``
+   takes the one-rank path and builds no process group); each mode's
+   step ms beside ``none``'s, and its ``hops_tpu_grad_comms_*`` counter
+   deltas must equal ``wire_bytes`` times the steps; (b)
+   ``quantize_blockwise`` on the card over ResNet-50's gradient buckets:
+   int8 blocks and scales equal the CPU's bit for bit, each element's
+   round trip within half its block's step (plus one fp32 ulp of the
+   block's largest value); (c) phase 7's LM with
+   ``attention_impl="ulysses"`` on a one-rank seq mesh for ``SP_STEPS``
+   steps (losses equal ``flash``'s bit for bit, K1-K3 ``num_layers``
+   launches a step), then ``"ring"`` at ``RING_BATCH`` rows (its losses'
+   distance from the fp32 plain path within ``RING_REL`` times the bf16
+   flash path's); (d) the LM with ``moe_every=2`` (``MOE_TRAIN``: 8
+   experts, top 2, capacity 1.25, hidden 4096) trained ``MOE_STEPS``
+   steps at phase 7's batch (the loss must fall; aux loss, step ms,
+   tokens/s, and a ``diagnostics.trace`` of one step with the
+   dispatch/combine share), then phase 4's requests through
+   ``LMEnginePredictor`` (4 slots) on the bf16 and the int8 cache, each
+   against the same engine under the plain attention in bf16 and in
+   fp32, teacher-forced to the served tokens and routing (the same call
+   shapes, so the same capacity cuts): every drawn token's logits within
+   ``MOE_TOKEN_REL`` times the plain bf16 run's distance from fp32 (the
+   median within ``MOE_MEDIAN_REL``), each token the plain bf16 argmax
+   up to a near tie, each flip of that run's router within
+   ``ROUTER_MARGIN``; K1, K4 and K5 must launch; TTFT p50 and decode
+   tokens/s.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -277,7 +309,8 @@ launches in phase 10, and at a GQA speculative verify (2 kv heads, 5
 tokens, 20 rows; its own line, and under ``gqa_verify`` in the record);
 the records of K1 and K4-K7 add phase 10's launches, and those of K1,
 K4 and K4's wide calls phase 11's (under ``launches_by_path``, ``http``), and
-those of K1-K4 phase 12's (``distribute``). The
+those of K1-K4 phase 12's (``distribute``), and every record phase
+13's Ulysses steps (``sp``) and MoE training and serving (``moe``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -451,6 +484,40 @@ BATCH_IMAGES, BATCH_PER_CHIP = 100, 32  # a ragged tail of 4 rows
 TAXI_VOCAB = [24, 7, 100]  # examples/taxi_pipeline.py
 TAXI_BATCH, TAXI_STEPS, TAXI_ROWS, TAXI_LR = 1024, 50, 10_000, 1e-2
 PHASE12_BUDGET_S = 60.0
+# Phase 13: scale-out. (a) ResNet-50 (phase 9's model) through
+# experiment.collective_all_reduce for SCALEOUT_STEPS steps in each
+# grad-comms mode; at one rank each must equal "none" (DDP) bit for bit.
+SCALEOUT_MODES = ("none", "allreduce", "quantized", "quantized+overlap", "zero1", "zero2",
+                  "zero3", "hier")
+SCALEOUT_STEPS = 4
+# (c) Ulysses on phase 7's step, SP_STEPS steps, equal to flash's bit for
+# bit; ring at RING_BATCH rows (its fp32 scores hold (RING_BATCH, 8, 2048,
+# 2048) per layer), within RING_REL times the bf16 flash path's distance
+# from the fp32 plain path over RING_STEPS steps.
+SP_STEPS, RING_BATCH, RING_STEPS, RING_REL = 3, 2, 2, 1.5
+# (d) the JAX defaults' MoE LM at phase 7's widths: every second block of
+# 8 experts, top 2, capacity factor 1.25, hidden 4096 (0.40 B expert
+# parameters); MOE_STEPS training steps at phase 7's batch, then phase 4's
+# requests served on the bf16 and int8 caches, then the plain-attention
+# engine (the same call shapes) in bf16 and in fp32, teacher-forced to
+# the served tokens and routing. A served token may differ from the
+# plain bf16 run's argmax only at a logit near tie (NEAR_TIE_REL); where
+# that run's own router would pick other experts, the k-th and (k+1)-th
+# probabilities lie within ROUTER_MARGIN (bf16 rounding of the router's
+# input moves a probability by about 1e-3 of itself; 5e-3 absolute is
+# ~4% of a top-2 probability of 8).
+MOE_TRAIN = dict(TRAIN, moe_every=2, num_experts=8, moe_top_k=2)
+MOE_SERVE = dict(MODEL, moe_every=2, num_experts=8, moe_top_k=2)
+MOE_STEPS = 6
+ROUTER_MARGIN = 5e-3
+# Each drawn token is compared on the served history (teacher forcing):
+# its logits' distance from the plain fp32 engine's within MOE_TOKEN_REL
+# times the plain bf16 engine's own, and the median token's ratio within
+# MOE_MEDIAN_REL. The served and the plain bf16 runs round alike, so the
+# ratio's median is about 1 (0.987 on the bf16 cache, seed 0, 384
+# tokens; its largest 1.446).
+MOE_TOKEN_REL, MOE_MEDIAN_REL = 2.0, 1.25
+PHASE13_BUDGET_S = 180.0
 # The kernels phase 10 must launch, by launch-count name.
 LEVER_KERNELS = ("flash_fwd", "decode_attention", "decode_attention_chunk", "decode_attention_q8",
                  "decode_attention_q8_chunk", "paged_decode_attention",
@@ -3285,6 +3352,577 @@ def distribute_phase(A, torch, art, prompts, answers, dev, seed: int, card_line:
     return total
 
 
+def _trace_share(trace_dir: str, tokens: int, capacity: tuple[int, ...],
+                 steps: int) -> tuple[float, float, int]:
+    """From a ``diagnostics.trace`` capture: the device ms per step of the
+    kernels whose launching op has the token count and one of
+    ``capacity`` (C, or E·C where an einsum folds the experts into it)
+    among its input dims — the MoE dispatch/combine einsums, their
+    backward and the ``(T, E, C)`` mask ops — the device ms per step of
+    all kernels, and those kernels' launches per step."""
+    from hops_tpu_torch.runtime.diagnostics import _find_trace_file
+
+    doc = json.loads(Path(_find_trace_file(trace_dir)).read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    ops = {(e.get("args") or {}).get("External id"): e for e in events
+           if e.get("ph") == "X" and e.get("cat") == "cpu_op"}
+    total = hit = 0.0
+    count = 0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        dur = float(e.get("dur", 0)) / 1e3
+        total += dur
+        op = ops.get((e.get("args") or {}).get("External id"))
+        dims = {int(x) for d in ((op or {}).get("args") or {}).get("Input Dims") or []
+                if isinstance(d, list) for x in d if isinstance(x, int)}
+        if tokens in dims and dims & set(capacity):
+            hit += dur
+            count += 1
+    return hit / steps, total / steps, count // steps
+
+
+def _moe_taps(engine, torch, taps: dict, calls: list, force: dict | None = None):
+    """Record each model call of ``engine`` (a forward pre-hook opens
+    it): per MoE layer, the routing its router's logits give (the
+    ``probs >= k-th`` mask and each token's k-th minus (k+1)-th
+    probability), and per drawn token its fp32 logits and call,
+    ``taps[(ticket, j)] = (logits, call)``.
+
+    ``force`` makes the run teacher-forced: each router's logits are
+    masked to ``force["routing"]``'s mask of the same call and layer (the
+    layer then selects those experts, at its own gate values, and the
+    capacity cut follows from them), and each draw returns logits whose
+    argmax is ``force["tokens"][(ticket, j)]``. Returns the hook handles."""
+    import functools
+
+    from hops_tpu_torch.models.moe import MoEMLP
+
+    model = engine.model
+
+    def on_call(_mod, _args):
+        calls.append([])
+
+    def on_router(top_k, _mod, _args, out):
+        probs = torch.softmax(out.float(), dim=-1)
+        top = torch.topk(probs, top_k + 1, dim=-1).values
+        calls[-1].append((probs >= top[:, top_k - 1:top_k], top[:, top_k - 1] - top[:, top_k]))
+        if force is None:
+            return None
+        c, layer = len(calls) - 1, len(calls[-1]) - 1
+        if c >= len(force["routing"]) or layer >= len(force["routing"][c]):
+            raise AssertionError(f"phase 13 (d): call {c} layer {layer} has no forced routing")
+        mask = force["routing"][c][layer][0]
+        if tuple(mask.shape) != tuple(out.shape):
+            raise AssertionError(f"phase 13 (d): call {c} routes {tuple(out.shape)}, the served "
+                                 f"run {tuple(mask.shape)}")
+        forced = out.masked_fill(~mask, float("-inf"))
+        fp = torch.softmax(forced.float(), dim=-1)
+        if not torch.equal(fp >= torch.topk(fp, top_k, dim=-1).values[:, -1:], mask):
+            raise AssertionError(f"phase 13 (d): call {c} layer {layer}: the forced routing "
+                                 "does not select the served run's experts")
+        return forced
+
+    real = model.logits
+
+    def tap(hidden):
+        out = real(hidden)
+        call = len(calls) - 1
+        if out.dim() == 3:  # a decode step over every slot
+            last = out[:, -1]
+            rows = [(r, (st.ticket, len(st.emitted)))
+                    for r, st in enumerate(engine._slot_state) if st is not None]
+        else:  # an admission wave, in _admitting's order
+            last = out
+            rows = [(i, (req.ticket, 0)) for i, req in enumerate(engine._admitting)]
+        for r, key in rows:
+            taps[key] = (last[r].float(), call)
+        if force is None:
+            return out
+        out = out.clone()
+        last = out[:, -1] if out.dim() == 3 else out
+        for r, key in rows:
+            last[r] = float("-inf")
+            last[r, force["tokens"][key]] = 0.0
+        return out
+
+    model.logits = tap
+    return [model.register_forward_pre_hook(on_call)] + [
+        m.router.register_forward_hook(functools.partial(on_router, m.top_k))
+        for m in model.modules() if isinstance(m, MoEMLP)]
+
+
+def _moe_forced_run(torch, model, prompts, got, got_calls, dev) -> tuple[dict, list, list]:
+    """``model`` in an engine of the served shape (4 slots) under the plain
+    attention, teacher-forced to the served run: ``got``'s tokens and
+    ``got_calls``' routing. Returns its taps keyed ``(request, j)``, its
+    calls and its streams."""
+    from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+
+    engine = LMEngine(model, slots=4, device=dev)
+    taps, calls, force = {}, [], {"routing": got_calls, "tokens": {}}
+    hooks = _moe_taps(engine, torch, taps, calls, force)
+    with torch.inference_mode(), plain_attention():
+        tickets = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, NEW_TOKENS)]
+        for t, stream in zip(tickets, got):
+            force["tokens"].update({(t, j): tok for j, tok in enumerate(stream)})
+        res = engine.run()
+    for h in hooks:
+        h.remove()
+    index = {t: i for i, t in enumerate(tickets)}
+    return ({(index[t], j): v for (t, j), v in taps.items()}, calls, [res[t] for t in tickets])
+
+
+def _moe_check(torch, got, got_taps, got_calls, plain, fp32) -> dict:
+    """Phase 13 (d)'s serving check against two teacher-forced runs of the
+    same model under the plain attention (:func:`_moe_forced_run`):
+    ``plain`` in bf16, ``fp32`` with the weights cast up. Both see the
+    served run's tokens and routing, so every drawn token is compared on
+    the same history:
+
+    - calls: the same count, and per MoE layer the same token count;
+    - routing: where the forced bf16 run's own router would pick other
+      experts than the served run did, the k-th and (k+1)-th
+      probabilities lie within ``ROUTER_MARGIN`` in one of the two runs
+      (the fp32 run's flips are counted);
+    - logits: per draw, ``||served - fp32||inf`` within
+      ``MOE_TOKEN_REL`` times ``||plain - fp32||inf`` (the plain bf16
+      model's own distance from fp32), and the median draw's ratio
+      within ``MOE_MEDIAN_REL``;
+    - tokens: each served token is the plain bf16 run's argmax, or within
+      ``NEAR_TIE_REL * ||logits||inf`` of it (a near tie).
+
+    Returns the counts and the worst ratios; raises on a failed check."""
+    order = sorted({t for t, _ in got_taps})
+    got_taps = {(order.index(t), j): v for (t, j), v in got_taps.items()}
+    out = {"tokens": sum(len(a) for a in got), "held": 0, "near_ties": [], "flips": {},
+           "margin": {}, "ratios": [], "direct": []}
+    for name, (_, calls, streams) in (("bf16", plain), ("fp32", fp32)):
+        if streams != got:
+            raise AssertionError(f"phase 13 (d): the forced {name} run drew other tokens")
+        if len(calls) != len(got_calls):
+            raise AssertionError(f"phase 13 (d): the forced {name} run made {len(calls)} calls, "
+                                 f"the served run {len(got_calls)}")
+        flips, widest = 0, 0.0
+        for c, (mine, theirs) in enumerate(zip(calls, got_calls)):
+            if len(mine) != len(theirs):
+                raise AssertionError(f"phase 13 (d): call {c} has {len(mine)} MoE layers, "
+                                     f"not {len(theirs)}")
+            for (ma, mm), (ga, gm) in zip(mine, theirs):
+                rows = (ma != ga).any(dim=1).nonzero().flatten()
+                flips += len(rows)
+                if len(rows):
+                    worst = torch.minimum(mm[rows], gm[rows]).max().item()
+                    widest = max(widest, worst)
+                    # The bf16 run differs from the served one in its
+                    # attention alone; the fp32 run (the logits' noise
+                    # scale) in every rounding, so its router moves more.
+                    if name == "bf16" and worst > ROUTER_MARGIN:
+                        raise AssertionError(
+                            f"phase 13 (d): the forced {name} run routes {len(rows)} tokens of "
+                            f"call {c} elsewhere, widest k-th vs (k+1)-th margin {worst:.2e}")
+        out["flips"][name], out["margin"][name] = flips, widest
+    bad = []
+    for i, stream in enumerate(got):
+        for j, tok in enumerate(stream):
+            g, p, f = (t[(i, j)][0] for t in (got_taps, plain[0], fp32[0]))
+            err, noise = (g - f).abs().max().item(), (p - f).abs().max().item()
+            out["ratios"].append(err / noise if noise else math.inf)
+            out["direct"].append((g - p).abs().max().item() / noise if noise else math.inf)
+            if not err <= MOE_TOKEN_REL * noise:
+                bad.append(f"request {i} token {j}: |served - fp32|inf {err:.3e}, plain bf16's "
+                           f"{noise:.3e}")
+            best = int(torch.argmax(p))
+            if best != tok:
+                gap, scale = (p[best] - p[tok]).item(), p.abs().max().item()
+                if not gap <= NEAR_TIE_REL * scale:
+                    bad.append(f"request {i} token {j}: served {tok}, plain argmax {best}, gap "
+                               f"{gap / scale:.1e} of ||logits||inf")
+                    continue
+                out["near_ties"].append(f"request {i} token {j}: gap {gap / scale:.1e}")
+            out["held"] += 1
+    for key in ("ratios", "direct"):
+        r = sorted(out[key])
+        out[f"{key}_q"] = (r[len(r) // 2], r[min(len(r) - 1, int(0.99 * len(r)))], r[-1])
+    if not out["ratios_q"][0] <= MOE_MEDIAN_REL:
+        bad.append(f"the median token's |served - fp32|inf is {out['ratios_q'][0]:.3f} times the "
+                   f"plain bf16's")
+    out["bad"] = bad
+    return out
+
+
+def scaleout_worker(spec_path: str) -> int:
+    """Phase 13, in the child that ``python -m hops_tpu_torch.launch``
+    started as rank 0 of a one-rank NCCL group: (a) ResNet-50 through
+    ``experiment.collective_all_reduce`` in every grad-comms mode, (b)
+    the quantized wire format on the card, (c) Ulysses and ring attention
+    in the LM, (d) the MoE LM trained and served. Prints its lines, raises
+    on a failed check, and writes the launch counts of the sp and moe
+    paths to ``result.json`` beside the spec."""
+    import gc as gcollect
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hops_tpu_torch import experiment
+    from hops_tpu_torch.models.common import (
+        SyntheticClassData, create_bn_train_state, create_train_state, make_bn_train_step,
+    )
+    from hops_tpu_torch.models.convert import load_npz
+    from hops_tpu_torch.models.resnet import ResNet50
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+    from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, load_lm_artifact
+    from hops_tpu_torch.ops import attention as A
+    from hops_tpu_torch.parallel import get_strategy, mesh as mesh_lib, multihost
+    from hops_tpu_torch.parallel import grad_comms as gc
+    from hops_tpu_torch.runtime import config
+    from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    work, seed, card_line = Path(spec["work"]), spec["seed"], spec["card"]
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke")
+    dev = multihost.device()
+    out: dict = {"backend": dist.get_backend(), "world": multihost.process_count()}
+    if out["backend"] != "nccl" or out["world"] != 1:
+        raise AssertionError(f"phase 13: backend {out['backend']}, world {out['world']}")
+
+    # (a) grad comms on ResNet-50, deterministic.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    data = SyntheticClassData(num_classes=RESNET_CLASSES, shape=(RESNET_IMAGE, RESNET_IMAGE, 3),
+                              seed=seed, device=dev)
+    batches = list(data.batches(RESNET_BATCH, SCALEOUT_STEPS))
+    pre_c = REGISTRY.counter("hops_tpu_grad_comms_bytes_pre_total", labels=("mode",))
+    post_c = REGISTRY.counter("hops_tpu_grad_comms_bytes_post_total", labels=("mode",))
+    ratio_g = REGISTRY.gauge("hops_tpu_grad_comms_compression_ratio", labels=("mode",))
+    runs, keep = {}, {}
+    for mode in SCALEOUT_MODES:
+        cfg = gc.GradCommsConfig.parse(mode)
+        label = cfg.mode if cfg is not None else None
+        before = (pre_c.value(mode=label), post_c.value(mode=label)) if label else None
+
+        def train_fn():
+            s = get_strategy()
+            state = s.replicate(create_bn_train_state(ResNet50(RESNET_CLASSES, device=dev,
+                                                               seed=seed)))
+            if cfg is not None and cfg.update_sharding == "zero3":
+                state = gc.zero3_init(state, s.mesh)
+            step = s.step(make_bn_train_step(grad_comms=s.grad_comms))
+            losses, times = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(m["loss"])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            runs[mode] = {"losses": [float(x) for x in losses],
+                          "ms": statistics.median(times[1:]) * 1e3}
+            if mode == "allreduce":
+                keep["model"] = state.model
+            elif mode == "zero3":
+                keep["zero3_meta"] = state.shards.meta
+            return {"loss": runs[mode]["losses"][-1]}
+
+        experiment.collective_all_reduce(train_fn, name=f"scaleout-{mode}", grad_comms=cfg)
+        if label:
+            tree = ([torch.empty((m[3],), dtype=m[1], device="meta") for m in keep["zero3_meta"]]
+                    if mode == "zero3" else keep["model"])
+            want = [x * SCALEOUT_STEPS for x in gc.wire_bytes(tree, cfg)]
+            got = [pre_c.value(mode=label) - before[0], post_c.value(mode=label) - before[1]]
+            runs[mode].update(pre=got[0], post=got[1], ratio=ratio_g.value(mode=label))
+            if got != want:
+                raise AssertionError(f"phase 13 (a) {mode}: counted {got} wire bytes, "
+                                     f"wire_bytes gives {want}")
+        gcollect.collect()
+        torch.cuda.empty_cache()
+    ref = runs["none"]
+    print(f"phase 13 (a) ResNet-50 (batch {RESNET_BATCH}, {RESNET_IMAGE}x{RESNET_IMAGE}, bf16, "
+          f"seeded weights) through experiment.collective_all_reduce, {SCALEOUT_STEPS} steps a "
+          f"mode, deterministic algorithms, one NCCL rank: losses (none, DDP) "
+          f"{[round(x, 5) for x in ref['losses']]}; step ms (median of steps 2-"
+          f"{SCALEOUT_STEPS}) none {ref['ms']:.3f}, " + ", ".join(
+              f"{m} {r['ms']:.3f}" for m, r in runs.items() if m != "none")
+          + f"; card {card_line}", flush=True)
+    for mode, r in runs.items():
+        if "pre" in r:
+            print(f"  {mode}: hops_tpu_grad_comms_bytes_pre_total +{r['pre']:.0f}, "
+                  f"_post_total +{r['post']:.0f}, compression ratio {r['ratio']:.4f} "
+                  f"(= wire_bytes x {SCALEOUT_STEPS})", flush=True)
+        if r["losses"] != ref["losses"]:
+            raise AssertionError(f"phase 13 (a): {mode}'s losses {r['losses']} differ from "
+                                 f"none's {ref['losses']}")
+
+    # (b) the wire format on the card, over ResNet-50's gradient buckets.
+    model = keep.pop("model")
+    model.zero_grad(set_to_none=True)
+    b = batches[0]
+    logits = model(b["image"], train=True)
+    torch.nn.functional.cross_entropy(logits.float(), b["label"]).backward()
+    grads = [p.grad for p in model.parameters()]
+    bufs, _ = gc.flatten_buckets(grads, gc.DEFAULT_BUCKET_BYTES)
+    worst, n_el, cfg_q = 0.0, 0, gc.GradCommsConfig(quantize=True)
+    for buf in bufs:
+        q, s = gc.quantize_blockwise(buf, cfg_q.block_size)
+        cq, cs = gc.quantize_blockwise(buf.cpu(), cfg_q.block_size)
+        if not (torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)):
+            raise AssertionError("phase 13 (b): int8 blocks or scales differ from the CPU's")
+        back = gc.dequantize_blockwise(q, s, buf.numel(), tuple(buf.shape), buf.dtype)
+        err = (back - buf).abs().reshape(-1)
+        pad = (-buf.numel()) % cfg_q.block_size
+        ratio = (torch.cat([err, err.new_zeros(pad)]).reshape(-1, cfg_q.block_size) / s).max()
+        worst = max(worst, ratio.item())
+        n_el += buf.numel()
+    # Half a step of the int8 grid, plus the fp32 rounding of q * scale:
+    # one ulp of the block's largest value, 127 scales.
+    bound = 0.5 + 127 * 2.0 ** -23
+    print(f"phase 13 (b) quantize_blockwise on the card over ResNet-50's {len(bufs)} gradient "
+          f"buckets ({n_el} elements, block {cfg_q.block_size}): int8 values and fp32 scales "
+          f"equal the CPU's bit for bit; worst round-trip error {worst:.7f} of its block's "
+          f"scale (bound {bound:.7f})", flush=True)
+    if worst > bound:
+        raise AssertionError(f"phase 13 (b): round-trip error {worst} of a block's scale")
+    del model, grads, bufs, logits, keep
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    gcollect.collect()
+    torch.cuda.empty_cache()
+
+    # (c) sequence parallelism on a one-rank seq mesh.
+    params = load_npz(spec["params"])
+    tokens = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, TRAIN["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    seq_mesh = mesh_lib.make_mesh({"seq": 1})
+
+    def train(cfg, batch, steps):
+        model = TransformerLM(**cfg, device=dev,
+                              mesh=seq_mesh if cfg["attention_impl"] in ("ring", "ulysses")
+                              else None).load_flax(params)
+        state = create_train_state(model, seed=seed, learning_rate=LEARNING_RATE)
+        step = make_lm_train_step(loss_chunk=LOSS_CHUNK)
+        losses = []
+        for _ in range(steps):
+            state, m = step(state, {"tokens": batch})
+            losses.append(float(m["loss"]))
+        del model, state
+        gcollect.collect()
+        torch.cuda.empty_cache()
+        return losses
+
+    flash = train(TRAIN, tokens, SP_STEPS)
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    uly = train(dict(TRAIN, attention_impl="ulysses"), tokens, SP_STEPS)
+    torch.cuda.synchronize()
+    sp_launches = A.launch_counts()
+    print(f"phase 13 (c) Ulysses (phase 7's LM, batch {TRAIN_BATCH} x {TRAIN_SEQ}, one-rank seq "
+          f"mesh): losses {[round(x, 5) for x in uly]}, flash's {[round(x, 5) for x in flash]}; "
+          f"launches over {SP_STEPS} steps { {k: sp_launches[k] for k in TRAIN_KERNELS} }",
+          flush=True)
+    if uly != flash:
+        raise AssertionError(f"phase 13 (c): Ulysses losses {uly} differ from flash's {flash}")
+    for k in TRAIN_KERNELS:
+        if sp_launches[k] != TRAIN["num_layers"] * SP_STEPS:
+            raise AssertionError(f"phase 13 (c): {k} launched {sp_launches[k]} times in "
+                                 f"{SP_STEPS} Ulysses steps")
+    small = tokens[:RING_BATCH]
+    ring = train(dict(TRAIN, attention_impl="ring"), small, RING_STEPS)
+    flash2 = train(TRAIN, small, RING_STEPS)
+    fp32 = train(dict(TRAIN, dtype="float32", attention_impl="reference"), small, RING_STEPS)
+    d_ring = max(abs(a - b) for a, b in zip(ring, fp32))
+    d_flash = max(abs(a - b) for a, b in zip(flash2, fp32))
+    print(f"phase 13 (c) ring (batch {RING_BATCH}): losses {[round(x, 5) for x in ring]}; the "
+          f"bf16 flash path {[round(x, 5) for x in flash2]}, the fp32 plain path "
+          f"{[round(x, 5) for x in fp32]}: ring's distance {d_ring:.3e}, flash's {d_flash:.3e} "
+          f"(bound {RING_REL} x flash's)", flush=True)
+    if not d_ring <= RING_REL * d_flash:
+        raise AssertionError(f"phase 13 (c): ring's losses {d_ring:.3e} from fp32, over "
+                             f"{RING_REL} x flash's {d_flash:.3e}")
+
+    # (d) the MoE LM, trained and served.
+    art = Path(spec["moe_artifact"])
+    moe_params = load_npz(art / "params.npz")
+    A.reset_launch_counts()
+    moe_run = _train_moe(torch, moe_params, tokens, dev, seed, work, A)
+    moe_train = moe_run["launches"]
+    losses, share = moe_run["losses"], moe_run["share"]
+    rep = moe_run["report"]
+    print(f"phase 13 (d) MoE LM (moe_every {MOE_TRAIN['moe_every']}: "
+          f"{MOE_TRAIN['num_layers'] // MOE_TRAIN['moe_every']} MoE blocks of "
+          f"{MOE_TRAIN['num_experts']} experts, top {MOE_TRAIN['moe_top_k']}, "
+          f"capacity factor 1.25, hidden {moe_run['hidden']}; {moe_run['experts'] / 1e9:.3f} B "
+          f"expert parameters) at batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}, aux loss {moe_run['aux']:.4f}; step "
+          f"{moe_run['ms']:.3f} ms, {moe_run['tokens_s']:.1f} tokens/s; peak memory "
+          f"{moe_run['peak_gib']:.2f} GiB; launches over {MOE_STEPS} steps "
+          f"{ {k: moe_train[k] for k in TRAIN_KERNELS} }; card {card_line}", flush=True)
+    print(f"phase 13 (d) diagnostics.trace of one MoE step: {rep['total_ms']:.3f} device ms; "
+          f"dispatch/combine (the (T, E, C) einsums and mask ops, {share[2]} launches) "
+          f"{share[0]:.3f} ms ({share[0] / share[1]:.1%} of kernel time); " + "; ".join(
+              f"{c['name']} {c['ms']:.3f} ms ({c['share']:.1%})" for c in rep["categories"]),
+          flush=True)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 13 (d): the MoE loss did not fall: {losses}")
+    for k in TRAIN_KERNELS:
+        if not moe_train[k]:
+            raise AssertionError(f"phase 13 (d): {k} never launched in MoE training")
+    gcollect.collect()
+    torch.cuda.empty_cache()
+
+    del moe_params
+    prompts = spec["prompts"]
+    instances = [{"prompt": p, "max_new_tokens": n, "temperature": 0.0}
+                 for p, n in zip(prompts, NEW_TOKENS)]
+    serve_launches = {k: 0 for k in A.launch_counts()}
+    for kv in (None, "int8"):
+        name = "int8" if kv else "bf16"
+        predictor = LMEnginePredictor(art, {"slots": 4, "kv_cache_dtype": kv}, device=dev)
+        got_taps, got_calls = {}, []
+        hooks = _moe_taps(predictor.engine, torch, got_taps, got_calls)
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = predictor.predict(instances)
+        wall = time.perf_counter() - t0
+        launches = A.launch_counts()
+        stats = predictor.stats()
+        ttft = [t for t in predictor.last_ttft_s if t is not None]
+        predictor.stop()
+        for h in hooks:
+            h.remove()
+        del predictor
+        gcollect.collect()
+        torch.cuda.empty_cache()
+        for k, n in launches.items():
+            serve_launches[k] += n
+        ref_model = load_lm_artifact(art, dev, ragged_decode=True, kv_cache_dtype=kv)
+        plain = _moe_forced_run(torch, ref_model, prompts, got, got_calls, dev)
+        fp32 = _moe_forced_run(torch, ref_model.clone(dtype="float32"), prompts, got, got_calls,
+                               dev)
+        del ref_model
+        gcollect.collect()
+        torch.cuda.empty_cache()
+        chk = _moe_check(torch, got, got_taps, got_calls, plain, fp32)
+        kernels = ("flash_fwd", "decode_attention") if kv is None else ("decode_attention_q8",)
+        print(f"phase 13 (d) MoE serving, {name} cache (LMEnginePredictor, 4 slots, phase 4's "
+              f"{len(prompts)} greedy requests): {chk['tokens']} tokens in {wall:.2f} s; "
+              f"TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, decode "
+              f"{stats['decode_tokens'] / stats['decode_s']:.1f} tokens/s, admission waves "
+              f"{stats['admission_waves']}; against the plain attention teacher-forced to the "
+              f"served tokens and routing over {len(got_calls)} calls: tokens held "
+              f"{chk['held']} of {chk['tokens']}; per token |served - fp32|inf / |plain bf16 - "
+              f"fp32|inf p50, p99, max {['%.3f' % x for x in chk['ratios_q']]} (bounds: p50 "
+              f"{MOE_MEDIAN_REL}, each {MOE_TOKEN_REL}), |served - plain bf16|inf / |plain bf16 - fp32|inf "
+              f"{['%.3f' % x for x in chk['direct_q']]}; near ties "
+              f"{len(chk['near_ties'])}"
+              + (" (" + "; ".join(chk["near_ties"]) + ")" if chk["near_ties"] else "")
+              + f"; router flips the forced runs would make: bf16 {chk['flips']['bf16']} (widest "
+              f"margin {chk['margin']['bf16']:.2e}, bound {ROUTER_MARGIN}), fp32 "
+              f"{chk['flips']['fp32']} (widest {chk['margin']['fp32']:.2e}); launches { {k: n for k, n in launches.items() if n} }; "
+              f"card {card_line}", flush=True)
+        if chk["bad"]:
+            raise AssertionError(f"phase 13 (d) {name}: {len(chk['bad'])} tokens not held: "
+                                 + "; ".join(chk["bad"][:10]))
+        missing = [k for k in kernels if not launches[k]]
+        if missing:
+            raise AssertionError(f"phase 13 (d) {name}: {missing} never launched: {launches}")
+    moe = {k: moe_train.get(k, 0) + serve_launches.get(k, 0) for k in serve_launches}
+    (work / "result.json").write_text(json.dumps({"sp": sp_launches, "moe": moe}))
+    return 0
+
+
+def _train_moe(torch, params, tokens, dev, seed: int, work: Path, A) -> dict:
+    """Phase 13 (d)'s training: ``MOE_STEPS`` steps of the MoE LM, timed
+    after the first (their kernel launches in ``launches``), then one
+    step under ``diagnostics.trace``."""
+    import gc as gcollect
+
+    from hops_tpu_torch.models.common import create_train_state
+    from hops_tpu_torch.models.moe import MoEMLP, sum_sown_losses
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+    from hops_tpu_torch.runtime import diagnostics
+
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(**MOE_TRAIN, device=dev).load_flax(params)
+    try:
+        state = create_train_state(model, seed=seed, learning_rate=LEARNING_RATE)
+        step = make_lm_train_step(loss_chunk=LOSS_CHUNK)
+        batch = {"tokens": tokens}
+        losses = []
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MOE_STEPS - 1):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - t0) / (MOE_STEPS - 1)
+        launches = A.launch_counts()
+        aux = float(torch.as_tensor(sum_sown_losses(model)).detach())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with diagnostics.trace(str(work / "moe_trace")) as target:
+            step(state, batch)
+        experts = sum(m.w_in.numel() + m.w_out.numel() for m in model.modules()
+                      if isinstance(m, MoEMLP))
+        hidden = next(m.w_in.shape[2] for m in model.modules() if isinstance(m, MoEMLP))
+    finally:
+        del model
+        state = None
+        gcollect.collect()
+        torch.cuda.empty_cache()
+    n_tok = tokens.shape[0] * TRAIN_SEQ
+    capacity = max(1, int(1.25 * n_tok * MOE_TRAIN["moe_top_k"] / MOE_TRAIN["num_experts"]))
+    kind = torch.cuda.get_device_name(0)
+    return {
+        "losses": [float(x) for x in losses], "aux": aux, "ms": elapsed * 1e3, "launches": launches,
+        "tokens_s": n_tok / elapsed, "peak_gib": peak, "experts": experts, "hidden": hidden,
+        "report": diagnostics.roofline_report(target, *diagnostics.device_peaks(kind)),
+        "share": _trace_share(target, n_tok, (capacity, capacity * MOE_TRAIN["num_experts"]), 1),
+    }
+
+
+def scaleout_phase(A, torch, art: Path, prompts, seed: int, card_line: str) -> dict[str, dict]:
+    """Phase 13; returns the launch counts of its sp and moe paths. The
+    whole phase runs in a child process (its own NCCL group of one rank)
+    started through the launch CLI; its lines are printed here."""
+    import subprocess
+
+    from hops_tpu_torch.models.convert import random_params
+    from hops_tpu_torch.modelrepo.serving import save_lm_artifact
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_smoke" / "scaleout"
+    work.mkdir(parents=True, exist_ok=True)
+    save_lm_artifact(work / "moe_artifact", MOE_SERVE, random_params(**MOE_SERVE, seed=seed))
+    (work / "spec.json").write_text(json.dumps({
+        "params": str(art / "params.npz"), "moe_artifact": str(work / "moe_artifact"),
+        "seed": seed, "work": str(work), "card": card_line,
+        "prompts": [list(map(int, p)) for p in prompts]}))
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "hops_tpu_torch.launch", "--coordinator",
+           f"127.0.0.1:{_free_port()}", "--num-processes", "1", "--process-id", "0",
+           str(ROOT / "chip_smoke.py"), "--scaleout-worker", str(work / "spec.json")]
+    proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("phase 13", "  ")):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 13 worker exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    res = json.loads((work / "result.json").read_text())
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 13 took {phase_s:.1f} s (budget {PHASE13_BUDGET_S:.0f} s); launches of the "
+          f"sp path { {k: n for k, n in res['sp'].items() if n} }, of the moe path "
+          f"{ {k: n for k, n in res['moe'].items() if n} }", flush=True)
+    if phase_s > PHASE13_BUDGET_S:
+        raise AssertionError(f"phase 13 took {phase_s:.1f} s, over {PHASE13_BUDGET_S:.0f} s")
+    return res
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -3361,6 +3999,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--distribute-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--scaleout-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # cuBLAS is deterministic on one stream only with a fixed workspace
@@ -3378,6 +4017,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.distribute_worker:  # phase 12's child, under python -m hops_tpu_torch.launch
         return distribute_worker(args.distribute_worker)
+    if args.scaleout_worker:  # phase 13's child, likewise
+        return scaleout_worker(args.scaleout_worker)
     import numpy as np
 
     from hops_tpu_torch.models.convert import random_params
@@ -3547,6 +4188,10 @@ def main() -> int:
         dist_launches = distribute_phase(A, torch, art, prompts, answers, dev, args.seed,
                                          card_line, phase7)
         print("phase 12 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 13 scale-out:", flush=True)
+        scale = scaleout_phase(A, torch, art, prompts, args.seed, card_line)
+        print("phase 13 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -3567,6 +4212,10 @@ def main() -> int:
         for r in (k1, *bwd_rows, k4, wide_row):
             r["launches_by_path"]["distribute"] = dist_launches[r["name"]]
             r["launches"] += dist_launches[r["name"]]
+        for r in (k1, *bwd_rows, k4, wide_row, *cache_rows):
+            for path in ("sp", "moe"):
+                r["launches_by_path"][path] = scale[path].get(r["name"], 0)
+                r["launches"] += scale[path].get(r["name"], 0)
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
     finally:
         if predictor is not None:

@@ -179,8 +179,9 @@ def mirrored(
     """Single-host data-parallel training over this host's ranks
     (reference: ``experiment.mirrored`` + ``MirroredStrategy``,
     mirroredstrategy_mnist_example.ipynb:231). The wrapper sees the
-    strategy via ``parallel.get_strategy()``. ``grad_comms`` raises
-    ``NotImplementedError``: gradient communication is a later slice."""
+    strategy via ``parallel.get_strategy()``. ``grad_comms`` (a
+    ``parallel.grad_comms.GradCommsConfig``) becomes the strategy's
+    default for ``strategy.step``."""
     return _run_wrapper(
         fn, args, name, "mirrored", local_logdir, metric_key,
         MirroredStrategy(grad_comms=grad_comms),
@@ -200,8 +201,8 @@ def collective_all_reduce(
     all-reduced by DDP (reference: multi-worker ``experiment.mirrored``
     with ``MultiWorkerMirroredStrategy`` + NCCL, and the
     ``collective_all_reduce`` mode). ``grad_comms`` and
-    ``update_sharding`` other than ``"replicated"`` raise
-    ``NotImplementedError``: they are the gradient-communication slice."""
+    ``update_sharding`` (``"cross_replica"``: ZeRO-1) pass through to
+    :class:`~hops_tpu_torch.parallel.CollectiveAllReduceStrategy`."""
     return _run_wrapper(
         fn, args, name, "collective_all_reduce", local_logdir, metric_key,
         CollectiveAllReduceStrategy(update_sharding=update_sharding, grad_comms=grad_comms),

@@ -273,7 +273,8 @@ class LMEngine:
         device: str | torch.device | None = None,
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh (tensor-parallel serving) is a later slice")
+            raise NotImplementedError(
+                "mesh (tensor-parallel serving) is ROADMAP.md Queue 1 item 5, a later slice")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if not getattr(model, "ragged_decode", False):
@@ -1028,19 +1029,34 @@ class LMEngine:
         slots. The pad past each row's true length is never read: the
         next dispatch sets the row's index to it."""
         bucket = max(min(self._bucket(req.prompt.size), self._cap) for _, req in wave)
-        padded = np.zeros((len(wave), bucket), np.int64)
+        # MoE routing couples the rows of a call (capacity per call, buffer
+        # slots in token order), so an MoE wave of several requests runs
+        # the JAX engine's shape: every slot, free ones on zeros, into a
+        # transient cache whose admitted rows are then copied in.
+        all_slots = bool(self.model.moe_every) and len(wave) > 1
+        at = [row if all_slots else i for i, (row, _) in enumerate(wave)]
+        padded = np.zeros((self.slots if all_slots else len(wave), bucket), np.int64)
         true_lens = np.zeros((len(wave),), np.int64)
         for i, (_, req) in enumerate(wave):
-            padded[i, : req.prompt.size] = req.prompt
+            padded[at[i], : req.prompt.size] = req.prompt
             true_lens[i] = req.prompt.size
         dev = self.device
         rows = torch.tensor([row for row, _ in wave], dtype=torch.long, device=dev)
         lens = torch.from_numpy(true_lens).to(dev)
         padded = torch.from_numpy(padded).to(dev)
-        hidden = self.model(padded, self._cache, fresh=True, rows=rows, return_hidden=True)
-        last = self.model.logits(hidden[torch.arange(len(wave), device=dev), lens - 1])
+        if all_slots:
+            fresh = self.model.init_cache(self.slots)
+            hidden = self.model(padded, fresh, fresh=True, return_hidden=True)
+            for dst, src in zip(self._cache.tensors(), fresh.tensors()):
+                dst[rows] = src[rows]
+            self._cache.idx[rows] = fresh.idx[rows]
+            del fresh
+        else:
+            hidden = self.model(padded, self._cache, fresh=True, rows=rows, return_hidden=True)
+        picked = torch.tensor(at, dtype=torch.long, device=dev)
+        last = self.model.logits(hidden[picked, lens - 1])
         if self.spec_k:
-            self.draft_model(padded, self._draft_cache, fresh=True, rows=rows,
+            self.draft_model(padded[picked], self._draft_cache, fresh=True, rows=rows,
                              return_hidden=True)
         reqs = [req for _, req in wave]
         toks = _sampling(reqs, dev).sample(last, torch.zeros_like(lens)).tolist()

@@ -24,12 +24,15 @@ from hops_tpu_torch.runtime.devices import resolve_device
 class TrainState:
     """The module, its optimizer, the number of steps taken and the seed
     that dropout masks derive from (per step, as JAX folds the step into
-    its rng)."""
+    its rng). ``shards`` holds a ZeRO carrier
+    (:func:`~hops_tpu_torch.parallel.grad_comms.zero12_init`,
+    :func:`~hops_tpu_torch.parallel.grad_comms.zero3_init`), else None."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     seed: int = 0
+    shards: Any = None
 
 
 def create_train_state(
@@ -98,14 +101,16 @@ def make_train_step(
     or tensors; they are moved to the model's device. Metrics are 0-d
     tensors there (no host sync).
 
-    ``grad_comms`` (explicit gradient communication across replicas)
-    belongs to the distribution layer, a later slice: it must be None.
+    With a ``grad_comms`` config
+    (:class:`~hops_tpu_torch.parallel.grad_comms.GradCommsConfig`) the
+    step synchronizes its own gradients over the replica axis
+    ``axis_name``, which ``Strategy.step(fn, grad_comms=cfg)`` binds:
+    the parameters go through ``prepare_params`` before the forward
+    (backward hooks, or ZeRO-3's gathered parameters),
+    ``apply_gradients`` replaces the optimizer step, and BatchNorm's
+    running statistics and the metrics are averaged over the replicas.
+    The step carries the config as its ``grad_comms`` marker.
     """
-    if grad_comms is not None:
-        raise NotImplementedError(
-            "grad_comms needs the distribution layer (gradient communication across "
-            "replicas), which is a later slice of the port")
-    del axis_name  # names the replica axis of grad_comms only
     fn = loss_fn if loss_fn is not None else cross_entropy_loss
 
     def train_step(state: TrainState, batch: dict[str, Any]):
@@ -114,14 +119,30 @@ def make_train_step(
         images = torch.as_tensor(batch["image"]).to(dev)
         labels = torch.as_tensor(batch["label"]).to(dev, torch.long)
         gen = torch.Generator().manual_seed(step_seed(state.seed, state.step))
+        if grad_comms is None:
+            logits = model(images, train=True, generator=gen)
+            loss = fn(logits, labels)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            state.optimizer.step()
+            metrics = {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), labels)}
+            return dataclasses.replace(state, step=state.step + 1), metrics
+        from hops_tpu_torch.parallel import grad_comms as gc
+
+        state.optimizer.zero_grad(set_to_none=True)
+        prepared = gc.prepare_params(state, grad_comms, axis_name)
         logits = model(images, train=True, generator=gen)
         loss = fn(logits, labels)
-        state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        metrics = {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), labels)}
-        return dataclasses.replace(state, step=state.step + 1), metrics
+        gc.pmean_buffers(model, axis_name)
+        new_state = gc.apply_gradients(state, prepared, grad_comms, axis_name)
+        metrics = gc.pmean_metrics(
+            {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), labels)}, axis_name)
+        return new_state, metrics
 
+    # Read by Strategy.step: a step that synchronizes its own gradients
+    # must not run under DDP, and a plain step must not run without it.
+    train_step.grad_comms = grad_comms
     return train_step
 
 

@@ -4,8 +4,10 @@ A JAX variable tree (``model.init(...)``, as numpy arrays) or a flat
 ``'/'``-joined file maps onto the port's state dict by name alone: the
 port's modules keep the flax names and shapes (the LM's
 ``embed/embedding``, ``block_i/{RMSNorm_0,RMSNorm_1}/scale``,
-``block_i/attn/{qkv|q,kv,out}/kernel``, ``block_i/mlp/{gate,up,down}/kernel``,
-``final_norm/scale``, ``unembed/kernel``; the classifiers'
+``block_i/attn/{qkv|q,kv,out}/kernel``, ``block_i/mlp/{gate,up,down}/kernel``
+or, in an MoE block, ``block_i/moe/router/kernel`` ``(d_model, E)``,
+``block_i/moe/w_in`` ``(E, d_model, hidden)`` and ``block_i/moe/w_out``
+``(E, hidden, d_model)``, ``final_norm/scale``, ``unembed/kernel``; the classifiers'
 ``Conv_i/{kernel,bias}``, ``Dense_i/{kernel,bias}``, ``.../BatchNorm_i``
 and ``proj``/``proj_bn``, ``stem_conv``; wide-and-deep's
 ``wide_i/kernel``, ``embed_i/embedding``, ``deep_j/{kernel,bias}`` and
@@ -109,16 +111,19 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
 
 def random_params(
     vocab_size: int, d_model: int, num_heads: int, num_layers: int,
-    num_kv_heads: int | None = None, seed: int = 0, **_unused: Any,
+    num_kv_heads: int | None = None, seed: int = 0, moe_every: int = 0,
+    num_experts: int = 8, **_unused: Any,
 ) -> dict[str, np.ndarray]:
     """Seeded fp32 weights in the flax layout, drawn as flax initialises
     them: Dense kernels normal with std ``1/sqrt(fan_in)``, the embedding
-    normal with std ``1/sqrt(d_model)``, norm scales 1. For runs without
-    a trained checkpoint. Extra config keys are ignored, so a whole
-    ``lm_config`` can be passed."""
+    normal with std ``1/sqrt(d_model)``, norm scales 1; an MoE block's
+    expert stacks with flax's ``lecun_normal`` fan-in (the expert count
+    times the input width). For runs without a trained checkpoint. Extra
+    config keys are ignored, so a whole ``lm_config`` can be passed."""
     rng = np.random.default_rng(seed)
     head_dim = d_model // num_heads
     hidden = max(128, (int(d_model * 4 * 2 / 3) // 128) * 128)
+    moe_hidden = max(128, (d_model * 4 // 128) * 128)
 
     def normal(shape, fan_in):
         arr = rng.standard_normal(shape, dtype=np.float32)
@@ -136,6 +141,12 @@ def random_params(
             flat[f"{p}/attn/q/kernel"] = normal((d_model, num_heads, head_dim), d_model)
             flat[f"{p}/attn/kv/kernel"] = normal((d_model, 2, num_kv_heads, head_dim), d_model)
         flat[f"{p}/attn/out/kernel"] = normal((num_heads * head_dim, d_model), num_heads * head_dim)
+        if moe_every and (i + 1) % moe_every == 0:
+            e = num_experts
+            flat[f"{p}/moe/router/kernel"] = normal((d_model, e), d_model)
+            flat[f"{p}/moe/w_in"] = normal((e, d_model, moe_hidden), e * d_model)
+            flat[f"{p}/moe/w_out"] = normal((e, moe_hidden, d_model), e * moe_hidden)
+            continue
         flat[f"{p}/mlp/gate/kernel"] = normal((d_model, hidden), d_model)
         flat[f"{p}/mlp/up/kernel"] = normal((d_model, hidden), d_model)
         flat[f"{p}/mlp/down/kernel"] = normal((hidden, d_model), hidden)

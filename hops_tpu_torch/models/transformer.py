@@ -22,13 +22,20 @@ kernels on CUDA tensors.
 
 The full forward also trains: :func:`make_lm_train_step` runs the
 JAX package's next-token step (dense or chunked loss, dropout, per-block
-remat) with the flash kernels' backward. MoE blocks, tensor parallelism
-and the ring/Ulysses impls raise ``NotImplementedError``.
+remat, MoE load-balancing losses) with
+the flash kernels' backward. ``moe_every`` makes every k-th block a
+:class:`~hops_tpu_torch.models.moe.MoEBlock`; ``attention_impl="ring"``,
+``"ulysses"`` and ``"ring_local"`` run sequence parallelism over a
+``mesh``'s ``seq_axis`` (:mod:`hops_tpu_torch.parallel.ringattention`):
+with ``ring`` and ``ulysses`` every block runs on this rank's block of
+the activations, which join before the final norm.
+Tensor parallelism (``tp_*``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -234,11 +241,23 @@ class PagedKVCache:
         return [*self.k, *self.v, *(self.k_scale or ()), *(self.v_scale or ())]
 
 
+_SEQ_IMPLS = ("ring", "ulysses", "ring_local")
+
+
 class Attention(nn.Module):
+    """``attention_impl``: ``flash`` (the kernels), ``reference`` (plain
+    attention), or sequence parallelism over ``mesh``'s ``seq_axis``
+    (batch rows split over ``batch_axis``). Each takes this rank's chunk
+    of the sequence (its positions offset by the rank's index on the seq
+    axis): ``ring_local`` as the caller feeds it, ``ring`` and
+    ``ulysses`` as :class:`TransformerLM` cuts it (``shard``, a
+    :class:`~hops_tpu_torch.parallel.ringattention.SeqShard`)."""
+
     def __init__(
         self, d_model: int, num_heads: int, *, dtype, param_dtype, device,
         attention_impl: str = "flash", num_kv_heads: int | None = None,
-        window: int | None = None,
+        window: int | None = None, mesh: Any = None, seq_axis: str = "seq",
+        batch_axis: str | None = None,
     ):
         super().__init__()
         if d_model % num_heads:
@@ -247,6 +266,7 @@ class Attention(nn.Module):
         self.head_dim = d_model // num_heads
         self.attention_impl = attention_impl
         self.window = window
+        self.mesh, self.seq_axis, self.batch_axis = mesh, seq_axis, batch_axis
         self.fused = num_kv_heads is None
         dt = (dtype, param_dtype, device)
         if self.fused:
@@ -276,19 +296,35 @@ class Attention(nn.Module):
 
     def forward(self, x, cache: KVCache | None = None, layer: int = 0,
                 offset: torch.Tensor | None = None, fresh: bool = False,
-                rows: torch.Tensor | None = None):
+                rows: torch.Tensor | None = None, shard: Any = None):
         q, k, v = self._project_in(x)
         if cache is not None:
             return self._decode_attend(q, k, v, cache, layer, offset, fresh, rows)
         pos = torch.arange(x.shape[1], device=x.device)
+        impl = self.attention_impl
+        if impl in _SEQ_IMPLS:
+            from hops_tpu_torch.parallel import ringattention
+
+            if impl != "ring_local" and shard is None:
+                raise ValueError(f"attention_impl={impl!r} runs on this rank's block of the "
+                                 "activations: call it through TransformerLM")
+            seq = ringattention.axis_group(self.mesh, self.seq_axis)
+            pos = pos + seq.index * x.shape[1]  # x is this rank's chunk of the sequence
         q, k = rotary_embedding(q, pos), rotary_embedding(k, pos)
-        k, v = repeat_kv(q, k, v)
-        if self.attention_impl == "flash":
-            o = flash_attention(q, k, v, causal=True, window=self.window)
-        elif self.attention_impl == "reference":
-            o = attention_reference(q, k, v, causal=True, window=self.window)
+        if impl == "flash":
+            o = flash_attention(q, *repeat_kv(q, k, v), causal=True, window=self.window)
+        elif impl == "reference":
+            o = attention_reference(q, *repeat_kv(q, k, v), causal=True, window=self.window)
+        elif impl in ("ring", "ring_local"):
+            # The un-repeated kv heads rotate (ring) or ride the
+            # all-to-alls (Ulysses): Hkv/H of the MHA bytes.
+            o = ringattention.ring_attention_local(q, k, v, axis=seq, causal=True,
+                                                   window=self.window)
+        elif impl == "ulysses":
+            o = ringattention.ulysses_attention_local(q, k, v, axis=seq, causal=True,
+                                                      window=self.window)
         else:
-            raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+            raise ValueError(f"unknown attention_impl {impl!r}")
         return self._project_out(o)
 
     def _decode_attend(self, q, k, v, cache, layer, offset, fresh, rows):
@@ -389,41 +425,64 @@ class MLP(nn.Module):
         return self.down(nn.functional.silu(self.gate(x)) * self.up(x))
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: int, shard: Any = None) -> torch.Tensor:
     """flax's ``Dropout``: keep each entry with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)``. The mask is a function
     of ``seed`` alone (a fresh generator on ``x``'s device), so a
-    recomputed forward (remat) draws the same mask."""
+    recomputed forward (remat) draws the same mask. With ``shard``, ``x``
+    is this rank's block and takes its block of the global mask."""
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    shape = x.shape if shard is None else shard.full_shape(tuple(x.shape))
+    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - rate
+    if shard is not None:
+        keep = shard.block_of(keep)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class Block(nn.Module):
+    """Attention and a SwiGLU ``mlp``, or with ``moe`` (the
+    :class:`~hops_tpu_torch.models.moe.MoEMLP` arguments) routed experts
+    named ``moe`` (:class:`~hops_tpu_torch.models.moe.MoEBlock`)."""
+
     def __init__(self, d_model: int, num_heads: int, *, dtype, param_dtype, device,
-                 dropout_rate: float = 0.0, **attn_kw):
+                 dropout_rate: float = 0.0, moe: dict | None = None, **attn_kw):
         super().__init__()
         self.dropout_rate = dropout_rate
         dt = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.RMSNorm_0 = RMSNorm(d_model, dtype, device)
         self.attn = Attention(d_model, num_heads, **dt, **attn_kw)
         self.RMSNorm_1 = RMSNorm(d_model, dtype, device)
-        self.mlp = MLP(d_model, **dt)
+        if moe is None:
+            self.mlp = MLP(d_model, **dt)
+        else:
+            from hops_tpu_torch.models.moe import MoEMLP
+
+            self.moe = MoEMLP(d_model, **dt, **moe)
 
     def forward(self, x, cache=None, layer=0, offset=None, fresh=False, rows=None,
-                seed: int | None = None):
+                seed: int | None = None, shard: Any = None):
         """``seed`` (training with dropout only): the attention and MLP
         outputs are dropped with masks drawn from ``seed`` and
-        ``seed + 1``."""
-        h = self.attn(self.RMSNorm_0(x), cache, layer, offset, fresh, rows)
+        ``seed + 1``. ``shard``: ``x`` is this rank's block of the
+        activations (:class:`TransformerLM`'s sequence parallelism)."""
+        h = self.attn(self.RMSNorm_0(x), cache, layer, offset, fresh, rows, shard)
         if seed is not None:
-            h = dropout(h, self.dropout_rate, seed)
+            h = dropout(h, self.dropout_rate, seed, shard)
         x = x + h
-        h = self.mlp(self.RMSNorm_1(x))
+        h = self.ffn(self.RMSNorm_1(x), shard)
         if seed is not None:
-            h = dropout(h, self.dropout_rate, seed + 1)
+            h = dropout(h, self.dropout_rate, seed + 1, shard)
         return x + h
+
+    def ffn(self, x: torch.Tensor, shard: Any = None) -> torch.Tensor:
+        if not hasattr(self, "moe"):
+            return self.mlp(x)
+        if shard is None:
+            return self.moe(x)
+        # Routing couples every token of a call (capacity, buffer slots in
+        # token order): the experts see the global batch, as in JAX.
+        return shard.cut(self.moe(shard.join(x)))
 
 
 class TransformerLM(nn.Module):
@@ -432,10 +491,15 @@ class TransformerLM(nn.Module):
     Constructor arguments are the flax module's fields (the artifact's
     ``lm_config.json``), plus ``param_dtype`` (flax's name: the storage
     type of the weights; ``None`` stores them in ``dtype``, as the
-    serving path does) and ``device`` (``None`` = the card). Fields of
-    later slices raise ``NotImplementedError``. ``attention_impl=
-    "reference"`` runs the full forward on the plain attention version;
-    the cached path always runs the kernels.
+    serving path does) and ``device`` (``None`` = the card), and the
+    JAX module's ``mesh`` (a port :class:`~hops_tpu_torch.parallel.mesh.Mesh`),
+    ``seq_axis`` and ``batch_axis`` for the sequence-parallel impls.
+    ``tp_*`` (tensor parallelism) raises ``NotImplementedError``.
+    ``attention_impl="reference"`` runs the full forward on the plain
+    attention version; the cached path always runs the kernels.
+    ``moe_every=k`` makes blocks k-1, 2k-1, ... MoE blocks of
+    ``num_experts`` experts, ``moe_top_k`` per token (not with
+    ``paged_decode``: MoE models keep the dense ragged cache).
     ``kv_cache_dtype="int8"`` quantizes the KV cache; ``paged_decode``
     (with ``ragged_decode``, ``kv_page_size`` and ``kv_pool_blocks`` >= 2)
     makes :meth:`init_cache` return a :class:`PagedKVCache`.
@@ -458,12 +522,17 @@ class TransformerLM(nn.Module):
         kv_page_size: int = 64,
         kv_pool_blocks: int | None = None,
         moe_every: int = 0,
+        num_experts: int = 8,
+        moe_top_k: int = 2,
         tp_shards: int = 1,
         tp_axis: str | None = None,
         dropout_rate: float = 0.0,
         remat: bool = False,
         param_dtype: Any = None,
         device: str | torch.device | None = None,
+        mesh: Any = None,
+        seq_axis: str = "seq",
+        batch_axis: str | None = None,
     ):
         super().__init__()
         if kv_cache_dtype not in (None, "int8"):
@@ -479,16 +548,24 @@ class TransformerLM(nn.Module):
                     "reserved scratch block)")
             if kv_page_size < 1:
                 raise ValueError(f"kv_page_size must be >= 1, got {kv_page_size}")
-        if moe_every:
-            raise NotImplementedError("moe_every: MoE blocks are a later slice")
+        if tp_shards > 1 and moe_every:
+            raise NotImplementedError(
+                "tensor parallelism composes with dense TransformerLMs; shard MoE models "
+                "over an expert axis instead (models/moe.py expert_axis)")
+        if paged_decode and moe_every:
+            raise NotImplementedError(
+                "paged_decode serves dense TransformerLMs; MoE blocks keep the dense "
+                "ragged cache")
         if tp_shards != 1 or tp_axis is not None:
-            raise NotImplementedError("tp_*: tensor parallelism is a later slice")
+            raise NotImplementedError(
+                "tp_*: tensor parallelism is ROADMAP.md Queue 1 item 5, a later slice")
         if not 0.0 <= dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-        if attention_impl not in ("flash", "reference"):
-            raise NotImplementedError(
-                f"attention_impl={attention_impl!r}: ring/ulysses are a later slice"
-            )
+        if attention_impl not in ("flash", "reference", *_SEQ_IMPLS):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
+        if attention_impl in _SEQ_IMPLS and (mesh is None or seq_axis not in mesh.shape):
+            raise ValueError(f"attention_impl={attention_impl!r} needs a mesh with a "
+                             f"{seq_axis!r} axis")
         device = resolve_device(device)
         dtype = as_dtype(dtype)
         stored = None if param_dtype is None else dtype_name(as_dtype(param_dtype))
@@ -501,8 +578,11 @@ class TransformerLM(nn.Module):
             ragged_decode=ragged_decode, paged_decode=paged_decode,
             kv_page_size=kv_page_size, kv_pool_blocks=kv_pool_blocks,
             dropout_rate=dropout_rate, remat=remat,
+            moe_every=moe_every, num_experts=num_experts, moe_top_k=moe_top_k,
             param_dtype=stored,
         )
+        self.mesh, self.seq_axis, self.batch_axis = mesh, seq_axis, batch_axis
+        self.moe_every = moe_every
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.max_decode_len = max_decode_len
@@ -516,12 +596,19 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.param_dtype = param_dtype
         self.embed = Embed(vocab_size, d_model, dtype, param_dtype, device)
+        block_kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
+                        dropout_rate=dropout_rate, attention_impl=attention_impl,
+                        num_kv_heads=num_kv_heads, window=window, mesh=mesh,
+                        seq_axis=seq_axis, batch_axis=batch_axis)
         for i in range(num_layers):
-            self.add_module(f"block_{i}", Block(
-                d_model, num_heads, dtype=dtype, param_dtype=param_dtype, device=device,
-                dropout_rate=dropout_rate, attention_impl=attention_impl,
-                num_kv_heads=num_kv_heads, window=window,
-            ))
+            if moe_every and (i + 1) % moe_every == 0:
+                from hops_tpu_torch.models.moe import MoEBlock
+
+                block = MoEBlock(d_model, num_heads, num_experts=num_experts,
+                                 top_k=moe_top_k, **block_kw)
+            else:
+                block = Block(d_model, num_heads, **block_kw)
+            self.add_module(f"block_{i}", block)
         self.final_norm = RMSNorm(d_model, dtype, device)
         self.unembed = Dense(d_model, (vocab_size,), dtype, param_dtype, device)
 
@@ -536,7 +623,8 @@ class TransformerLM(nn.Module):
         """A new module with ``changes`` applied to the config and this
         module's weights: shared when their storage type stays, else cast
         copies."""
-        other = TransformerLM(**{**self.config, **changes}, device=self.device)
+        mesh = {k: changes.pop(k, getattr(self, k)) for k in ("mesh", "seq_axis", "batch_axis")}
+        other = TransformerLM(**{**self.config, **changes}, device=self.device, **mesh)
         other.load_state_dict(self.state_dict(), strict=True,
                               assign=other.param_dtype == self.param_dtype)
         return other
@@ -635,12 +723,23 @@ class TransformerLM(nn.Module):
             # One draw per forward; block i uses seed + 2i and + 2i + 1.
             seed = int(torch.randint(0, 2**62, (), generator=generator))
         remat = train and self.remat and cache is None and torch.is_grad_enabled()
+        shard = None
+        if cache is None and self.config["attention_impl"] in ("ring", "ulysses"):
+            from hops_tpu_torch.parallel import ringattention
+
+            # Sequence parallelism: every block runs on this rank's block
+            # of the activations; the blocks join before the final norm.
+            shard = ringattention.seq_shard(self.mesh, self.seq_axis, self.batch_axis)
+            x = shard.cut(x)
         for i, block in enumerate(self.blocks()):
             block_seed = None if seed is None else seed + 2 * i
+            run = block if shard is None else functools.partial(_on_block, block, shard)
             if remat:
-                x = checkpoint(block, x, layer=i, seed=block_seed, use_reentrant=False)
+                x = checkpoint(run, x, layer=i, seed=block_seed, use_reentrant=False)
             else:
-                x = block(x, cache, i, offset, fresh, rows, block_seed)
+                x = run(x, cache, i, offset, fresh, rows, block_seed)
+        if shard is not None:
+            x = shard.join(x)
         if cache is not None:
             if rows is None:
                 cache.idx = offset + tokens.shape[1]
@@ -650,6 +749,16 @@ class TransformerLM(nn.Module):
         if return_hidden:
             return x
         return self.logits(x)
+
+
+def _on_block(block: Block, shard: Any, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``block`` on this rank's block of the activations. Each parameter
+    it uses there sums its gradient over the blocks in backward, so every
+    rank holds the full gradient; the experts' parameters see the global
+    batch and keep theirs."""
+    params = {name: shard.summed(p) for name, p in block.named_parameters()
+              if not name.startswith("moe.")}
+    return torch.func.functional_call(block, params, (x, *args), {**kw, "shard": shard})
 
 
 def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = None):
@@ -665,10 +774,12 @@ def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = N
     the step updates the model's weights and the optimizer's moments in
     place (no second copy of either); the returned state carries the
     next step number. Metrics are 0-d tensors on the model's device (no
-    host sync). ``aux_loss_weight`` weighs MoE load-balancing losses,
-    which are 0 here: MoE blocks are a later slice and raise at
-    construction.
+    host sync). MoE blocks' load-balancing losses
+    (:func:`~hops_tpu_torch.models.moe.sum_sown_losses`) are folded into
+    the differentiated loss at ``aux_loss_weight``; the reported loss is
+    the cross-entropy alone, as in JAX.
     """
+    from hops_tpu_torch.models.moe import sum_sown_losses
 
     def train_step(state: TrainState, batch: dict[str, Any]):
         model = state.model
@@ -680,8 +791,10 @@ def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = N
             loss = chunked_softmax_xent(out, model.unembed.kernel, targets, chunk=loss_chunk)
         else:
             loss = cross_entropy_loss(out, targets)
+        aux = sum_sown_losses(model)
+        total = loss + aux_loss_weight * aux if model.moe_every else loss
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        total.backward()
         state.optimizer.step()
         loss = loss.detach()
         state = dataclasses.replace(state, step=state.step + 1)

@@ -1,11 +1,32 @@
 """Distribution layer (counterpart of ``hops_tpu/parallel``): meshes of
 ranks, DTensor placements, and the data-parallel strategies on DDP and
 FSDP2, over the process group that :mod:`~hops_tpu_torch.parallel.multihost`
-joins. Gradient communication (``grad_comms``), tensor, sequence and
-pipeline parallelism are later slices.
+joins; explicit gradient communication (``grad_comms``: quantized,
+bucketed, overlapped, hierarchical, ZeRO-1/2/3) and ring/Ulysses
+sequence parallelism. Tensor and pipeline parallelism are later slices.
 """
 
-from hops_tpu_torch.parallel import mesh, multihost, sharding, strategy  # noqa: F401
+from hops_tpu_torch.parallel import (  # noqa: F401
+    grad_comms,
+    mesh,
+    multihost,
+    ringattention,
+    sharding,
+    strategy,
+)
+from hops_tpu_torch.parallel.grad_comms import (  # noqa: F401
+    GradCommsConfig,
+    all_reduce_grads,
+    hier_all_gather,
+    hier_reduce_scatter,
+    psum_hierarchical,
+    psum_quantized,
+    sharded_apply_gradients,
+    tag_backward_comms,
+    zero2_apply_gradients,
+    zero3_init,
+    zero3_unshard,
+)
 from hops_tpu_torch.parallel.strategy import (  # noqa: F401
     CollectiveAllReduceStrategy,
     MirroredStrategy,

@@ -10,9 +10,10 @@ compute what one process computes on the global batch:
 
 - a :class:`~hops_tpu_torch.models.common.TrainState` (a module and its
   optimizer; the port's train steps take one) has its module wrapped by
-  composable DDP (``torch.distributed._composable.replicate``) for
-  :class:`MirroredStrategy` and :class:`CollectiveAllReduceStrategy`,
-  or sharded by FSDP2 (``fully_shard``) for :class:`ShardedStrategy`.
+  composable DDP (``torch.distributed._composable.replicate``) when a
+  step of :class:`MirroredStrategy` or :class:`CollectiveAllReduceStrategy`
+  first runs it, or sharded by FSDP2 (``fully_shard``) for
+  :class:`ShardedStrategy`.
   The composable forms keep the module's own attributes
   (``model.device``, ``model.unembed.kernel``), which a
   ``DistributedDataParallel`` wrapper would hide behind ``.module``;
@@ -23,6 +24,13 @@ compute what one process computes on the global batch:
 
 The step's scalar metrics are averaged over the replicas too, so they
 are the global batch's, as the JAX package's replicated outputs are.
+
+With a ``grad_comms`` config
+(:class:`~hops_tpu_torch.parallel.grad_comms.GradCommsConfig`) the step
+runs ``fn`` with no DDP and binds the data axis name to the replicas'
+process group, as the JAX package runs ``fn`` inside ``shard_map``: ``fn``
+reduces its own gradients and metrics (build it with
+``models.common.make_train_step(grad_comms=cfg)``).
 
 Typical wrapper-function use::
 
@@ -57,10 +65,6 @@ from hops_tpu_torch.runtime.devices import resolve_device
 
 _current: list["Strategy"] = []
 
-_GRAD_COMMS_LATER = (
-    "explicit gradient communication (grad_comms: bucketed, quantized or "
-    "ZeRO-sharded updates) is the gradient-communication slice of the port "
-    "(parallel/grad_comms.py, ROADMAP.md Queue 1 item 4), not ported yet")
 _TP_LATER = (
     "ShardedStrategy's model (tensor-parallel) axis is ROADMAP.md Queue 1 item 5 "
     "(tensor parallelism); the LM's attention runs in hand-written kernels that "
@@ -85,12 +89,11 @@ class Strategy:
         grad_comms: Any | None = None,
         device: str | torch.device | None = None,
     ):
-        if grad_comms is not None:
-            raise NotImplementedError(_GRAD_COMMS_LATER)
         self.mesh = mesh if mesh is not None else mesh_lib.global_mesh()
         self.data_axis = data_axis
-        #: Always None until gradient communication is ported.
-        self.grad_comms = None
+        #: Default ``grad_comms.GradCommsConfig`` for :meth:`step`; None
+        #: keeps DDP's gradient averaging.
+        self.grad_comms = grad_comms
         self._device = device
         # Steps memoized per (fn, donate_state, config), as the JAX
         # package memoizes its compiled steps.
@@ -129,11 +132,12 @@ class Strategy:
 
     def replicate(self, tree: Any) -> Any:
         """The same value on every rank's device, rank 0's: a TrainState
-        has its module moved, broadcast and wrapped for gradient
-        averaging (and its optimizer state broadcast); a module is moved
-        and wrapped; a tree of tensors is broadcast."""
+        has its module's weights and buffers and its optimizer state
+        moved and broadcast (a step wraps the module for DDP when it
+        first runs it); a module is moved and wrapped; a tree of tensors
+        is broadcast."""
         if _is_train_state(tree):
-            return self._prepare(tree)
+            return self._place(tree)
         if isinstance(tree, nn.Module):
             return self._wrap(tree.to(self.device))
         return mesh_lib.replicate(self.mesh, tree, self.device)
@@ -155,21 +159,40 @@ class Strategy:
         model._hops_tpu_parallel = "ddp"
         return model
 
-    def _prepare(self, state: Any) -> Any:
-        """A TrainState ready for :meth:`step`: its module on the device
-        and wrapped, its optimizer state with it."""
+    def _place(self, state: Any) -> Any:
+        """A TrainState on this rank's device with rank 0's weights,
+        buffers and optimizer state (once). A ZeRO carrier's state is
+        this rank's own and stays as it is."""
         model = state.model
-        if getattr(model, "_hops_tpu_parallel", None):
+        if getattr(model, "_hops_tpu_placed", False) or getattr(model, "_hops_tpu_parallel", None):
             return state
         model.to(self.device)
         broadcast = self._distributed() and self.mesh.size > 1
+        src = int(self.mesh.devices.flat[0])
+        tensors = []
+        if state.shards is None:
+            tensors += [t.data for t in (*model.parameters(), *model.buffers())]
         for st in state.optimizer.state.values():
             for k, v in st.items():
                 if isinstance(v, torch.Tensor) and v.dim():
                     st[k] = v.to(self.device)
-                    if broadcast:
-                        dist.broadcast(st[k], src=int(self.mesh.devices.flat[0]),
-                                       group=self.mesh.group)
+                    if state.shards is None:
+                        tensors.append(st[k])
+        if broadcast:
+            for t in tensors:
+                dist.broadcast(t, src=src, group=self.mesh.group)
+        model._hops_tpu_placed = True
+        return state
+
+    def _prepare(self, state: Any) -> Any:
+        """A TrainState ready for a DDP step: placed, its module wrapped."""
+        model = state.model
+        if getattr(model, "_hops_tpu_parallel", None):
+            return state
+        if state.shards is not None:
+            raise ValueError("a state with ZeRO shards (state.shards) trains through "
+                             "Strategy.step(fn, grad_comms=cfg) only")
+        self._place(state)
         if not self._distributed():
             model._hops_tpu_parallel = "local"  # one process: nothing to average
         self._wrap(model)
@@ -188,18 +211,74 @@ class Strategy:
         rank's rows, gradients averaged over the replicas before the
         update, and ``aux``'s floating scalars averaged after it.
 
+        With a ``grad_comms`` config (here or on the strategy) ``fn``
+        runs with no DDP and the data axis name bound to the replicas'
+        process group; it must reduce its own gradients and metrics —
+        build it with ``models.common.make_train_step(grad_comms=cfg)``,
+        whose ``grad_comms`` marker must equal ``cfg`` (a mismatch
+        either way raises). The step counts its wire bytes and times itself
+        (``grad_comms.instrument_step``).
+
         The port's train steps update the state in place, so
         ``donate_state`` only keys the memo (the JAX package donates the
-        state's buffers). ``grad_comms`` raises ``NotImplementedError``:
-        explicit gradient communication is a later slice.
+        state's buffers). Steps are memoized per ``(fn, donate_state,
+        config)``.
         """
-        if grad_comms is not None or self.grad_comms is not None:
-            raise NotImplementedError(_GRAD_COMMS_LATER)
-        key = (fn, donate_state, None)
+        cfg = grad_comms if grad_comms is not None else self.grad_comms
+        key = (fn, donate_state, cfg)
         cached = self._step_cache.get(key)
-        if cached is None:
-            cached = self._step_cache[key] = self._make_step(fn)
+        if cached is not None:
+            return cached
+        marker = getattr(fn, "grad_comms", None)
+        if cfg is not None:
+            if marker is None:
+                raise ValueError(
+                    "Strategy.step(grad_comms=...) runs fn with no implicit gradient "
+                    "all-reduce (no DDP); fn must reduce its own gradients. Build it with "
+                    "models.common.make_train_step(grad_comms=cfg) (or set fn.grad_comms = "
+                    "cfg on a wrapper around such a step).")
+            if marker != cfg:
+                raise ValueError(
+                    f"fn was built for grad_comms config {marker}, but the step was asked "
+                    f"to run {cfg}; pass the same config to make_train_step and Strategy.step")
+            cached = self._make_explicit_step(fn, cfg)
+        elif marker is not None:
+            raise ValueError(
+                f"fn was built with an explicit grad_comms config ({marker}) and reduces "
+                "its own gradients; run it via Strategy.step(fn, grad_comms=cfg)")
+        else:
+            cached = self._make_step(fn)
+        self._step_cache[key] = cached
         return cached
+
+    def _comms_axis(self, cfg: Any):
+        """The data replicas as a ``grad_comms.Axis``; the hierarchy's
+        process groups are created here, once per step built, on every
+        rank at the same point."""
+        from hops_tpu_torch.parallel import grad_comms as gc
+
+        axis = gc.mesh_axis(self.mesh, self.data_axis) if self._distributed() \
+            else gc.Axis(None, (0,))
+        if cfg.hierarchy and axis.size > 1:
+            gc.hier_process_groups(axis, cfg.hierarchy)
+        return axis
+
+    def _make_explicit_step(self, fn: Callable[..., Any], cfg: Any) -> Callable[..., Any]:
+        from hops_tpu_torch.parallel import grad_comms as gc
+
+        axis = self._comms_axis(cfg)
+
+        def stepped(state: Any, batch: Any):
+            if _is_train_state(state):
+                if getattr(state.model, "_hops_tpu_parallel", None) == "ddp":
+                    raise ValueError("this module averages its gradients through DDP (an "
+                                     "implicit step ran it); an explicit grad_comms step "
+                                     "would reduce every gradient twice")
+                state = self._place(state)
+            with gc.bind_axis(self.data_axis, axis):
+                return fn(state, batch)
+
+        return gc.instrument_step(stepped, cfg, steps_per_call=getattr(fn, "grad_comms_steps", 1))
 
     def _make_step(self, fn: Callable[..., Any]) -> Callable[..., Any]:
         def stepped(state: Any, batch: Any):
@@ -291,9 +370,11 @@ class CollectiveAllReduceStrategy(Strategy):
     NVLink and the network (reference: ``MultiWorkerMirroredStrategy``
     with NCCL); DDP.
 
-    ``update_sharding`` other than ``"replicated"`` (the ZeRO-1/2
-    updates) and ``grad_comms`` raise ``NotImplementedError``: they are
-    the gradient-communication slice.
+    ``update_sharding`` other than ``"replicated"`` switches the weight
+    update to a ZeRO stage of :mod:`hops_tpu_torch.parallel.grad_comms`
+    (``"cross_replica"``: ZeRO-1); ``grad_comms`` takes a full
+    ``GradCommsConfig`` and the shorthand overrides its
+    ``update_sharding``.
     """
 
     def __init__(
@@ -304,7 +385,10 @@ class CollectiveAllReduceStrategy(Strategy):
         device: str | torch.device | None = None,
     ):
         if update_sharding != "replicated":
-            raise NotImplementedError(_GRAD_COMMS_LATER)
+            from hops_tpu_torch.parallel.grad_comms import GradCommsConfig
+
+            base = grad_comms if grad_comms is not None else GradCommsConfig()
+            grad_comms = dataclasses.replace(base, update_sharding=update_sharding)
         super().__init__(mesh_lib.global_mesh((data_axis,)), data_axis, grad_comms, device)
 
 
@@ -413,7 +497,7 @@ class ShardedStrategy(Strategy):
         donate_state: bool = True,
         grad_comms: Any | None = None,
     ) -> Callable[..., Any]:
-        if grad_comms is not None:
+        if grad_comms is not None or self.grad_comms is not None:
             raise ValueError(
                 "ShardedStrategy already owns its collectives (FSDP2); grad_comms "
                 "applies to the data-parallel strategies (Strategy/Mirrored/"

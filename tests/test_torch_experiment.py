@@ -165,20 +165,24 @@ def test_profile_writes_a_trace_into_the_run_dir():
 
 @pytest.mark.parametrize("kind", ["mirrored", "collective_all_reduce", "parameter_server"])
 def test_distributed_launchers_are_a_later_slice(kind, cpu_process):
-    """The launchers run since the distribution layer was ported; what
-    stays a later slice is explicit gradient communication, which each
-    refuses by name."""
+    """The launchers run since the distribution layer was ported, and
+    since the gradient-communication slice their ``grad_comms`` /
+    ``update_sharding`` arguments reach the strategy the wrapper sees."""
+    from hops_tpu_torch.parallel.grad_comms import GradCommsConfig
+
     _, metrics = getattr(experiment, kind)(lambda: {"ok": 1.0}, name=kind)
     assert metrics["ok"] == 1.0
-    later = {"mirrored": dict(grad_comms=object()),
-             "collective_all_reduce": dict(update_sharding="cross_replica"),
-             "parameter_server": None}[kind]
-    if later is None:
-        with pytest.raises(NotImplementedError, match="later slice|slice of the port"):
-            ParameterServerStrategy(grad_comms=object())
+    cfg = GradCommsConfig(quantize=True)
+    args, want = {"mirrored": (dict(grad_comms=cfg), "quantized"),
+                  "collective_all_reduce": (dict(grad_comms=cfg, update_sharding="cross_replica"),
+                                            "quantized+zero1"),
+                  "parameter_server": (None, "quantized")}[kind]
+    if args is None:
+        assert ParameterServerStrategy(grad_comms=cfg).grad_comms.mode == want
     else:
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            getattr(experiment, kind)(lambda: None, **later)
+        _, got = getattr(experiment, kind)(lambda: {"mode": get_strategy().grad_comms.mode},
+                                           name=kind, **args)
+        assert got["mode"] == want
 
 
 class TestDistributedLaunchers:

@@ -348,8 +348,21 @@ def test_synthetic_data_is_learnable_by_the_cnn():
 
 
 def test_grad_comms_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        common.make_train_step(grad_comms=object())
+    """Gradient communication is ported: a ``grad_comms`` step carries
+    its marker and, through ``Strategy.step`` on one rank (no wire),
+    trains bit for bit like the plain step."""
+    from hops_tpu_torch.parallel import Strategy
+    from hops_tpu_torch.parallel.grad_comms import GradCommsConfig
+
+    cfg = GradCommsConfig(quantize=True, overlap=True)
+    assert common.make_train_step(grad_comms=cfg).grad_comms == cfg
+    data = common.SyntheticClassData(seed=0, device="cpu")
+    runs = []
+    for c in (None, cfg):
+        state = common.create_train_state(FFN(dtype="float32", device="cpu", seed=0))
+        step = Strategy(device="cpu").step(common.make_train_step(grad_comms=c), grad_comms=c)
+        runs.append([step(state, b)[1]["loss"].item() for b in data.batches(32, 3)])
+    assert runs[0] == runs[1]
 
 
 def test_resnet50_has_the_jax_parameter_tree():

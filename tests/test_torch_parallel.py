@@ -205,15 +205,31 @@ class TestStrategy:
         assert s.step(_torch_linear_step) is s.step(_torch_linear_step)
         assert s.step(_torch_linear_step, donate_state=False) is not s.step(_torch_linear_step)
 
-    def test_gradient_communication_is_a_later_slice(self):
-        with pytest.raises(NotImplementedError, match="gradient-communication slice"):
-            Strategy(mesh_lib.global_mesh(), grad_comms=object())
-        with pytest.raises(NotImplementedError, match="gradient-communication slice"):
-            CollectiveAllReduceStrategy(update_sharding="cross_replica")
-        with pytest.raises(NotImplementedError, match="gradient-communication slice"):
-            MirroredStrategy(grad_comms=object())
-        with pytest.raises(NotImplementedError, match="gradient-communication slice"):
-            Strategy(device="cpu").step(_torch_linear_step, grad_comms=object())
+    def test_gradient_communication_is_a_later_slice(self, cpu_process):
+        """The gradient-communication slice is ported: each strategy takes
+        a config, and a marked step runs under it (one rank: its update
+        equals the plain step's)."""
+        from hops_tpu_torch.models.common import create_train_state, make_train_step
+        from hops_tpu_torch.parallel.grad_comms import GradCommsConfig
+
+        cfg = GradCommsConfig()
+        assert Strategy(mesh_lib.global_mesh(), grad_comms=cfg).grad_comms == cfg
+        assert CollectiveAllReduceStrategy(update_sharding="cross_replica").grad_comms.mode == "zero1"
+        assert MirroredStrategy(grad_comms=cfg).grad_comms is cfg
+        x, y = _linear_data()
+        batch = {"image": x.reshape(16, 2, 2, 1), "label": (y > 0).astype(np.int64)}
+        weights = []
+        for c in (None, GradCommsConfig.parse("zero1")):
+            model = torch.nn.Sequential(torch.nn.Flatten(), torch.nn.Linear(4, 2))
+            torch.manual_seed(0)
+            torch.nn.init.normal_(model[1].weight)
+            fwd = model.forward
+            model.forward = lambda t, train=False, generator=None: fwd(t)
+            state = create_train_state(model)
+            step = Strategy(device="cpu").step(make_train_step(grad_comms=c), grad_comms=c)
+            state, m = step(state, batch)
+            weights.append(model[1].weight.detach().clone())
+        assert torch.equal(weights[0], weights[1])
 
     def test_sharded_strategy_limits(self):
         with pytest.raises(NotImplementedError, match="item 5"):

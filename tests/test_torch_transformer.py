@@ -164,9 +164,31 @@ def test_npz_roundtrip_loads_the_same_model(pair, tmp_path):
 @pytest.mark.parametrize("field,value", [
     ("moe_every", 2), ("tp_shards", 2), ("attention_impl", "ring"), ("attention_impl", "ulysses"),
 ])
-def test_later_slices_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        TransformerLM(**CFG, dtype="float32", device="cpu", **{field: value})
+def test_later_slices_raise(field, value, pair):
+    """Tensor parallelism still raises, naming its item. MoE blocks and
+    the ring/Ulysses impls are ported: they build and run (the sequence
+    impls over a one-rank ``seq`` mesh, where they equal the dense
+    forward; MoE against ``tests/test_torch_moe.py``'s JAX parity)."""
+    if field == "tp_shards":
+        with pytest.raises(NotImplementedError, match="item 5"):
+            TransformerLM(**CFG, dtype="float32", device="cpu", **{field: value})
+        return
+    from hops_tpu_torch.parallel import mesh as mesh_lib
+
+    jm, params, tm = pair
+    kw = {field: value}
+    if field == "attention_impl":
+        kw["mesh"] = mesh_lib.make_mesh({"seq": 1}, devices=[0])
+    other = TransformerLM(**CFG, dtype="float32", device="cpu",
+                          num_kv_heads=tm.config["num_kv_heads"], **kw)
+    toks = torch.from_numpy(_tokens(2, 12)).long()
+    if field == "moe_every":
+        assert {type(b).__name__ for b in other.blocks()} == {"Block", "MoEBlock"}
+        assert other.block_1.moe.w_in.shape == (8, 64, 256)
+        return
+    other.load_flax(params)
+    with torch.inference_mode():
+        torch.testing.assert_close(other(toks), tm(toks), rtol=1e-5, atol=1e-5)
 
 
 def test_clone_shares_weights_or_casts_them(pair):
