@@ -283,6 +283,33 @@ failure exits non-zero:
    up to a near tie, each flip of that run's router within
    ``ROUTER_MARGIN``; K1, K4 and K5 must launch; TTFT p50 and decode
    tokens/s.
+14. model parallel — tensor and pipeline parallelism across two ranks on
+   the one card, within ``PHASE14_BUDGET_S``: two children of this script
+   (``--model-parallel-worker <spec> --rank 0|1``) form a gloo group (NCCL
+   refuses two ranks on one card), so every CUDA tensor that crosses ranks
+   goes through host buffers (``grad_comms.via_host``; the bytes are
+   printed) while the arithmetic and every kernel stay on the card; the
+   times are gloo-over-host times, not NVLink ones. (a) phase 4's
+   artifact served through ``LMEngine(mesh=)`` at tp=2 on the dense bf16,
+   int8, paged and paged int8 caches (``TP_CACHES``): both ranks' streams
+   identical bit for bit, each equal to phase 4's (dense) or phase 8's
+   (same cache) one-rank stream up to the near-tie rule, each cache's
+   kernels launching on each rank (K1, K4, K5 and its wide calls, K6,
+   K7); TTFT p50 and decode tokens/s; then ``tp_generate`` of
+   ``TP_GEN_ROWS`` prompts against one-rank ``generate``; (b) the pp=2
+   path: phase 7b's bf16 gradient rule with the pipeline as the kernel
+   path (2 layers, one a stage, ``PP_GRAD_MICRO`` microbatches,
+   ``GRAD_SEEDS`` batches), then phase 7's LM and weights through
+   ``make_pp_lm_train_step`` at batch 8 x 2048, ``PP_MICRO``
+   microbatches, ``PP_STEPS`` steps on the ring and on ``1f1b``: the
+   1f1b losses equal the ring's bit for bit, the loss falls, each within
+   ``FSDP_LOSS_REL`` of the one-rank dense step (same loss, weights,
+   batch and Adam), K1-K3 ``num_layers / 2 * PP_MICRO`` launches a step
+   a rank; step ms and the bubble gauge; (c) ``ShardedStrategy(model=2)``
+   on phase 7's LM (the Megatron layout) for ``SHARDED_STEPS`` steps of
+   phase 7's step: the loss falls, each within ``FSDP_LOSS_REL`` of
+   phase 7's, K1-K3 ``num_layers`` launches a step. NCCL across two or
+   more cards stays unverified.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -310,7 +337,9 @@ tokens, 20 rows; its own line, and under ``gqa_verify`` in the record);
 the records of K1 and K4-K7 add phase 10's launches, and those of K1,
 K4 and K4's wide calls phase 11's (under ``launches_by_path``, ``http``), and
 those of K1-K4 phase 12's (``distribute``), and every record phase
-13's Ulysses steps (``sp``) and MoE training and serving (``moe``). The
+13's Ulysses steps (``sp``) and MoE training and serving (``moe``) and
+phase 14's rank-0 launches: tensor-parallel serving and training
+(``tp``) and pipeline training (``pp``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -1785,9 +1814,10 @@ def time_cache_kernels(A, torch, gen, dev, launches, worst) -> list[dict]:
 
 
 def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_bytes,
-                       dev, card_line) -> dict[str, dict[str, int]]:
+                       dev, card_line, streams: dict | None = None) -> dict[str, dict[str, int]]:
     """Phase 8: serve phase 4's requests with each of ``CACHE_SLICES``;
-    returns each slice's launch counts."""
+    returns each slice's launch counts (and puts its streams into
+    ``streams``, which phase 14 holds its tensor-parallel engines to)."""
     from hops_tpu_torch.modelrepo.serving import LMEnginePredictor
 
     out = {}
@@ -1851,6 +1881,8 @@ def serve_cache_slices(A, torch, art, prompts, instances, dense_answers, dense_b
                   + ("; ".join(notes) or "none"), flush=True)
             del taps
             out[name] = launches
+            if streams is not None:
+                streams[name] = answers
             if name in PROFILED_SLICES:
                 predictor.stop()  # the engine is now driven from this thread alone
                 profile_paged_decode(engine, torch, prompts, name, PROFILED_SLICES[name])
@@ -3923,6 +3955,376 @@ def scaleout_phase(A, torch, art: Path, prompts, seed: int, card_line: str) -> d
     return res
 
 
+# Phase 14: two ranks on the one card in a gloo group (NCCL refuses two
+# ranks on one card); CUDA tensors cross ranks through host buffers.
+PHASE14_BUDGET_S = 300.0
+TP_CACHES = (("dense", {"slots": 4}, ("flash_fwd", "decode_attention")), *CACHE_SLICES)
+TP_GEN_ROWS, TP_GEN_PROMPT, TP_GEN_NEW = 4, 16, 16  # the shortest prompt has 16 tokens
+PP_MICRO, PP_STEPS, PP_GRAD_MICRO = 4, 3, 2
+SHARDED_STEPS = 3
+
+
+def model_parallel_worker(spec_path: str, rank: int) -> int:
+    """Phase 14, in one of the two child processes: joins the gloo group
+    of two ranks on the card, then (a) serves phase 4's artifact
+    tensor-parallel, (b) trains phase 7's LM through the pipeline, (c)
+    trains it under ``ShardedStrategy(model=2)``. Both ranks hold their
+    results to each other; rank 0 holds them to the one-rank references
+    and writes ``result.json`` beside the spec."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hops_tpu_torch.models.common import create_train_state, cross_entropy_loss
+    from hops_tpu_torch.models.convert import load_npz
+    from hops_tpu_torch.models.generation import generate
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+    from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+    from hops_tpu_torch.ops import attention as A
+    from hops_tpu_torch.parallel import ShardedStrategy, mesh as mesh_lib
+    from hops_tpu_torch.parallel import pipeline as pp
+    from hops_tpu_torch.parallel.tp_inference import tp_generate
+    from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    work = Path(spec["work"])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=2, rank=rank)
+    dev = torch.device(spec.get("device", "cuda:0"))
+    params = load_npz(spec["params"])
+    seed = int(spec["seed"])
+    prompts, answers = spec["prompts"], spec["answers"]
+    host = REGISTRY.counter("hops_tpu_gloo_host_bytes_total")
+    out: dict = {"backend": dist.get_backend(), "rank": rank, "errors": [], "host_bytes": {},
+                 "launches": {}}
+    lines: list[str] = []
+
+    def say(line: str) -> None:
+        lines.append(line)
+        if rank == 0:
+            print(line, flush=True)
+
+    def same_on_both(value, what: str) -> None:
+        got = [None, None]
+        dist.all_gather_object(got, value)
+        if got[0] != got[1]:
+            raise AssertionError(f"{what}: the two ranks differ")
+
+    def held(check, what: str) -> None:
+        """Rank 0's check against a one-rank reference; a failure is
+        recorded (the other rank carries on to the next collective)."""
+        if rank:
+            return
+        try:
+            check()
+        except AssertionError as e:
+            out["errors"].append(f"{what}: {e}")
+
+    def host_mark() -> float:
+        return host.value()
+
+    mesh = mesh_lib.make_mesh({"model": 2})
+    plain_model = TransformerLM(**MODEL, device=dev).load_flax(params)
+
+    # (a) tensor-parallel serving on four caches.
+    t_a = time.perf_counter()
+    tp_launch = {k: 0 for k in A.launch_counts()}
+    for name, cfg, kernels in TP_CACHES:
+        model = TransformerLM(**MODEL, ragged_decode=True, device=dev,
+                              kv_cache_dtype=cfg.get("kv_cache_dtype")).load_flax(params)
+        engine = LMEngine(model, slots=cfg["slots"], mesh=mesh, device=dev,
+                          kv_page_size=cfg.get("kv_page_size"),
+                          kv_pool_blocks=cfg.get("kv_pool_blocks"),
+                          prefill_chunk=cfg.get("prefill_chunk"))
+        del model
+        b0 = host_mark()
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, NEW_TOKENS)]
+        res = engine.run()
+        wall = time.perf_counter() - t0
+        launches = A.launch_counts()
+        for k, n in launches.items():
+            tp_launch[k] += n
+        stats = engine.stats()
+        streams = [res[t] for t in tickets]
+        ttft = sorted(engine.ttft_s[t] for t in tickets)
+        same_on_both(streams, f"phase 14 (a) {name} streams")
+        missing = [k for k in kernels if not launches[k]]
+        if missing:
+            raise AssertionError(f"phase 14 (a) {name}: {missing} never launched: {launches}")
+        shards = engine._cache.k[0].shape
+        say(f"phase 14 (a) tp=2 {name}: streams identical on both ranks; launches on this rank "
+            f"{', '.join(f'{k} {launches[k]}' for k in kernels)}; per-rank cache "
+            f"{tuple(shards)}; ttft p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms; decode "
+            f"{stats['decode_tokens'] / stats['decode_s']:.1f} tokens/s; wall {wall:.3f} s; "
+            f"{(host_mark() - b0) / 2**20:.1f} MiB through the host (gloo)")
+        want = answers if name == "dense" else spec["cache_answers"][name]
+
+        def check(streams=streams, want=want, name=name):
+            notes = near_ties(plain_model, torch, prompts, streams, want, dev,
+                              f"phase 14 (a) {name}")
+            say(f"  {name}: {len(notes)} of {len(streams)} streams leave the one-rank "
+                f"{'phase 4' if name == 'dense' else 'phase 8'} stream, each at a near tie"
+                + (f" ({'; '.join(notes)})" if notes else ""))
+
+        held(check, f"(a) {name}")
+        out.setdefault("serving", {})[name] = {
+            "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+            "decode_tok_s": stats["decode_tokens"] / stats["decode_s"], "wall_s": wall}
+        del engine
+        torch.cuda.empty_cache()
+    rows = torch.tensor([p[:TP_GEN_PROMPT] for p in prompts[:TP_GEN_ROWS]], device=dev)
+    A.reset_launch_counts()
+    tp_tokens = tp_generate(plain_model, rows, mesh, max_new_tokens=TP_GEN_NEW,
+                            temperature=0.0).tolist()
+    for k, n in A.launch_counts().items():
+        tp_launch[k] += n
+    one = generate(plain_model, rows, max_new_tokens=TP_GEN_NEW, temperature=0.0,
+                   device=dev).tolist()
+    same_on_both(tp_tokens, "phase 14 (a) tp_generate")
+
+    def check_generate():
+        got = [t[TP_GEN_PROMPT:] for t in tp_tokens]
+        want = [t[TP_GEN_PROMPT:] for t in one]
+        notes = near_ties(plain_model, torch, [p[:TP_GEN_PROMPT] for p in prompts], got, want,
+                          dev, "phase 14 (a) tp_generate")
+        say(f"phase 14 (a) tp_generate of {TP_GEN_ROWS} prompts of {TP_GEN_PROMPT} tokens, "
+            f"{TP_GEN_NEW} new: {TP_GEN_ROWS - len(notes)} of {TP_GEN_ROWS} rows equal one-rank "
+            "generate" + (f", the rest at near ties ({'; '.join(notes)})" if notes else ""))
+
+    held(check_generate, "(a) tp_generate")
+    out["launches"]["tp_serving"] = tp_launch
+    out["a_s"] = time.perf_counter() - t_a
+    del plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) pipeline parallelism: phase 7b's gradient rule at 2 layers, then
+    # phase 7's LM trained at pp=2 on the ring and on 1f1b.
+    t_b = time.perf_counter()
+    stage_mesh = mesh_lib.make_mesh({"stage": 2})
+    small = dict(TRAIN, num_layers=2)
+    params2 = {n: a for n, a in params.items()
+               if not n.startswith("block_") or int(n.split("/")[0][6:]) < 2}
+    ppm = TransformerLM(**small, device=dev).load_flax(params2)
+    sums = None
+    if rank == 0:
+        ref32 = TransformerLM(**dict(small, dtype="float32", attention_impl="reference"),
+                              device=dev).load_flax(params2)
+        plain16 = ref32.clone(dtype="bfloat16")
+    for i in range(GRAD_SEEDS):
+        tokens = torch.from_numpy(np.random.default_rng(seed + 3 + i).integers(
+            0, TRAIN["vocab_size"], (GRAD_BATCH, TRAIN_SEQ + 1))).to(dev)
+        ppm.zero_grad(set_to_none=True)
+        pp.lm_loss_and_grads(ppm, tokens, stage_mesh, num_microbatches=PP_GRAD_MICRO)
+        if rank == 0:
+            got = [p.grad for p in ppm.parameters()]
+            refs = []
+            for m in (ref32, plain16):
+                loss = cross_entropy_loss(m(tokens[:, :-1]), tokens[:, 1:])
+                refs.append(torch.autograd.grad(loss, list(m.parameters())))
+            part = torch.stack([torch.stack([(g - r).double().square().sum(),
+                                             (q - r).double().square().sum()])
+                                for g, q, r in zip(got, refs[1], refs[0])]).cpu()
+            sums = part if sums is None else sums + part
+    if rank == 0:
+        names = [n for n, _ in ppm.named_parameters()]
+        dk, dp = sums.sqrt().T.tolist()
+        ratios = [a / b if b else (0.0 if a == 0 else math.inf) for a, b in zip(dk, dp)]
+        j = max(range(len(ratios)), key=ratios.__getitem__)
+        say(f"phase 14 (b) pp=2 gradients at 2 layers ({GRAD_SEEDS} batches of {GRAD_BATCH} x "
+            f"{TRAIN_SEQ}, {PP_GRAD_MICRO} microbatches): ||pp - plain fp32||_2 / ||plain bf16 - "
+            f"plain fp32||_2 worst {ratios[j]:.3f} ({names[j]}; bound {BF16_VS_PLAIN}), median "
+            f"{sorted(ratios)[len(ratios) // 2]:.3f}")
+        bad = [f"{n} {x:.3f}" for n, x in zip(names, ratios) if not x <= BF16_VS_PLAIN]
+        if bad:
+            out["errors"].append(f"(b) pp gradients over {BF16_VS_PLAIN} x the plain bf16 "
+                                 f"path's distance: {', '.join(bad)}")
+        del ref32, plain16
+    del ppm
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, TRAIN["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)}
+    bubble = REGISTRY.gauge("hops_tpu_pp_bubble_fraction", labels=("schedule",))
+    pp_runs = {}
+    pp_launch = {k: 0 for k in A.launch_counts()}
+    for schedule in (None, "1f1b"):
+        model = TransformerLM(**TRAIN, device=dev).load_flax(params)
+        state = create_train_state(model, seed=seed, learning_rate=LEARNING_RATE)
+        step = pp.make_pp_lm_train_step(model, stage_mesh, num_microbatches=PP_MICRO,
+                                        schedule=schedule)
+        losses, times, counts = [], [], []
+        b0 = host_mark()
+        for _ in range(PP_STEPS):
+            torch.cuda.synchronize()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts.append(A.launch_counts())
+        for c in counts:
+            for k, n in c.items():
+                pp_launch[k] += n
+        per = TRAIN["num_layers"] // 2 * PP_MICRO
+        for k in TRAIN_KERNELS:
+            if any(c[k] != per for c in counts):
+                raise AssertionError(f"phase 14 (b) {schedule}: {k} launched "
+                                     f"{[c[k] for c in counts]} times a step, not {per}")
+        label = schedule or "ring"
+        pp_runs[label] = losses
+        extra = (f"; bubble gauge {bubble.value(schedule=schedule):.4f}" if schedule else "")
+        say(f"phase 14 (b) pp=2 {label}: batch {TRAIN_BATCH} x {TRAIN_SEQ}, {PP_MICRO} "
+            f"microbatches, losses {losses}; step ms {[round(t, 3) for t in times]} (median "
+            f"{sorted(times)[len(times) // 2]:.3f}, gloo over the host); K1-K3 {per} launches a "
+            f"step on this rank; {(host_mark() - b0) / 2**20 / PP_STEPS:.1f} MiB a step through "
+            f"the host{extra}")
+        out.setdefault("pp", {})[label] = {"losses": losses, "step_ms": times}
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_on_both(pp_runs, "phase 14 (b) losses")
+    if pp_runs["1f1b"] != pp_runs["ring"]:
+        raise AssertionError(f"phase 14 (b): 1f1b losses {pp_runs['1f1b']} are not the ring's "
+                             f"{pp_runs['ring']} bit for bit")
+    if not pp_runs["ring"][-1] < pp_runs["ring"][0]:
+        raise AssertionError(f"phase 14 (b): the loss did not fall: {pp_runs['ring']}")
+
+    def check_dense():
+        model = TransformerLM(**TRAIN, device=dev).load_flax(params)
+        state = create_train_state(model, seed=seed, learning_rate=LEARNING_RATE)
+        step = make_lm_train_step()
+        dense = [float(step(state, batch)[1]["loss"]) for _ in range(PP_STEPS)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(pp_runs["ring"], dense))
+        say(f"phase 14 (b) one-rank dense step (the same loss, weights, batch and Adam): losses "
+            f"{dense}; pp's largest relative distance {rel:.2e} (bound {FSDP_LOSS_REL:.0e})")
+        if not rel <= FSDP_LOSS_REL:
+            raise AssertionError(f"pp losses {pp_runs['ring']} vs dense {dense}")
+
+    held(check_dense, "(b) dense")
+    dist.barrier()
+    out["launches"]["pp"] = pp_launch
+    out["b_s"] = time.perf_counter() - t_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) ShardedStrategy(model=2): the Megatron layout of phase 7's LM.
+    t_c = time.perf_counter()
+    st = ShardedStrategy(model=2, device=dev)
+    model = TransformerLM(**TRAIN, device=dev).load_flax(params)
+    state = st.shard_state(create_train_state(model, seed=seed,
+                                              learning_rate=LEARNING_RATE))
+    step = st.step(make_lm_train_step(loss_chunk=LOSS_CHUNK))
+    local = st.distribute_batch(batch)
+    losses, times = [], []
+    A.reset_launch_counts()
+    b0 = host_mark()
+    for _ in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, local)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = A.launch_counts()
+    out["launches"]["sharded"] = launches
+    heads = state.model.block_0.attn.num_heads
+    same_on_both(losses, "phase 14 (c) losses")
+    for k in TRAIN_KERNELS:
+        if launches[k] != TRAIN["num_layers"] * SHARDED_STEPS:
+            raise AssertionError(f"phase 14 (c): {k} launched {launches[k]} times in "
+                                 f"{SHARDED_STEPS} steps")
+    ref = spec["phase7_losses"][:SHARDED_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    say(f"phase 14 (c) ShardedStrategy(model=2) {st.mesh.shape}: {heads} heads a rank; losses "
+        f"{losses} against phase 7's {ref} (largest relative distance {rel:.2e}, bound "
+        f"{FSDP_LOSS_REL:.0e}); step ms {[round(t, 3) for t in times]} (gloo over the host); "
+        f"{(host_mark() - b0) / 2**20 / SHARDED_STEPS:.1f} MiB a step through the host")
+    if not rel <= FSDP_LOSS_REL or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 14 (c): losses {losses} vs phase 7's {ref}")
+    out["sharded"] = {"losses": losses, "step_ms": times}
+    out["c_s"] = time.perf_counter() - t_c
+    out["host_bytes_total"] = host_mark()
+    dist.barrier()
+    (work / f"result{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def model_parallel_phase(A, torch, art: Path, prompts, answers, cache_answers, seed: int,
+                         card_line: str, phase7: dict) -> dict[str, dict]:
+    """Phase 14; returns the launch counts of rank 0's tp and pp paths.
+    Starts two children of this script on the card, ranks 0 and 1 of a
+    gloo group, and prints rank 0's lines."""
+    import subprocess
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_smoke" / "model_parallel"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "spec.json").write_text(json.dumps({
+        "params": str(art / "params.npz"), "seed": seed, "work": str(work),
+        "port": _free_port(), "prompts": [list(map(int, p)) for p in prompts],
+        "answers": answers, "cache_answers": cache_answers,
+        "phase7_losses": phase7["losses"]}))
+    torch.cuda.empty_cache()
+    cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--model-parallel-worker",
+             str(work / "spec.json"), "--rank", str(r)] for r in range(2)]
+    logs = [(open(work / f"out{r}.txt", "w"), open(work / f"err{r}.txt", "w")) for r in range(2)]
+    procs = [subprocess.Popen(c, cwd=str(ROOT), stdout=o, stderr=e, text=True)
+             for c, (o, e) in zip(cmds, logs)]
+    deadline = time.monotonic() + PHASE14_BUDGET_S + 300
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                time.sleep(5)  # the other rank's group notices the closed peer
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for o, e in logs:
+            o.close()
+            e.close()
+    outs = [((work / f"out{r}.txt").read_text(), (work / f"err{r}.txt").read_text())
+            for r in range(2)]
+    for line in outs[0][0].splitlines():
+        if line.startswith(("phase 14", "  ")):
+            print(line, flush=True)
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 14 rank {r} exited {p.returncode}:\n{so[-3000:]}\n"
+                                 f"{se[-6000:]}")
+    res = [json.loads((work / f"result{r}.json").read_text()) for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    errors = res[0]["errors"]
+    if errors:
+        raise AssertionError("phase 14: " + "; ".join(errors))
+    phase_s = time.perf_counter() - t_phase
+    tp = {k: res[0]["launches"]["tp_serving"].get(k, 0) + res[0]["launches"]["sharded"].get(k, 0)
+          for k in res[0]["launches"]["tp_serving"]}
+    print(f"phase 14 took {phase_s:.1f} s (budget {PHASE14_BUDGET_S:.0f} s; (a) "
+          f"{res[0]['a_s']:.1f} s, (b) {res[0]['b_s']:.1f} s, (c) {res[0]['c_s']:.1f} s); "
+          f"backend {res[0]['backend']}, two ranks on one card, "
+          f"{res[0]['host_bytes_total'] / 2**30:.2f} GiB (rank 0) and "
+          f"{res[1]['host_bytes_total'] / 2**30:.2f} GiB (rank 1) through host buffers; "
+          f"launches on rank 0 of the tp path { {k: n for k, n in tp.items() if n} }, of the "
+          f"pp path { {k: n for k, n in res[0]['launches']['pp'].items() if n} }; "
+          f"card {card_line}", flush=True)
+    if phase_s > PHASE14_BUDGET_S:
+        raise AssertionError(f"phase 14 took {phase_s:.1f} s, over {PHASE14_BUDGET_S:.0f} s")
+    return {"tp": tp, "pp": res[0]["launches"]["pp"]}
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -4000,6 +4402,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--distribute-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--scaleout-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--model-parallel-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # cuBLAS is deterministic on one stream only with a fixed workspace
@@ -4019,6 +4423,8 @@ def main() -> int:
         return distribute_worker(args.distribute_worker)
     if args.scaleout_worker:  # phase 13's child, likewise
         return scaleout_worker(args.scaleout_worker)
+    if args.model_parallel_worker:  # phase 14's children, ranks 0 and 1 of a gloo group
+        return model_parallel_worker(args.model_parallel_worker, args.rank)
     import numpy as np
 
     from hops_tpu_torch.models.convert import random_params
@@ -4141,8 +4547,9 @@ def main() -> int:
                   f"scaled_dot_product_attention (dq, dk, dv) {r['library_ms']:.4f} ms; "
                   f"card {card_line}", flush=True)
         torch.cuda.empty_cache()
+        cache_answers: dict = {}
         slice_launches = serve_cache_slices(A, torch, art, prompts, instances, answers,
-                                            dense_bytes, dev, card_line)
+                                            dense_bytes, dev, card_line, cache_answers)
         print("phase 8 ok", flush=True)
         engine_parity(torch, params, dev)
         print("phase 8b ok", flush=True)
@@ -4192,6 +4599,11 @@ def main() -> int:
         print("phase 13 scale-out:", flush=True)
         scale = scaleout_phase(A, torch, art, prompts, args.seed, card_line)
         print("phase 13 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 14 model parallel:", flush=True)
+        mp = model_parallel_phase(A, torch, art, prompts, answers, cache_answers, args.seed,
+                                  card_line, phase7)
+        print("phase 14 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -4216,6 +4628,9 @@ def main() -> int:
             for path in ("sp", "moe"):
                 r["launches_by_path"][path] = scale[path].get(r["name"], 0)
                 r["launches"] += scale[path].get(r["name"], 0)
+            for path in ("tp", "pp"):
+                r["launches_by_path"][path] = mp[path].get(r["name"], 0)
+                r["launches"] += mp[path].get(r["name"], 0)
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
     finally:
         if predictor is not None:

@@ -53,8 +53,15 @@ temperature=0)`` emits, in both layouts, at any horizon, with or without
 a draft or a prefix. Sampled requests draw with keys ``(seed, token
 index)`` (:func:`hops_tpu_torch.models.generation.draw_rows`), so a
 stream does not depend on its slot, its batch company, the layout, the
-horizon or a preemption. ``mesh`` (tensor-parallel serving) raises
-``NotImplementedError``.
+horizon or a preemption.
+
+``mesh`` serves tensor-parallel over its ``tp_axis``: every rank of the
+axis builds the engine from the same dense model and runs the same
+host schedule on the same submitted requests (SPMD, as the JAX engine
+runs its programs under ``shard_map``); each holds its Megatron shard
+of the weights and a cache at its local heads, and only the per-block
+sums cross ranks (:mod:`hops_tpu_torch.parallel.tp_inference`). Those
+sums fold in rank order, so every rank draws the same tokens.
 """
 
 from __future__ import annotations
@@ -255,6 +262,13 @@ class LMEngine:
     ``kv_pool_blocks`` defaults to the dense reservation's token capacity
     plus the scratch block (``1 + slots * ceil(max_decode_len / page)``),
     ``prefill_chunk`` to ``min(64, max_decode_len)``.
+
+    ``mesh`` (a port :class:`~hops_tpu_torch.parallel.mesh.Mesh` with a
+    ``tp_axis`` axis) makes this rank's engine one tensor-parallel shard:
+    the dense ``model`` (and ``draft_model``, whose heads must divide the
+    degree too) are sliced to this rank's shard at construction and
+    every cache (dense, int8, paged, the draft's) is sized at local
+    heads. Every rank must submit the same requests in the same order.
     """
 
     def __init__(
@@ -264,6 +278,7 @@ class LMEngine:
         prefill_buckets: tuple[int, ...] | None = None,
         decode_horizon: int = 1,
         mesh: Any = None,
+        tp_axis: str = "model",
         draft_model: Any = None,
         spec_k: int = 4,
         kv_page_size: int | None = None,
@@ -272,9 +287,6 @@ class LMEngine:
         max_queue: int = 1024,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (tensor-parallel serving) is ROADMAP.md Queue 1 item 5, a later slice")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if not getattr(model, "ragged_decode", False):
@@ -295,6 +307,21 @@ class LMEngine:
             if draft_model.device != self.device:
                 raise ValueError(f"draft_model is on {draft_model.device}, "
                                  f"engine asked for {self.device}")
+        self.mesh = mesh
+        if mesh is not None:
+            from hops_tpu_torch.parallel.tp_inference import tp_shard_model
+
+            shards = mesh.shape[tp_axis]
+            if draft_model is not None:
+                # The draft shards the same Megatron way: its heads must
+                # divide the tp degree just like the target's.
+                dcfg = draft_model.config
+                dh = dcfg["num_kv_heads"] or dcfg["num_heads"]
+                if dcfg["num_heads"] % shards or dh % shards:
+                    raise ValueError(f"draft heads {dcfg['num_heads']}/{dh} not divisible by "
+                                     f"tp degree {shards}")
+                draft_model = tp_shard_model(draft_model, mesh, tp_axis)
+            model = tp_shard_model(model, mesh, tp_axis)
         cap = model.max_decode_len
         self._paged = kv_page_size is not None
         self._pool = None

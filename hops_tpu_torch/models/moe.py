@@ -89,18 +89,24 @@ class MoEMLP(nn.Module):
         keep = assigned & (position < capacity)
         slots = torch.arange(capacity, device=x.device)
         dispatch = (keep[..., None] & (position[..., None] == slots)).to(self.dtype)  # (T, E, C)
-        combine = dispatch * gates[..., None].to(self.dtype)
+        expert_tokens = tokens
         if self.expert_axis is not None:
             from hops_tpu_torch.parallel.grad_comms import _axis
+            from hops_tpu_torch.parallel.tp_inference import tp_enter
 
             axis = _axis(self.expert_axis)
             if axis.size != self.expert_shards:
                 raise ValueError(f"expert_shards={self.expert_shards} on an axis of {axis.size}")
+            # The tokens and gates feed only this rank's experts here:
+            # their gradients sum over the axis (Megatron's "f").
+            expert_tokens, gates = tp_enter(tokens, axis), tp_enter(gates, axis)
+        combine = dispatch * gates[..., None].to(self.dtype)
+        if self.expert_axis is not None:
             e_local = self.num_experts // self.expert_shards
             start = axis.index * e_local
             dispatch = dispatch[:, start:start + e_local]
             combine = combine[:, start:start + e_local]
-        expert_in = torch.einsum("td,tec->ecd", tokens.to(self.dtype), dispatch)
+        expert_in = torch.einsum("td,tec->ecd", expert_tokens.to(self.dtype), dispatch)
         h = torch.einsum("ecd,edh->ech", expert_in, self.w_in.to(self.dtype))
         h = F.gelu(h, approximate="tanh")
         expert_out = torch.einsum("ech,ehd->ecd", h, self.w_out.to(self.dtype))

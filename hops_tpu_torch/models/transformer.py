@@ -28,8 +28,11 @@ the flash kernels' backward. ``moe_every`` makes every k-th block a
 ``"ulysses"`` and ``"ring_local"`` run sequence parallelism over a
 ``mesh``'s ``seq_axis`` (:mod:`hops_tpu_torch.parallel.ringattention`):
 with ``ring`` and ``ulysses`` every block runs on this rank's block of
-the activations, which join before the final norm.
-Tensor parallelism (``tp_*``) raises ``NotImplementedError``.
+the activations, which join before the final norm. ``tp_axis`` and
+``tp_shards`` split every block the Megatron way over a tensor-parallel
+axis: each rank holds ``1/tp_shards`` of the heads (and of the MLP's
+hidden columns) and one sum per projection combines the partial
+outputs (:mod:`hops_tpu_torch.parallel.tp_inference`).
 """
 
 from __future__ import annotations
@@ -251,38 +254,53 @@ class Attention(nn.Module):
     of the sequence (its positions offset by the rank's index on the seq
     axis): ``ring_local`` as the caller feeds it, ``ring`` and
     ``ulysses`` as :class:`TransformerLM` cuts it (``shard``, a
-    :class:`~hops_tpu_torch.parallel.ringattention.SeqShard`)."""
+    :class:`~hops_tpu_torch.parallel.ringattention.SeqShard`).
+
+    ``tp_axis``/``tp_shards``: Megatron tensor parallelism. The module
+    holds ``num_heads // tp_shards`` heads (and as many kv heads of
+    ``num_kv_heads``), attends them, and the out projection's partial
+    sums are summed over the axis (``tp_axis`` names an axis of
+    ``mesh``, a bound axis name, or is a ``grad_comms.Axis``)."""
 
     def __init__(
         self, d_model: int, num_heads: int, *, dtype, param_dtype, device,
         attention_impl: str = "flash", num_kv_heads: int | None = None,
         window: int | None = None, mesh: Any = None, seq_axis: str = "seq",
-        batch_axis: str | None = None,
+        batch_axis: str | None = None, tp_axis: Any = None, tp_shards: int = 1,
     ):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
-        self.num_heads = num_heads
+        if num_heads % tp_shards:
+            raise ValueError(f"{num_heads} heads not divisible by tp_shards={tp_shards}")
+        self.num_heads = num_heads // tp_shards
         self.head_dim = d_model // num_heads
         self.attention_impl = attention_impl
         self.window = window
         self.mesh, self.seq_axis, self.batch_axis = mesh, seq_axis, batch_axis
+        self.tp_axis, self.tp_shards = tp_axis, tp_shards
         self.fused = num_kv_heads is None
+        heads = self.num_heads
         dt = (dtype, param_dtype, device)
         if self.fused:
-            self.kv_heads = num_heads
-            self.qkv = Dense(d_model, (3, num_heads, self.head_dim), *dt)
+            self.kv_heads = heads
+            self.qkv = Dense(d_model, (3, heads, self.head_dim), *dt)
         else:
             if num_heads % num_kv_heads:
                 raise ValueError(
                     f"{num_heads} heads not divisible by num_kv_heads={num_kv_heads}"
                 )
-            self.kv_heads = num_kv_heads
-            self.q = Dense(d_model, (num_heads, self.head_dim), *dt)
-            self.kv = Dense(d_model, (2, num_kv_heads, self.head_dim), *dt)
-        self.out = Dense(num_heads * self.head_dim, (d_model,), *dt)
+            if num_kv_heads % tp_shards:
+                raise ValueError(
+                    f"{num_kv_heads} kv heads not divisible by tp_shards={tp_shards}")
+            self.kv_heads = num_kv_heads // tp_shards
+            self.q = Dense(d_model, (heads, self.head_dim), *dt)
+            self.kv = Dense(d_model, (2, self.kv_heads, self.head_dim), *dt)
+        self.out = Dense(heads * self.head_dim, (d_model,), *dt)
 
     def _project_in(self, x):
+        if self.tp_axis is not None:
+            x = _tp_enter(x, self.mesh, self.tp_axis, self.tp_shards)
         if self.fused:
             qkv = self.qkv(x)  # (b, s, 3, h, d)
             return [qkv[:, :, i].transpose(1, 2) for i in range(3)]  # (b, h, s, d)
@@ -292,7 +310,10 @@ class Attention(nn.Module):
 
     def _project_out(self, o):
         b, _, s, _ = o.shape
-        return self.out(o.transpose(1, 2).reshape(b, s, -1))
+        o = self.out(o.transpose(1, 2).reshape(b, s, -1))
+        if self.tp_axis is not None:
+            o = _tp_sum(o, self.mesh, self.tp_axis, self.tp_shards)
+        return o
 
     def forward(self, x, cache: KVCache | None = None, layer: int = 0,
                 offset: torch.Tensor | None = None, fresh: bool = False,
@@ -410,19 +431,48 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU: gate/up projections and a gated down projection."""
+    """SwiGLU: gate/up projections and a gated down projection. With
+    ``tp_axis``/``tp_shards`` the module holds ``hidden // tp_shards``
+    columns of gate/up and rows of down, and the partial down
+    projections are summed over the axis (as :class:`Attention`)."""
 
-    def __init__(self, d_model: int, *, dtype, param_dtype, device, hidden_mult: int = 4):
+    def __init__(self, d_model: int, *, dtype, param_dtype, device, hidden_mult: int = 4,
+                 mesh: Any = None, tp_axis: Any = None, tp_shards: int = 1):
         super().__init__()
         hidden = int(d_model * hidden_mult * 2 / 3)
         hidden = max(128, (hidden // 128) * 128)
+        if hidden % tp_shards:
+            raise ValueError(f"hidden {hidden} not divisible by tp_shards={tp_shards}")
+        hidden //= tp_shards
+        self.mesh, self.tp_axis, self.tp_shards = mesh, tp_axis, tp_shards
         dt = (dtype, param_dtype, device)
         self.gate = Dense(d_model, (hidden,), *dt)
         self.up = Dense(d_model, (hidden,), *dt)
         self.down = Dense(hidden, (d_model,), *dt)
 
     def forward(self, x):
-        return self.down(nn.functional.silu(self.gate(x)) * self.up(x))
+        if self.tp_axis is not None:
+            x = _tp_enter(x, self.mesh, self.tp_axis, self.tp_shards)
+        out = self.down(nn.functional.silu(self.gate(x)) * self.up(x))
+        if self.tp_axis is not None:
+            out = _tp_sum(out, self.mesh, self.tp_axis, self.tp_shards)
+        return out
+
+
+def _tp_enter(x, mesh, tp_axis, shards):
+    """Megatron's "f": ``x`` unchanged, its gradient summed over the
+    tensor-parallel axis in backward."""
+    from hops_tpu_torch.parallel import tp_inference
+
+    return tp_inference.tp_enter(x, tp_inference.tp_group(mesh, tp_axis, shards))
+
+
+def _tp_sum(x, mesh, tp_axis, shards):
+    """Megatron's "g": the rank-order sum of every rank's partial ``x``;
+    the (replicated) gradient passes through unchanged."""
+    from hops_tpu_torch.parallel import tp_inference
+
+    return tp_inference.tp_sum(x, tp_inference.tp_group(mesh, tp_axis, shards))
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int, shard: Any = None) -> torch.Tensor:
@@ -454,7 +504,8 @@ class Block(nn.Module):
         self.attn = Attention(d_model, num_heads, **dt, **attn_kw)
         self.RMSNorm_1 = RMSNorm(d_model, dtype, device)
         if moe is None:
-            self.mlp = MLP(d_model, **dt)
+            self.mlp = MLP(d_model, **dt, mesh=attn_kw.get("mesh"),
+                           tp_axis=attn_kw.get("tp_axis"), tp_shards=attn_kw.get("tp_shards", 1))
         else:
             from hops_tpu_torch.models.moe import MoEMLP
 
@@ -494,7 +545,11 @@ class TransformerLM(nn.Module):
     serving path does) and ``device`` (``None`` = the card), and the
     JAX module's ``mesh`` (a port :class:`~hops_tpu_torch.parallel.mesh.Mesh`),
     ``seq_axis`` and ``batch_axis`` for the sequence-parallel impls.
-    ``tp_*`` (tensor parallelism) raises ``NotImplementedError``.
+    ``tp_axis``/``tp_shards`` hold this rank's Megatron shard of every
+    block (dense models only, as in JAX): build one from a dense model
+    with :func:`~hops_tpu_torch.parallel.tp_inference.tp_shard_model`.
+    Like ``mesh``, they are not part of ``config`` (the artifact's
+    ``lm_config.json``); :meth:`clone` keeps them.
     ``attention_impl="reference"`` runs the full forward on the plain
     attention version; the cached path always runs the kernels.
     ``moe_every=k`` makes blocks k-1, 2k-1, ... MoE blocks of
@@ -556,9 +611,6 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "paged_decode serves dense TransformerLMs; MoE blocks keep the dense "
                 "ragged cache")
-        if tp_shards != 1 or tp_axis is not None:
-            raise NotImplementedError(
-                "tp_*: tensor parallelism is ROADMAP.md Queue 1 item 5, a later slice")
         if not 0.0 <= dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
         if attention_impl not in ("flash", "reference", *_SEQ_IMPLS):
@@ -582,6 +634,7 @@ class TransformerLM(nn.Module):
             param_dtype=stored,
         )
         self.mesh, self.seq_axis, self.batch_axis = mesh, seq_axis, batch_axis
+        self.tp_axis, self.tp_shards = tp_axis, tp_shards
         self.moe_every = moe_every
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -600,6 +653,7 @@ class TransformerLM(nn.Module):
                         dropout_rate=dropout_rate, attention_impl=attention_impl,
                         num_kv_heads=num_kv_heads, window=window, mesh=mesh,
                         seq_axis=seq_axis, batch_axis=batch_axis)
+        tp = dict(tp_axis=tp_axis, tp_shards=tp_shards) if tp_axis is not None else {}
         for i in range(num_layers):
             if moe_every and (i + 1) % moe_every == 0:
                 from hops_tpu_torch.models.moe import MoEBlock
@@ -607,7 +661,7 @@ class TransformerLM(nn.Module):
                 block = MoEBlock(d_model, num_heads, num_experts=num_experts,
                                  top_k=moe_top_k, **block_kw)
             else:
-                block = Block(d_model, num_heads, **block_kw)
+                block = Block(d_model, num_heads, **block_kw, **tp)
             self.add_module(f"block_{i}", block)
         self.final_norm = RMSNorm(d_model, dtype, device)
         self.unembed = Dense(d_model, (vocab_size,), dtype, param_dtype, device)
@@ -623,7 +677,8 @@ class TransformerLM(nn.Module):
         """A new module with ``changes`` applied to the config and this
         module's weights: shared when their storage type stays, else cast
         copies."""
-        mesh = {k: changes.pop(k, getattr(self, k)) for k in ("mesh", "seq_axis", "batch_axis")}
+        mesh = {k: changes.pop(k, getattr(self, k))
+                for k in ("mesh", "seq_axis", "batch_axis", "tp_axis", "tp_shards")}
         other = TransformerLM(**{**self.config, **changes}, device=self.device, **mesh)
         other.load_state_dict(self.state_dict(), strict=True,
                               assign=other.param_dtype == self.param_dtype)

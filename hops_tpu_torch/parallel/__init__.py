@@ -2,17 +2,21 @@
 ranks, DTensor placements, and the data-parallel strategies on DDP and
 FSDP2, over the process group that :mod:`~hops_tpu_torch.parallel.multihost`
 joins; explicit gradient communication (``grad_comms``: quantized,
-bucketed, overlapped, hierarchical, ZeRO-1/2/3) and ring/Ulysses
-sequence parallelism. Tensor and pipeline parallelism are later slices.
+bucketed, overlapped, hierarchical, ZeRO-1/2/3), ring/Ulysses sequence
+parallelism, Megatron tensor parallelism (``tp_inference``) and pipeline
+parallelism (``pipeline``, ``pp_schedule``).
 """
 
 from hops_tpu_torch.parallel import (  # noqa: F401
     grad_comms,
     mesh,
     multihost,
+    pipeline,
+    pp_schedule,
     ringattention,
     sharding,
     strategy,
+    tp_inference,
 )
 from hops_tpu_torch.parallel.grad_comms import (  # noqa: F401
     GradCommsConfig,
@@ -26,6 +30,11 @@ from hops_tpu_torch.parallel.grad_comms import (  # noqa: F401
     zero2_apply_gradients,
     zero3_init,
     zero3_unshard,
+)
+from hops_tpu_torch.parallel.tp_inference import (  # noqa: F401
+    tp_generate,
+    tp_generate_speculative,
+    tp_param_specs,
 )
 from hops_tpu_torch.parallel.strategy import (  # noqa: F401
     CollectiveAllReduceStrategy,

@@ -295,11 +295,81 @@ def _pad_to(flat: torch.Tensor, multiple: int) -> torch.Tensor:
     return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
 
 
+def via_host(x: torch.Tensor, group: Any) -> bool:
+    """Whether a collective on ``x`` stages it through host buffers: a
+    CUDA tensor on a gloo group. Two ranks on one card cannot form an
+    NCCL group, so they run gloo, and gloo collectives handed CUDA
+    tensors aborted a rank on torch 2.11 (``writev: Bad address``); the
+    arithmetic stays on the card and only the exchanged bytes cross the
+    host (counted by ``hops_tpu_gloo_host_bytes_total``). An NCCL group
+    never stages."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def count_host_bytes(nbytes: int) -> None:
+    from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+    REGISTRY.counter("hops_tpu_gloo_host_bytes_total",
+                     "Bytes of CUDA tensors staged through host buffers for a gloo "
+                     "collective (copied out and back)").inc(nbytes)
+
+
+def all_reduce_(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """``dist.all_reduce`` (a sum) of ``x`` in place, through host
+    buffers on a gloo group (:func:`via_host`); returns ``x``."""
+    if via_host(x, group):
+        h = x.cpu()
+        dist.all_reduce(h, group=group)
+        count_host_bytes(2 * h.nbytes)
+        x.copy_(h)
+    else:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def broadcast_(x: torch.Tensor, src: int, group: Any = None) -> torch.Tensor:
+    """``dist.broadcast`` of ``x`` in place from global rank ``src``,
+    through host buffers on a gloo group (:func:`via_host`)."""
+    if via_host(x, group):
+        h = x.cpu()
+        dist.broadcast(h, src=src, group=group)
+        count_host_bytes(2 * h.nbytes)
+        x.copy_(h)
+    else:
+        dist.broadcast(x, src=src, group=group)
+    return x
+
+
 def _exchange(x: torch.Tensor, group: Any) -> torch.Tensor:
-    """``all_to_all_single`` of equal chunks of ``x``'s leading dim."""
+    """``all_to_all_single`` of equal chunks of ``x``'s leading dim
+    (through host buffers on a gloo group, :func:`via_host`)."""
     x = x.contiguous()
+    if via_host(x, group):
+        h = x.cpu()
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=group)
+        count_host_bytes(2 * h.nbytes)
+        return out.to(x.device)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def gather_stack(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order, ``(n, *x.shape)``: one
+    ``all_gather_into_tensor`` (through host buffers on a gloo group,
+    :func:`via_host`)."""
+    x = x.contiguous()
+    if axis.size == 1:
+        return x[None]
+    host = via_host(x, axis.group)
+    src = (x.cpu() if host else x).reshape(-1)
+    out = src.new_empty((axis.size * src.numel(),))
+    dist.all_gather_into_tensor(out, src, group=axis.group)
+    out = out.view(axis.size, *x.shape)
+    if host:
+        count_host_bytes(src.nbytes + out.nbytes)
+        return out.to(x.device)
     return out
 
 
@@ -334,9 +404,7 @@ def all_gather(shard: torch.Tensor, axis_name: Any = None, hierarchy: int = 0) -
         return shard
     if hierarchy:
         return hier_all_gather(shard, axis, hierarchy)
-    out = shard.new_empty((axis.size * shard.numel(),))
-    dist.all_gather_into_tensor(out, shard.contiguous(), group=axis.group)
-    return out
+    return gather_stack(shard.reshape(-1), axis).reshape(-1)
 
 
 def psum(x: torch.Tensor, axis_name: Any = None, *, mean: bool = False) -> torch.Tensor:
@@ -348,9 +416,7 @@ def psum(x: torch.Tensor, axis_name: Any = None, *, mean: bool = False) -> torch
     if n == 1:
         return x
     if not x.is_floating_point():
-        out = x.clone()
-        dist.all_reduce(out, group=axis.group)
-        return out
+        return all_reduce_(x.clone(), axis.group)
     flat = _pad_to(x.reshape(-1), n)
     out = all_gather(psum_scatter(flat, axis), axis)[: x.numel()].reshape(x.shape)
     return out / n if mean else out

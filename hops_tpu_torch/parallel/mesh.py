@@ -305,7 +305,9 @@ def replicate(mesh: Mesh, tree: Any, device: str | torch.device | None = None) -
             return x
         t = torch.as_tensor(x).to(dev).clone()
         if multihost._initialized() and mesh.size > 1:
-            dist.broadcast(t, src=src, group=mesh.group)
+            from hops_tpu_torch.parallel.grad_comms import broadcast_
+
+            broadcast_(t, src, mesh.group)
         return t
 
     return _tree_map(place, tree)

@@ -44,7 +44,14 @@ from hops_tpu_torch.ops.attention import (
     flash_attention,
     repeat_kv,
 )
-from hops_tpu_torch.parallel.grad_comms import Axis, _axis
+from hops_tpu_torch.parallel.grad_comms import (
+    Axis,
+    _axis,
+    _exchange,
+    count_host_bytes,
+    gather_stack,
+    via_host,
+)
 
 
 def axis_group(mesh: Any, axis: str) -> Axis:
@@ -105,14 +112,20 @@ def _fold(carry, s, v):
 
 def _shift(x: torch.Tensor, axis: Axis, step: int) -> torch.Tensor:
     """Send ``x`` to the rank ``step`` places ahead on ``axis`` and
-    receive from the rank ``step`` places behind."""
+    receive from the rank ``step`` places behind (through host buffers
+    on a gloo group, ``grad_comms.via_host``)."""
     n, i = axis.size, axis.index
     x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, axis.ranks[(i + step) % n], axis.group),
+    host = via_host(x, axis.group)
+    src = x.cpu() if host else x
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, axis.ranks[(i + step) % n], axis.group),
            dist.P2POp(dist.irecv, out, axis.ranks[(i - step) % n], axis.group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+    if host:
+        count_host_bytes(2 * src.nbytes)
+        return out.to(x.device)
     return out
 
 
@@ -240,10 +253,7 @@ class _Join(torch.autograd.Function):
 def _gather_dim(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     if axis.size == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(axis.size)]
-    dist.all_gather(parts, x, group=axis.group)
-    return torch.cat(parts, dim)
+    return torch.cat(list(gather_stack(x, axis)), dim)
 
 
 class _SumGrad(torch.autograd.Function):
@@ -370,10 +380,7 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=axis.group)
-        return out
+        return _exchange(x, axis.group)
 
     @staticmethod
     def backward(ctx, g):

@@ -54,21 +54,18 @@ import dataclasses
 import math
 from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
 from hops_tpu_torch.parallel import mesh as mesh_lib
 from hops_tpu_torch.parallel import multihost
+from hops_tpu_torch.parallel.grad_comms import all_reduce_, broadcast_
 from hops_tpu_torch.parallel.mesh import Mesh, _tree_map
 from hops_tpu_torch.runtime.devices import resolve_device
 
 _current: list["Strategy"] = []
-
-_TP_LATER = (
-    "ShardedStrategy's model (tensor-parallel) axis is ROADMAP.md Queue 1 item 5 "
-    "(tensor parallelism); the LM's attention runs in hand-written kernels that "
-    "DTensor cannot propagate through")
 
 
 def _is_train_state(state: Any) -> bool:
@@ -180,7 +177,7 @@ class Strategy:
                         tensors.append(st[k])
         if broadcast:
             for t in tensors:
-                dist.broadcast(t, src=src, group=self.mesh.group)
+                broadcast_(t, src, self.mesh.group)
         model._hops_tpu_placed = True
         return state
 
@@ -309,9 +306,7 @@ class Strategy:
         leaves = [t for t in leaves if t.is_floating_point() and t.is_leaf]
 
         def average(g: torch.Tensor) -> torch.Tensor:
-            g = g.clone()
-            dist.all_reduce(g, group=group)
-            return g / n
+            return all_reduce_(g.clone(), group) / n
 
         flags = [t.requires_grad for t in leaves]
         handles = []
@@ -337,8 +332,7 @@ class Strategy:
                 if isinstance(v, torch.Tensor) and v.dim() == 0 and v.is_floating_point()]
         if not keys:
             return aux
-        packed = torch.stack([aux[k].detach().float() for k in keys])
-        dist.all_reduce(packed, group=group)
+        packed = all_reduce_(torch.stack([aux[k].detach().float() for k in keys]), group)
         packed /= self.num_replicas_in_sync
         return {**aux, **{k: packed[i].to(aux[k].dtype) for i, k in enumerate(keys)}}
 
@@ -398,16 +392,32 @@ ParameterServerStrategy = CollectiveAllReduceStrategy
 
 
 class ShardedStrategy(Strategy):
-    """Data × FSDP parallelism over one (data, fsdp, model) mesh, on FSDP2.
+    """Data × FSDP × tensor parallelism over one (data, fsdp, model) mesh.
 
     Large parameters are sharded over ``fsdp`` on the dimension the JAX
     package's rule picks (:func:`~hops_tpu_torch.parallel.sharding.spec_for`),
     the rest on their first dimension (FSDP2 shards every parameter);
     with ``data > 1`` the shards are replicated over ``data`` (HSDP).
-    The batch splits over data AND fsdp, as in the JAX package. Call
-    :meth:`shard_state` once after creating the train state (the step
-    does it on first use otherwise). ``model > 1`` raises
-    ``NotImplementedError``: tensor parallelism is a later slice.
+    The batch splits over data AND fsdp, as in the JAX package; the
+    ``model`` ranks of a replica see the same rows.
+
+    ``model > 1`` splits parameters over the model axis. The JAX package
+    lets GSPMD pick the largest divisible dimension of each large
+    parameter and partition the program around it; the port's attention
+    runs in hand-written kernels that DTensor cannot propagate through,
+    so a ``TransformerLM`` takes the Megatron layout of
+    :mod:`~hops_tpu_torch.parallel.tp_inference` (heads and MLP columns,
+    one rank-order sum per projection; the same arithmetic on another
+    split). Any other module (the CNN, FFN, ResNets, wide-and-deep)
+    holds each parameter as a DTensor on the model axis, ``Shard`` on
+    the dimension :func:`~hops_tpu_torch.parallel.sharding.spec_for`
+    picks for parameters of ``min_shard_size`` elements and more, and
+    each of its modules gathers its own parameters to full tensors for
+    its forward (the backward keeps this rank's shard of the gradient),
+    so the moments live sharded as the parameters do. FSDP2 then shards
+    over ``fsdp`` (and ``data``) as above. Call :meth:`shard_state` once
+    after creating the train state (the step does it on first use
+    otherwise); :meth:`unshard_model` gives the dense weights back.
     """
 
     def __init__(
@@ -418,8 +428,6 @@ class ShardedStrategy(Strategy):
         min_shard_size: int = 4096,
         device: str | torch.device | None = None,
     ):
-        if model != 1:
-            raise NotImplementedError(_TP_LATER)
         if data == -1 and fsdp == -1:
             data = 1  # fsdp=-1 alone asks for every rank on the fsdp axis
         mesh = mesh_lib.make_mesh({"data": data, "fsdp": fsdp, "model": model})
@@ -433,6 +441,30 @@ class ShardedStrategy(Strategy):
         spec = spec_for(tuple(p.shape), self.mesh.shape["fsdp"], self.min_shard_size)
         return spec if isinstance(spec, Shard) else None
 
+    def _replicas_group(self) -> tuple[bool, Any]:
+        """The replicas are the (data, fsdp) ranks of one model
+        coordinate: with ``model > 1`` their own group (every rank
+        creates every line's group, in one order)."""
+        reduce = self._distributed() and self.num_replicas_in_sync > 1
+        if not reduce or self.mesh.shape["model"] == 1:
+            return reduce, self.mesh.group
+        if not hasattr(self, "_replica_lines"):
+            d = self.mesh.axis_names.index("model")
+            lines = np.moveaxis(self.mesh.devices, d, 0).reshape(self.mesh.shape["model"], -1)
+            self._replica_lines, _ = dist.new_subgroups_by_enumeration(lines.tolist())
+        return reduce, self._replica_lines
+
+    def _fsdp_mesh(self):
+        """The DeviceMesh FSDP2 shards over: (data, fsdp), or fsdp alone,
+        cut from the whole mesh's; None when it is one rank (nothing to
+        shard or average)."""
+        axes = ("data", "fsdp") if self.mesh.shape["data"] > 1 else ("fsdp",)
+        if self.mesh.shape["model"] == 1:
+            return self.mesh.device_mesh(axes)
+        if math.prod(self.mesh.shape[a] for a in axes) == 1:
+            return None
+        return self.mesh.device_mesh()[axes]
+
     def _wrap(self, model: nn.Module) -> nn.Module:
         """FSDP2 on each of the LM's blocks and on the root. The root
         keeps its parameters unsharded from forward to backward, so a
@@ -443,8 +475,10 @@ class ShardedStrategy(Strategy):
             return model
         from torch.distributed.fsdp import fully_shard
 
-        axes = ("data", "fsdp") if self.mesh.shape["data"] > 1 else ("fsdp",)
-        dm = self.mesh.device_mesh(axes)
+        dm = self._fsdp_mesh()
+        if dm is None:
+            model._hops_tpu_parallel = "tp"
+            return model
         blocks = model.blocks() if callable(getattr(model, "blocks", None)) else []
         for block in blocks:
             fully_shard(block, mesh=dm, shard_placement_fn=self._placement)
@@ -470,23 +504,81 @@ class ShardedStrategy(Strategy):
         opt = state.optimizer
         old = dict(model.named_parameters())
         model.to(self.device)
+        moved = {}  # state-dict name -> (new parameter, how its moments move)
+        if self.mesh.shape["model"] > 1:
+            model, moved = self._split_model(model)
         self._wrap(model)
         new = dict(model.named_parameters())
         by_old = {id(p): new[name] for name, p in old.items()}
         groups = [{**g, "params": [by_old[id(p)] for p in g["params"]]} for g in opt.param_groups]
         rebuilt = type(opt)(groups, **opt.defaults)
-        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor import DTensor, distribute_tensor
 
         for name, p in old.items():
             st = opt.state.get(p)
             if not st:
                 continue
             q = new[name]
+            cut = moved.get(name, lambda v: v)
             rebuilt.state[q] = {
-                k: distribute_tensor(v.to(self.device), q.device_mesh, q.placements)
+                k: (distribute_tensor(cut(v.to(self.device)), q.device_mesh, q.placements)
+                    if isinstance(q, DTensor) else cut(v.to(self.device)))
                 if isinstance(v, torch.Tensor) and v.shape == p.shape else v
                 for k, v in st.items()}
         return dataclasses.replace(state, model=model, optimizer=rebuilt)
+
+    def _split_model(self, model: nn.Module) -> tuple[nn.Module, dict]:
+        """``model`` split over the model axis: a TransformerLM as its
+        Megatron shard (a new module), any other module with DTensor
+        parameters gathered per submodule for the forward. Returns the
+        module and, per parameter name, how a tensor of its dense shape
+        (a moment) becomes this rank's part."""
+        from hops_tpu_torch.models.transformer import TransformerLM
+        from hops_tpu_torch.parallel.ringattention import axis_group
+
+        n = self.mesh.shape["model"]
+        index = axis_group(self.mesh, "model").index
+        if isinstance(model, TransformerLM):
+            from hops_tpu_torch.parallel.tp_inference import tp_param_specs, tp_shard_model
+
+            local = tp_shard_model(model, self.mesh, "model")
+            cuts = {name: (lambda v, name=name: tp_param_specs({name: v}, n, index)[name])
+                    for name in dict(model.named_parameters())}
+            return local, cuts
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        from hops_tpu_torch.parallel.sharding import spec_for
+
+        tp = self.mesh.device_mesh()["model"]
+        for mod in model.modules():
+            own = list(mod.named_parameters(recurse=False))
+            for pname, p in own:
+                spec = spec_for(tuple(p.shape), n, self.min_shard_size)
+                mod.register_parameter(pname, nn.Parameter(
+                    distribute_tensor(p.data, tp, [spec]), requires_grad=p.requires_grad))
+            if own:
+                mod.register_forward_pre_hook(_gather_own_params)
+                mod.register_forward_hook(_drop_gathered_params)
+        return model, {}
+
+    def unshard_model(self, model: nn.Module) -> dict[str, torch.Tensor]:
+        """The dense state dict of a model this strategy sharded, on every
+        rank (its FSDP shards and model-axis parts gathered)."""
+        from torch.distributed.tensor import DTensor
+
+        from hops_tpu_torch.models.transformer import TransformerLM
+
+        out = {}
+        for name, t in model.state_dict().items():
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
+            out[name] = t.detach()
+        if isinstance(model, TransformerLM) and self.mesh.shape["model"] > 1:
+            from hops_tpu_torch.parallel.ringattention import axis_group
+            from hops_tpu_torch.parallel.tp_inference import tp_unshard_state_dict
+
+            out = tp_unshard_state_dict(out, axis_group(self.mesh, "model"))
+        return out
 
     def _prepare(self, state: Any) -> Any:
         return self.shard_state(state)
@@ -503,6 +595,24 @@ class ShardedStrategy(Strategy):
                 "applies to the data-parallel strategies (Strategy/Mirrored/"
                 "CollectiveAllReduce)")
         return super().step(fn, donate_state)
+
+
+def _gather_own_params(mod: nn.Module, args: Any) -> None:
+    """Forward pre-hook of a module whose parameters are DTensors on the
+    model axis: the full tensors (a differentiable redistribute, whose
+    backward keeps this rank's shard of the gradient) shadow the
+    parameters for this forward."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    for name, p in mod.named_parameters(recurse=False):
+        if isinstance(p, DTensor):
+            full = p.redistribute(p.device_mesh, [Replicate()] * p.device_mesh.ndim)
+            mod.__dict__[name] = full.to_local()
+
+
+def _drop_gathered_params(mod: nn.Module, args: Any, out: Any) -> None:
+    for name, _ in mod.named_parameters(recurse=False):
+        mod.__dict__.pop(name, None)
 
 
 def current_strategy() -> "Strategy | None":

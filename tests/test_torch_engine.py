@@ -120,9 +120,14 @@ def test_queue_bound_and_later_slices(setup):
         engine.submit(prompts[0], max_new_tokens=2)
     with pytest.raises(ValueError, match="max_decode_len"):
         engine.submit(prompts[0], max_new_tokens=CFG["max_decode_len"])
-    # The JAX engine's validation cases; tensor parallelism stays unported.
-    with pytest.raises(NotImplementedError):
-        LMEngine(model, device="cpu", mesh=object())
+    # The JAX engine's validation cases; a draft whose kv heads do not
+    # divide the tensor-parallel degree is refused before any slicing.
+    from hops_tpu_torch.parallel import mesh as mesh_lib
+
+    with pytest.raises(ValueError, match="not divisible by tp degree"):
+        LMEngine(model, device="cpu", mesh=mesh_lib.Mesh(np.arange(2), ("model",)),
+                 draft_model=TransformerLM(**CFG, dtype="float32", device="cpu",
+                                           ragged_decode=True, num_kv_heads=1))
     with pytest.raises(ValueError, match="decode_horizon"):
         LMEngine(model, device="cpu", decode_horizon=0)
     with pytest.raises(ValueError, match="spec_k"):

@@ -165,13 +165,25 @@ def test_npz_roundtrip_loads_the_same_model(pair, tmp_path):
     ("moe_every", 2), ("tp_shards", 2), ("attention_impl", "ring"), ("attention_impl", "ulysses"),
 ])
 def test_later_slices_raise(field, value, pair):
-    """Tensor parallelism still raises, naming its item. MoE blocks and
-    the ring/Ulysses impls are ported: they build and run (the sequence
-    impls over a one-rank ``seq`` mesh, where they equal the dense
-    forward; MoE against ``tests/test_torch_moe.py``'s JAX parity)."""
+    """The slices that once raised here are ported. A ``tp_shards=2``
+    module holds this rank's half of the heads and of the MLP columns
+    (the dense state dict's ``tp_param_specs`` shard loads into it) and
+    needs its two-rank axis to run (``tests/test_torch_tp.py`` runs it
+    on gloo ranks against JAX). MoE blocks and the ring/Ulysses impls
+    build and run (the sequence impls over a one-rank ``seq`` mesh,
+    where they equal the dense forward; MoE against
+    ``tests/test_torch_moe.py``'s JAX parity)."""
     if field == "tp_shards":
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TransformerLM(**CFG, dtype="float32", device="cpu", **{field: value})
+        from hops_tpu_torch.parallel.tp_inference import tp_param_specs
+
+        _, params, tm = pair
+        local = TransformerLM(**CFG, dtype="float32", device="cpu", tp_axis="model",
+                              num_kv_heads=tm.config["num_kv_heads"], **{field: value})
+        assert local.block_0.attn.num_heads == CFG["num_heads"] // 2
+        assert local.block_0.mlp.gate.kernel.shape[1] * 2 == tm.block_0.mlp.gate.kernel.shape[1]
+        local.load_state_dict(tp_param_specs(tm.state_dict(), 2, 1))
+        with pytest.raises(ValueError, match="not bound"):
+            local(torch.from_numpy(_tokens(2, 12)).long())
         return
     from hops_tpu_torch.parallel import mesh as mesh_lib
 
