@@ -310,6 +310,31 @@ failure exits non-zero:
    phase 7's step: the loss falls, each within ``FSDP_LOSS_REL`` of
    phase 7's, K1-K3 ``num_layers`` launches a step. NCCL across two or
    more cards stays unverified.
+15. search — hyperparameter search fed by the input pipeline, within
+   ``PHASE15_BUDGET_S``: (a) ``SEARCH_ROWS`` seeded documents packed into
+   rows of ``TRAIN_SEQ + 1`` tokens (``pack_documents``) and written to
+   RecordIO by the native writer; ``DataLoader`` (batch ``TRAIN_BATCH``,
+   2 workers, queue 4, ``reuse_buffers``) behind ``device_iterator(size=2)``
+   onto the card: ``SEARCH_BATCHES`` batches equal to the host stream bit
+   for bit, the native reader must read them; the consumer's wait per
+   batch, the prefetch depth and the reader's backend are printed. (b)
+   ``experiment.grid_search`` over ``SEARCH_LRS`` on phase 7's LM (each
+   trial fed by its own loader over (a)'s file, ``SEARCH_WARMUP`` +
+   ``SEARCH_STEPS`` steps, under ``torch.use_deterministic_algorithms``):
+   finite losses, K1-K3 ``num_layers`` launches a step in each trial (the
+   counts' deltas over the trial), the first trial's losses equal a
+   direct run of the same wrapper outside the driver bit for bit (or, where
+   an op has no deterministic implementation, within twice a second
+   direct run's distance), ``result.json``, each ``trial.json`` without an
+   error and the registry's FINISHED record, ``best_config`` the trial of
+   the lowest final loss; per trial the step ms, tokens/s, loader wait and
+   allocated bytes at its start and after it returned (no growth beyond
+   ``TRIAL_WORKSPACE_BYTES``), and the driver's overhead (search wall
+   minus the trials' walls). (c) ``experiment.lagom`` with an explicit
+   ``GridSearch`` over ``LAGOM_LRS`` at phase 7's widths on 2 layers,
+   direction min, ``es_min=2``, heartbeats every step over the driver's
+   RPC server (counted): the lr-1.0 trial must be stopped early at a step
+   boundary before its last step.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -339,7 +364,8 @@ K4 and K4's wide calls phase 11's (under ``launches_by_path``, ``http``), and
 those of K1-K4 phase 12's (``distribute``), and every record phase
 13's Ulysses steps (``sp``) and MoE training and serving (``moe``) and
 phase 14's rank-0 launches: tensor-parallel serving and training
-(``tp``) and pipeline training (``pp``). The
+(``tp``) and pipeline training (``pp``), and those of K1-K3 phase 15's
+search trials (``search``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -4325,6 +4351,368 @@ def model_parallel_phase(A, torch, art: Path, prompts, answers, cache_answers, s
     return {"tp": tp, "pp": res[0]["launches"]["pp"]}
 
 
+PHASE15_BUDGET_S = 180.0
+SEARCH_ROWS = 64  # packed rows of TRAIN_SEQ + 1 tokens in phase 15's RecordIO file
+SEARCH_LOADER = dict(num_workers=2, queue_depth=4, reuse_buffers=True)
+SEARCH_BATCHES = 16  # (a): batches held to the host stream
+SEARCH_LRS = (1e-3, 3e-4)
+SEARCH_WARMUP, SEARCH_STEPS = 2, 4
+LAGOM_LM = dict(TRAIN, num_layers=2)
+LAGOM_LRS = (1e-3, 3e-4, 1.0)
+LAGOM_STEPS = 12
+# A trial thread's first cuBLAS call takes a workspace for its handle
+# (CUBLAS_WORKSPACE_CONFIG ":4096:8", 32 MiB; cuBLAS and cuBLASLt): the
+# only device memory a returned trial may leave behind.
+TRIAL_WORKSPACE_BYTES = 2 * 8 * 4096 * 1024
+
+
+def search_phase(A, torch, np, params, dev, seed: int, card_line: str) -> dict[str, int]:
+    """Phase 15; returns K1-K3's launches in the search trials ((b) and (c))."""
+    import gc
+    import warnings
+
+    from hops_tpu_torch import experiment, native
+    from hops_tpu_torch.experiment import registry
+    from hops_tpu_torch.featurestore.feed import pack_documents
+    from hops_tpu_torch.featurestore.loader import DataLoader, RecordIOSource
+    from hops_tpu_torch.models.common import create_train_state
+    from hops_tpu_torch.models.convert import random_params
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+    from hops_tpu_torch.native import recordio
+    from hops_tpu_torch.runtime import config, devices
+    from hops_tpu_torch.search import GridSearch, Searchspace, TrialStopped, drivers
+    from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_smoke" / "search"
+    work.mkdir(parents=True, exist_ok=True)
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke")
+
+    # (a) seeded documents, packed and written by the native writer, read
+    # back through the loader onto the card.
+    rng = np.random.default_rng(seed + 15)
+    row = TRAIN_SEQ + 1
+    docs, n_tokens = [], 0
+    while n_tokens < SEARCH_ROWS * row:
+        docs.append(rng.integers(1, TRAIN["vocab_size"], int(rng.integers(64, 4096))))
+        n_tokens += len(docs[-1]) + 1
+    rows = pack_documents(docs, seq_len=TRAIN_SEQ, eos_id=0)[:SEARCH_ROWS]
+    path = work / "tokens.rio"
+    with recordio.RecordWriter(path) as w:
+        for r in rows:
+            w.write(r.astype(np.int32).tobytes())
+    with recordio.RecordReader(path) as r:
+        backend = "native" if r._lib is not None else "pure Python"
+        if r._lib is None or len(r) != SEARCH_ROWS:
+            raise AssertionError(f"phase 15 (a): {len(r)} records read by the {backend} "
+                                 f"reader (the native library must read them; built: "
+                                 f"{native.available()})")
+
+    def decode(raw: bytes) -> dict:
+        return {"tokens": np.frombuffer(raw, np.int32)}
+
+    def loader(name: str, **kw) -> DataLoader:
+        return DataLoader(RecordIOSource([path], decode=decode), TRAIN_BATCH, num_epochs=None,
+                          seed=seed, name=name, **{**SEARCH_LOADER, **kw})
+
+    host = [b["tokens"].copy() for _, b in zip(range(SEARCH_BATCHES),
+                                                loader("smoke-host", num_workers=0,
+                                                       reuse_buffers=False))]
+    depth = REGISTRY.gauge("hops_tpu_feed_prefetch_depth", labels=("pipeline",))
+    it = loader("smoke-feed").device_iterator(size=2, device=dev)
+    got, waits, depths = [], [], []
+    for _ in range(SEARCH_BATCHES):
+        t0 = time.perf_counter()
+        got.append(next(it)["tokens"])
+        waits.append(time.perf_counter() - t0)
+        depths.append(int(depth.value(pipeline="smoke-feed")))
+    it.close()
+    torch.cuda.synchronize()
+    bad = [i for i, (g, h) in enumerate(zip(got, host))
+           if g.device != dev or not torch.equal(g.cpu(), torch.from_numpy(h))]
+    if bad:
+        raise AssertionError(f"phase 15 (a): batches {bad} on the card differ from the host "
+                             "stream")
+    print(f"phase 15 (a) loader: {SEARCH_BATCHES} batches of {TRAIN_BATCH} x {row} int32 "
+          f"tokens from {SEARCH_ROWS} packed rows in RecordIO, read by the {backend} reader, "
+          f"equal the host stream bit for bit on {dev} (workers 2, queue 4, reuse_buffers, "
+          f"prefetch 2); consumer wait per batch median "
+          f"{statistics.median(waits) * 1e3:.3f} ms, max {max(waits) * 1e3:.3f} ms (the "
+          f"first {waits[0] * 1e3:.3f}); prefetch depth {depths}; card {card_line}",
+          flush=True)
+    del got, host
+
+    # (b) grid_search over the learning rate, the full-width LM in each trial.
+    layers = TRAIN["num_layers"]
+    steps = SEARCH_WARMUP + SEARCH_STEPS
+
+    def lm_trial(log: dict):
+        def train(lr):
+            tdev = devices.resolve_device(None)  # the trial's card
+            t0 = time.perf_counter()
+            torch.cuda.synchronize(tdev)
+            start = torch.cuda.memory_allocated(tdev)
+            before = A.launch_counts()
+            record = _train_trial(lr, tdev)
+            torch.cuda.synchronize(tdev)
+            record.update(start=start, end=torch.cuda.memory_allocated(tdev),
+                          wall_s=time.perf_counter() - t0,
+                          launches={k: A.launch_counts()[k] - before[k] for k in TRAIN_KERNELS})
+            log[lr] = record
+            return {"loss": record["losses"][-1]}
+        return train
+
+    def _train_trial(lr, tdev) -> dict:
+        model = TransformerLM(**TRAIN, device=tdev).load_flax(params)
+        state = create_train_state(model, seed=seed, learning_rate=lr)
+        step = make_lm_train_step(loss_chunk=LOSS_CHUNK)
+        batches = loader("smoke-trial").device_iterator(size=2)
+        losses, waits = [], []
+        for i in range(steps):
+            if i == SEARCH_WARMUP:
+                torch.cuda.synchronize(tdev)
+                t0 = time.perf_counter()
+            w0 = time.perf_counter()
+            batch = next(batches)
+            waits.append(time.perf_counter() - w0)
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize(tdev)
+        steps_s = time.perf_counter() - t0
+        batches.close()
+        return dict(losses=[float(x) for x in losses], steps_s=steps_s,
+                    waits=waits[SEARCH_WARMUP:])
+
+    def nondeterministic(caught) -> list[str]:
+        return sorted({str(w.message).split(" does not have")[0] for w in caught
+                       if "deterministic implementation" in str(w.message)})
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        trials: dict = {}
+        gc.collect()
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            path_b, summary = experiment.grid_search(
+                lm_trial(trials), {"lr": list(SEARCH_LRS)}, direction="min",
+                optimization_key="loss", name="smoke-grid")
+            search_s = time.perf_counter() - t0
+        grid_launches = A.launch_counts()
+        torch.cuda.synchronize()
+        after_b = torch.cuda.memory_allocated()
+        nondet = nondeterministic(caught)
+        direct: dict = {}
+        lm_trial(direct)(lr=SEARCH_LRS[0])  # the same wrapper outside the driver
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    tokens = TRAIN_BATCH * TRAIN_SEQ * SEARCH_STEPS
+    for lr in SEARCH_LRS:
+        rec = trials[lr]
+        print(f"phase 15 (b) grid_search trial lr {lr:g}: losses "
+              f"{[round(x, 5) for x in rec['losses']]}; step "
+              f"{rec['steps_s'] / SEARCH_STEPS * 1e3:.3f} ms (mean of {SEARCH_STEPS} after "
+              f"{SEARCH_WARMUP} warm-up), {tokens / rec['steps_s']:.1f} tokens/s; loader wait "
+              f"per step median {statistics.median(rec['waits']) * 1e3:.3f} ms; trial wall "
+              f"{rec['wall_s']:.3f} s; allocated at its start {rec['start']} B, after it "
+              f"returned {rec['end']} B; launches {rec['launches']}; card {card_line}",
+              flush=True)
+    errors = _search_records(path_b, summary, "smoke-grid", len(SEARCH_LRS))
+    for lr, rec in trials.items():
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            errors.append(f"trial lr {lr:g} has a loss that is not finite: {rec['losses']}")
+        for name in TRAIN_KERNELS:
+            if rec["launches"][name] != layers * steps:
+                errors.append(f"trial lr {lr:g}: {name} launched {rec['launches'][name]} "
+                              f"times in {steps} steps, not {layers} a step")
+    best = min(trials, key=lambda lr: trials[lr]["losses"][-1])
+    if summary["best_config"] != {"lr": best}:
+        errors.append(f"best_config {summary['best_config']}, but lr {best:g} has the lowest "
+                      "final loss")
+    errors += _flat_memory([trials[lr] for lr in SEARCH_LRS] + [direct[SEARCH_LRS[0]]], after_b)
+    same = direct[SEARCH_LRS[0]]["losses"] == trials[SEARCH_LRS[0]]["losses"]
+    if same:
+        print(f"phase 15 (b): the lr {SEARCH_LRS[0]:g} trial's losses equal a direct run of "
+              f"the wrapper outside the driver bit for bit; ops without a deterministic "
+              f"implementation: {nondet or 'none'}", flush=True)
+    else:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            again: dict = {}
+            lm_trial(again)(lr=SEARCH_LRS[0])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        want = direct[SEARCH_LRS[0]]["losses"]
+        d_trial = max(abs(a - b) for a, b in zip(trials[SEARCH_LRS[0]]["losses"], want))
+        d_direct = max(abs(a - b) for a, b in zip(again[SEARCH_LRS[0]]["losses"], want))
+        print(f"phase 15 (b): the lr {SEARCH_LRS[0]:g} trial differs from the direct run by "
+              f"{d_trial:.3e}, a second direct run by {d_direct:.3e} (largest loss "
+              f"difference); ops without a deterministic implementation: {nondet or 'none'}",
+              flush=True)
+        if not (nondet and d_direct > 0 and d_trial <= 2 * d_direct):
+            errors.append("the trial's losses are not within twice the distance of two "
+                          "direct runs")
+    overhead_b = search_s - sum(rec["wall_s"] for rec in trials.values())
+    print(f"phase 15 (b): search wall {search_s:.3f} s, driver overhead {overhead_b:.3f} s "
+          f"(wall minus the trials' {sum(r['wall_s'] for r in trials.values()):.3f} s); "
+          f"allocated after the search {after_b} B; launches "
+          f"{ {k: grid_launches[k] for k in TRAIN_KERNELS} }; card {card_line}", flush=True)
+    if errors:
+        raise AssertionError("phase 15 (b): " + "; ".join(errors))
+    del trials, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) lagom with an explicit grid at 2 layers: heartbeats over RPC, the
+    # diverging trial stopped early at a step boundary.
+    small = random_params(**LAGOM_LM, seed=seed)
+    lagom_log: dict = {}
+    heartbeats: list = []
+
+    def lagom_trial(lr, reporter):
+        tdev = devices.resolve_device(None)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(tdev)
+        start = torch.cuda.memory_allocated(tdev)
+        before = A.launch_counts()
+        rec = {"losses": [], "step_s": [], "start": start}
+        lagom_log[lr] = rec
+        stopped = False
+        try:
+            _lagom_steps(lr, reporter, tdev, rec)
+        except TrialStopped:
+            stopped = True  # raised again below, once the steps' frames are gone
+        torch.cuda.synchronize(tdev)
+        rec.update(end=torch.cuda.memory_allocated(tdev), wall_s=time.perf_counter() - t0,
+                   launches={k: A.launch_counts()[k] - before[k] for k in TRAIN_KERNELS})
+        if stopped:
+            raise TrialStopped(reporter.trial_id)
+        return {"loss": rec["losses"][-1]}
+
+    def _lagom_steps(lr, reporter, tdev, rec) -> None:
+        model = TransformerLM(**LAGOM_LM, device=tdev).load_flax(small)
+        state = create_train_state(model, seed=seed, learning_rate=lr)
+        step = make_lm_train_step(loss_chunk=LOSS_CHUNK)
+        batches = loader("smoke-lagom").device_iterator(size=2)
+        try:
+            for i in range(LAGOM_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, next(batches))
+                loss = float(metrics["loss"])  # the step's end: its loss on the host
+                rec["step_s"].append(time.perf_counter() - t0)
+                rec["losses"].append(loss)
+                # The median rule cannot rank a NaN: a diverged loss is
+                # reported as the worst value.
+                reporter.broadcast(metric=loss if math.isfinite(loss) else math.inf, step=i)
+        finally:
+            batches.close()
+
+    real_heartbeat = drivers.TrialDriver._on_heartbeat
+
+    def counted(self, trial_id, step, metric):
+        heartbeats.append((trial_id, step))
+        return real_heartbeat(self, trial_id, step, metric)
+
+    drivers.TrialDriver._on_heartbeat = counted
+    try:
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary_c = experiment.lagom(
+            lagom_trial, searchspace=Searchspace(lr=("DISCRETE", list(LAGOM_LRS))),
+            optimizer=GridSearch({"lr": list(LAGOM_LRS)}, "min"), direction="min",
+            name="smoke-lagom", es_min=2, hb_interval=0, es_interval=0.05)
+        lagom_s = time.perf_counter() - t0
+        lagom_launches = A.launch_counts()
+        torch.cuda.synchronize()
+        after_c = torch.cuda.memory_allocated()
+    finally:
+        drivers.TrialDriver._on_heartbeat = real_heartbeat
+    errors = _search_records(summary_c["path"], summary_c, "smoke-lagom", len(LAGOM_LRS))
+    for lr in LAGOM_LRS:
+        rec = lagom_log[lr]
+        n = len(rec["losses"])
+        step_s = statistics.median(rec["step_s"][1:] or rec["step_s"])
+        print(f"phase 15 (c) lagom trial lr {lr:g}: {n} of {LAGOM_STEPS} steps, losses "
+              f"{[round(x, 4) for x in rec['losses']]}; step {step_s * 1e3:.3f} ms (median "
+              f"after the first, each ending in its loss's read-back), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; trial wall "
+              f"{rec['wall_s']:.3f} s; allocated at its start {rec['start']} B, after it "
+              f"returned {rec['end']} B; launches {rec['launches']}; card {card_line}",
+              flush=True)
+        for name in TRAIN_KERNELS:
+            if rec["launches"][name] != LAGOM_LM["num_layers"] * n:
+                errors.append(f"trial lr {lr:g}: {name} launched {rec['launches'][name]} "
+                              f"times in {n} steps")
+    stopped = {t["params"]["lr"] for t in summary_c["trials"].values() if t["stopped_early"]}
+    if summary_c["early_stopped"] < 1 or LAGOM_LRS[-1] not in stopped:
+        errors.append(f"the diverging lr {LAGOM_LRS[-1]:g} trial was not stopped early "
+                      f"(stopped: {sorted(stopped)})")
+    if len(lagom_log[LAGOM_LRS[-1]]["losses"]) >= LAGOM_STEPS:
+        errors.append(f"the lr {LAGOM_LRS[-1]:g} trial ran all {LAGOM_STEPS} steps")
+    for lr in LAGOM_LRS[:-1]:
+        if len(lagom_log[lr]["losses"]) != LAGOM_STEPS or lr in stopped:
+            errors.append(f"trial lr {lr:g} did not run its {LAGOM_STEPS} steps")
+    if not heartbeats or {t for t, _ in heartbeats} != set(summary_c["trials"]):
+        errors.append(f"heartbeats reached the driver from {sorted({t for t, _ in heartbeats})}"
+                      f", not every trial")
+    errors += _flat_memory([lagom_log[lr] for lr in LAGOM_LRS], after_c)
+    overhead_c = lagom_s - sum(rec["wall_s"] for rec in lagom_log.values())
+    print(f"phase 15 (c): {len(heartbeats)} heartbeats reached the driver's RPC server; "
+          f"early_stopped {summary_c['early_stopped']} ({sorted(stopped)}); best "
+          f"{summary_c['best_config']} at {summary_c['best_metric']:.5f}; search wall "
+          f"{lagom_s:.3f} s, driver overhead {overhead_c:.3f} s; allocated after the search "
+          f"{after_c} B; launches { {k: lagom_launches[k] for k in TRAIN_KERNELS} }; "
+          f"card {card_line}", flush=True)
+    if errors:
+        raise AssertionError("phase 15 (c): " + "; ".join(errors))
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    launches = {k: grid_launches[k] + lagom_launches[k] for k in TRAIN_KERNELS}
+    print(f"phase 15 took {phase_s:.1f} s (budget {PHASE15_BUDGET_S:.0f} s); launches of the "
+          f"search path {launches}", flush=True)
+    if phase_s > PHASE15_BUDGET_S:
+        raise AssertionError(f"phase 15 took {phase_s:.1f} s, over {PHASE15_BUDGET_S:.0f} s")
+    return launches
+
+
+def _search_records(path, summary: dict, name: str, n: int) -> list[str]:
+    """What a finished search must leave: ``result.json``, a ``trial.json``
+    per trial with no error, and the registry's FINISHED record."""
+    from hops_tpu_torch.experiment import registry
+
+    errors = []
+    path = Path(path)
+    if summary["num_trials"] != n or not (path / "result.json").is_file():
+        errors.append(f"{summary['num_trials']} trials (want {n}), result.json "
+                      f"{(path / 'result.json').is_file()}")
+    metas = [json.loads(p.read_text()) for p in sorted(path.glob("trial_*/trial.json"))]
+    if len(metas) != n:
+        errors.append(f"{len(metas)} trial.json files, not {n}")
+    errors += [f"{m['trial_id']} holds an error: {m['error']}" for m in metas if m["error"]]
+    runs = registry.list_runs(name)
+    if not runs or runs[-1]["status"] != "FINISHED":
+        errors.append(f"registry holds {[(r['run_id'], r['status']) for r in runs]}")
+    return errors
+
+
+def _flat_memory(records: list[dict], after: int) -> list[str]:
+    """Allocated bytes must not grow from trial to trial: each trial, and
+    the search as a whole (``after``), leaves what the first trial found,
+    bar the trial threads' cuBLAS workspaces (``TRIAL_WORKSPACE_BYTES``)."""
+    starts = [r["start"] for r in records]
+    ends = [r["end"] for r in records]
+    limit = starts[0] + TRIAL_WORKSPACE_BYTES
+    if max(starts + ends + [after]) > limit:
+        return [f"allocated bytes grow across trials: at their starts {starts}, after them "
+                f"{ends}, after the search {after} (limit {limit})"]
+    return []
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -4604,6 +4992,10 @@ def main() -> int:
         mp = model_parallel_phase(A, torch, art, prompts, answers, cache_answers, args.seed,
                                   card_line, phase7)
         print("phase 14 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 15 search:", flush=True)
+        search_launches = search_phase(A, torch, np, params, dev, args.seed, card_line)
+        print("phase 15 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -4631,6 +5023,9 @@ def main() -> int:
             for path in ("tp", "pp"):
                 r["launches_by_path"][path] = mp[path].get(r["name"], 0)
                 r["launches"] += mp[path].get(r["name"], 0)
+        for r in (k1, *bwd_rows):
+            r["launches_by_path"]["search"] = search_launches[r["name"]]
+            r["launches"] += search_launches[r["name"]]
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
     finally:
         if predictor is not None:

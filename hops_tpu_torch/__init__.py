@@ -12,7 +12,12 @@ experiments through ``experiment.launch`` with preemption-safe
 checkpoints (``runtime.checkpoint``, ``runtime.preemption``) and trains
 the classifiers of ``models.mnist`` and ``models.resnet``. The HTTP
 serving host (``modelrepo.serving``, ``modelrepo.serving_host``) serves
-both behind the TF-Serving REST contract.
+both behind the TF-Serving REST contract. Hyperparameter searches
+(``experiment.grid_search``, ``differential_evolution``, ``lagom`` on
+``search`` with heartbeats over ``messaging.rpc``) run each trial on its
+own group of devices, fed by the input pipeline (``featurestore.loader``
+over the native RecordIO reader of ``native``, prefetched onto the
+card by ``featurestore.feed``).
 
 The package imports ``torch`` and numpy only — never ``jax``, ``flax``,
 ``optax``, ``orbax`` or ``hops_tpu`` — and its entry points run on the

@@ -1,3 +1,4 @@
 """Host-side messaging (counterpart of ``hops_tpu/messaging``): the run
-search index and the pubsub topics that serving tees its inference log
-onto. ``rpc`` and ``tls`` are not ported yet."""
+search index, the pubsub topics that serving tees its inference log
+onto, and the JSON-line RPC that carries the search driver's heartbeats.
+``tls`` is not ported yet."""
