@@ -273,8 +273,9 @@ failure exits non-zero:
    experts, top 2, capacity 1.25, hidden 4096) trained ``MOE_STEPS``
    steps at phase 7's batch (the loss must fall; aux loss, step ms,
    tokens/s, and a ``diagnostics.trace`` of one step with the
-   dispatch/combine share), then phase 4's requests through
-   ``LMEnginePredictor`` (4 slots) on the bf16 and the int8 cache, each
+   dispatch/combine share), then phase 4's first ``MOE_REQUESTS``
+   requests through ``LMEnginePredictor`` (4 slots) on the bf16 and the
+   int8 cache, each
    against the same engine under the plain attention in bf16 and in
    fp32, teacher-forced to the served tokens and routing (the same call
    shapes, so the same capacity cuts): every drawn token's logits within
@@ -290,7 +291,8 @@ failure exits non-zero:
    goes through host buffers (``grad_comms.via_host``; the bytes are
    printed) while the arithmetic and every kernel stay on the card; the
    times are gloo-over-host times, not NVLink ones. (a) phase 4's
-   artifact served through ``LMEngine(mesh=)`` at tp=2 on the dense bf16,
+   artifact serving phase 4's first ``TP_REQUESTS`` requests through
+   ``LMEngine(mesh=)`` at tp=2 on the dense bf16,
    int8, paged and paged int8 caches (``TP_CACHES``): both ranks' streams
    identical bit for bit, each equal to phase 4's (dense) or phase 8's
    (same cache) one-rank stream up to the near-tie rule, each cache's
@@ -335,6 +337,27 @@ failure exits non-zero:
    direction min, ``es_min=2``, heartbeats every step over the driver's
    RPC server (counted): the lr-1.0 trial must be stopped early at a step
    boundary before its last step.
+16. feature store — the taxi pipeline end to end, within
+   ``PHASE16_BUDGET_S``: (a) ``FS_TRIPS`` seeded trips into the feature
+   group ``taxi_trips`` (expectation ``fare_positive``, validation ALL,
+   statistics), a second commit of ``FS_UPDATES`` updated trips, the
+   frame ``as_of`` the first commit equal to the first save, and the
+   training dataset ``taxi_tips`` (Parquet, splits 0.8/0.2); (b)
+   WideAndDeep at the taxi vocabularies (embed 8, hidden (128, 64), bf16)
+   trained through ``experiment.launch`` for ``FS_EPOCHS`` epochs of the
+   train split, fed by ``td.tf_data(..., feature_names=FS_ORDER).loader``
+   and ``device_iterator`` (the first batch must be the split's rows in
+   ``FS_ORDER``): the loss falls, test accuracy beats the majority
+   class's share, and the weights become a ``PYTHON`` model directory;
+   (c) the test split through a pubsub topic and the ``Materializer`` into
+   a native ``ShardedOnlineStore`` of ``FS_SHARDS`` shards (every shard
+   native, ``FS_READBACK`` trip IDs equal the offline rows); (d) a
+   batching endpoint with ``feature_config`` driven by ``FS_CLIENTS``
+   threads over HTTP with trip IDs only (argmax and distance from fp32
+   against the predictor's direct forward on the offline vectors, as
+   phase 11 (b); fewer batches than requests), then an unbatched one
+   whose ``FS_UNBATCHED_IDS``-ID request equals the direct forward bit for
+   bit. It launches no hand-written kernel.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -564,6 +587,9 @@ SP_STEPS, RING_BATCH, RING_STEPS, RING_REL = 3, 2, 2, 1.5
 MOE_TRAIN = dict(TRAIN, moe_every=2, num_experts=8, moe_top_k=2)
 MOE_SERVE = dict(MODEL, moe_every=2, num_experts=8, moe_top_k=2)
 MOE_STEPS = 6
+# The MoE serving check serves phase 4's first MOE_REQUESTS requests (one
+# admission wave of the 4 slots; the full 8 took 45 s of phase 13's 106).
+MOE_REQUESTS = 4
 ROUTER_MARGIN = 5e-3
 # Each drawn token is compared on the served history (teacher forcing):
 # its logits' distance from the plain fp32 engine's within MOE_TOKEN_REL
@@ -3648,6 +3674,7 @@ def scaleout_worker(spec_path: str) -> int:
         raise AssertionError(f"phase 13: backend {out['backend']}, world {out['world']}")
 
     # (a) grad comms on ResNet-50, deterministic.
+    marks = {"start": time.perf_counter()}
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     data = SyntheticClassData(num_classes=RESNET_CLASSES, shape=(RESNET_IMAGE, RESNET_IMAGE, 3),
@@ -3750,6 +3777,7 @@ def scaleout_worker(spec_path: str) -> int:
     torch.cuda.empty_cache()
 
     # (c) sequence parallelism on a one-rank seq mesh.
+    marks["(a)-(b)"] = time.perf_counter()
     params = load_npz(spec["params"])
     tokens = torch.from_numpy(np.random.default_rng(seed + 2).integers(
         0, TRAIN["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
@@ -3801,6 +3829,7 @@ def scaleout_worker(spec_path: str) -> int:
                              f"{RING_REL} x flash's {d_flash:.3e}")
 
     # (d) the MoE LM, trained and served.
+    marks["(c)"] = time.perf_counter()
     art = Path(spec["moe_artifact"])
     moe_params = load_npz(art / "params.npz")
     A.reset_launch_counts()
@@ -3830,7 +3859,8 @@ def scaleout_worker(spec_path: str) -> int:
     torch.cuda.empty_cache()
 
     del moe_params
-    prompts = spec["prompts"]
+    marks["(d) training"] = time.perf_counter()
+    prompts = spec["prompts"][:MOE_REQUESTS]
     instances = [{"prompt": p, "max_new_tokens": n, "temperature": 0.0}
                  for p, n in zip(prompts, NEW_TOKENS)]
     serve_launches = {k: 0 for k in A.launch_counts()}
@@ -3886,6 +3916,10 @@ def scaleout_worker(spec_path: str) -> int:
         missing = [k for k in kernels if not launches[k]]
         if missing:
             raise AssertionError(f"phase 13 (d) {name}: {missing} never launched: {launches}")
+    marks["(d) serving"] = time.perf_counter()
+    stamps = list(marks.values())
+    print("phase 13 seconds by part: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(list(marks)[1:], stamps, stamps[1:])), flush=True)
     moe = {k: moe_train.get(k, 0) + serve_launches.get(k, 0) for k in serve_launches}
     (work / "result.json").write_text(json.dumps({"sp": sp_launches, "moe": moe}))
     return 0
@@ -3986,8 +4020,12 @@ def scaleout_phase(A, torch, art: Path, prompts, seed: int, card_line: str) -> d
 PHASE14_BUDGET_S = 300.0
 TP_CACHES = (("dense", {"slots": 4}, ("flash_fwd", "decode_attention")), *CACHE_SLICES)
 TP_GEN_ROWS, TP_GEN_PROMPT, TP_GEN_NEW = 4, 16, 16  # the shortest prompt has 16 tokens
-PP_MICRO, PP_STEPS, PP_GRAD_MICRO = 4, 3, 2
-SHARDED_STEPS = 3
+# (a) serves phase 4's first TP_REQUESTS requests on each cache (one
+# admission wave); (b) and (c) train PP_STEPS and SHARDED_STEPS steps.
+# Cut from 8 requests and 3 steps each to hold the script's time.
+TP_REQUESTS = 4
+PP_MICRO, PP_STEPS, PP_GRAD_MICRO = 4, 2, 2
+SHARDED_STEPS = 2
 
 
 def model_parallel_worker(spec_path: str, rank: int) -> int:
@@ -4068,10 +4106,11 @@ def model_parallel_worker(spec_path: str, rank: int) -> int:
                           prefill_chunk=cfg.get("prefill_chunk"))
         del model
         b0 = host_mark()
+        served = prompts[:TP_REQUESTS]
         torch.cuda.synchronize()
         A.reset_launch_counts()
         t0 = time.perf_counter()
-        tickets = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, NEW_TOKENS)]
+        tickets = [engine.submit(p, max_new_tokens=n) for p, n in zip(served, NEW_TOKENS)]
         res = engine.run()
         wall = time.perf_counter() - t0
         launches = A.launch_counts()
@@ -4090,10 +4129,10 @@ def model_parallel_worker(spec_path: str, rank: int) -> int:
             f"{tuple(shards)}; ttft p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms; decode "
             f"{stats['decode_tokens'] / stats['decode_s']:.1f} tokens/s; wall {wall:.3f} s; "
             f"{(host_mark() - b0) / 2**20:.1f} MiB through the host (gloo)")
-        want = answers if name == "dense" else spec["cache_answers"][name]
+        want = (answers if name == "dense" else spec["cache_answers"][name])[:TP_REQUESTS]
 
-        def check(streams=streams, want=want, name=name):
-            notes = near_ties(plain_model, torch, prompts, streams, want, dev,
+        def check(streams=streams, want=want, served=served, name=name):
+            notes = near_ties(plain_model, torch, served, streams, want, dev,
                               f"phase 14 (a) {name}")
             say(f"  {name}: {len(notes)} of {len(streams)} streams leave the one-rank "
                 f"{'phase 4' if name == 'dense' else 'phase 8'} stream, each at a near tie"
@@ -4713,6 +4752,423 @@ def _flat_memory(records: list[dict], after: int) -> list[str]:
     return []
 
 
+# Phase 16: the feature store on the Chicago-Taxi pipeline
+# (examples/taxi_pipeline.py), then the JAX package's recommender scenario
+# (examples/feature_serving.py) on its online store: trips -> a validated
+# feature group -> a training dataset with splits -> WideAndDeep trained
+# through experiment.launch from td.tf_data(...).loader -> write-through
+# materialization into the sharded online store -> an HTTP endpoint whose
+# requests carry trip IDs only.
+PHASE16_BUDGET_S = 120.0
+FS_TRIPS = 1_000_000  # a month-scale slice of the Chicago Taxi Trips data's shape
+FS_UPDATES = 10_000  # the second commit: updated trips
+# The feature order of the training vectors and of the serving join:
+# batch_from_vectors(num_dense=3) splits the first three off as dense.
+FS_ORDER = ["distance", "fare", "duration", "hour", "weekday", "zone"]
+FS_NUM_DENSE = 3
+FS_BATCH, FS_EPOCHS, FS_LR = 4096, 2, 1e-2
+FS_SHARDS = 4
+FS_READBACK = 1000  # trip IDs read back from the online store against the offline rows
+FS_CLIENTS, FS_REQUESTS, FS_IDS = 8, 64, 32  # client threads x requests x trip IDs
+FS_UNBATCHED_IDS = 256
+FS_BATCHING = {"max_batch_size": 256, "timeout_ms": 5}
+FS_PREDICTOR = '''
+import numpy as np
+import torch
+
+from hops_tpu_torch.models.convert import params_from_flax
+from hops_tpu_torch.models.widedeep import WideAndDeep, batch_from_vectors
+
+VOCAB, NUM_DENSE, DTYPE, DEVICE = {vocab!r}, {num_dense!r}, {dtype!r}, {device!r}
+
+
+class Predict:
+    def __init__(self, dtype=DTYPE):
+        self._model = WideAndDeep(VOCAB, num_dense=NUM_DENSE, dtype=dtype, device=DEVICE)
+        self._model.load_state_dict(params_from_flax(__file__.rsplit("/", 1)[0] + "/params.npz"))
+        self._model.eval()
+
+    @torch.inference_mode()
+    def predict(self, instances):
+        out = self._model(batch_from_vectors(instances, num_dense=NUM_DENSE))
+        return out.cpu().numpy().tolist()
+'''
+
+
+def synthesize_trips(n: int, seed: int):
+    """Chicago-Taxi-shaped trips (``examples/taxi_pipeline.py:29-48``):
+    hour, weekday and pickup zone, distance, fare, duration, and the
+    label ``big_tipper`` (a tip over 20% of the fare), correlated with
+    the hour and the distance."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    distance = rng.gamma(2.0, 2.0, n)
+    duration = distance * rng.uniform(2, 4, n)
+    fare = 3 + 2.2 * distance + rng.normal(0, 1, n).clip(-2, 2)
+    df = pd.DataFrame(
+        {
+            "trip_id": np.arange(n),
+            "hour": rng.integers(0, 24, n),
+            "weekday": rng.integers(0, 7, n),
+            "zone": rng.integers(0, 100, n),
+            "distance": distance,
+            "fare": fare,
+            "duration": duration,
+        }
+    )
+    tip_rate = 0.1 + 0.05 * (df.hour > 18) + 0.02 * (distance > 5) + rng.normal(0, 0.05, n)
+    df["big_tipper"] = (tip_rate > 0.15).astype(int)
+    return df
+
+
+@contextlib.contextmanager
+def _clocked(module, name: str, acc: dict):
+    """``module.name`` wrapped to add its wall seconds to ``acc[name]``
+    while the block runs."""
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, timed)
+    try:
+        yield acc
+    finally:
+        setattr(module, name, real)
+
+
+def _hist_read(REGISTRY, name: str, **labels) -> tuple[list[float], list[float], float]:
+    """(bucket bounds with +Inf last, cumulative counts, sum) of one
+    labelled child of a histogram of the port's registry."""
+    bounds, cum, total = [], [], 0.0
+    for n, lab, v in REGISTRY.get(name).samples():
+        if all(lab.get(k) == str(x) for k, x in labels.items()):
+            if n == "_bucket":
+                bounds.append(float(lab["le"]))
+                cum.append(v)
+            elif n == "_sum":
+                total = v
+    return bounds, cum, total
+
+
+def _hist_pcts(before, after) -> str:
+    """p50 and p99 of the observations between two ``_hist_read``
+    readings, as the bucket bounds that hold them (the histogram's
+    resolution)."""
+    bounds = after[0]
+    cum = [a - b for a, b in zip(after[1], before[1] or [0.0] * len(after[1]))]
+    out = []
+    for q in (0.5, 0.99):
+        le = next(le for le, c in zip(bounds, cum) if c >= q * cum[-1])
+        out.append(f"<= {le * 1e3:g} ms" if math.isfinite(le) else "> 60 s")
+    return f"p50 {out[0]}, p99 {out[1]} ({int(cum[-1])} observations)"
+
+
+def feature_phase(A, torch, np, dev, seed: int, card_line: str) -> None:
+    """Phase 16; raises on a failed check. WideAndDeep launches no
+    hand-written kernel (cuBLAS and the embedding gathers): the launch
+    counts over the phase are printed, and must stay 0."""
+    import importlib.util
+
+    import pandas as pd
+
+    import hops_tpu_torch.featurestore as hsfs
+    from hops_tpu_torch import experiment
+    from hops_tpu_torch.featurestore import statistics as stats_mod
+    from hops_tpu_torch.featurestore import validation as val_mod
+    from hops_tpu_torch.featurestore.online_serving import Materializer, ShardedOnlineStore
+    from hops_tpu_torch.featurestore.validation import Rule
+    from hops_tpu_torch.messaging import pubsub
+    from hops_tpu_torch.models.common import cross_entropy_loss
+    from hops_tpu_torch.models.convert import params_to_flax, save_npz
+    from hops_tpu_torch.models.widedeep import WideAndDeep
+    from hops_tpu_torch.modelrepo import serving
+    from hops_tpu_torch.native import kvstore
+    from hops_tpu_torch.runtime import config
+    from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+    t_phase = time.perf_counter()
+    A.reset_launch_counts()
+    work = ROOT / "_smoke" / "featurestore"
+    work.mkdir(parents=True, exist_ok=True)
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke")
+    fs = hsfs.connection().get_feature_store()
+
+    # (a) feature engineering: a validated, versioned feature group with
+    # statistics, a second commit, time travel, a training dataset.
+    trips = synthesize_trips(FS_TRIPS, seed)
+    exp = fs.create_expectation("fare_positive", features=["fare"], rules=[
+        Rule(name="HAS_MIN", level="ERROR", min=0)]).save()
+    fg = fs.create_feature_group(
+        "taxi_trips", version=1, primary_key=["trip_id"], expectations=[exp],
+        validation_type="ALL", description="synthetic Chicago-Taxi-shaped trips",
+        statistics_config={"enabled": True, "histograms": True, "correlations": True})
+    clocks: dict = {}
+    with _clocked(stats_mod, "compute_statistics", clocks), \
+            _clocked(val_mod, "validate_dataframe", clocks):
+        t0 = time.perf_counter()
+        fg.save(trips)
+        save_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 16)
+    updates = synthesize_trips(FS_UPDATES, seed + 1)
+    updates["trip_id"] = rng.choice(FS_TRIPS, FS_UPDATES, replace=False)
+    t0 = time.perf_counter()
+    fg.insert(updates)
+    insert_s = time.perf_counter() - t0
+    commits = fg.commit_details()
+    first, second = (commits[c] for c in commits)
+    t0 = time.perf_counter()
+    as_of = fg.read(wallclock_time=list(commits)[0])
+    as_of_s = time.perf_counter() - t0
+    pd.testing.assert_frame_equal(as_of, trips)  # raises: the first commit read back
+    report = fg.get_validations()[-1]
+    stats = fg.get_statistics()
+    td = fs.create_training_dataset("taxi_tips", version=1, data_format="parquet",
+                                    splits={"train": 0.8, "test": 0.2}, seed=seed)
+    t0 = time.perf_counter()
+    td.save(fg.select_all())
+    td_s = time.perf_counter() - t0
+    offline = fg.read().set_index("trip_id")
+    train_df, test_df = td.read("train"), td.read("test")
+    print(f"phase 16 (a) feature group taxi_trips v1 ({FS_TRIPS} trips, {len(trips.columns)} "
+          f"columns, validation ALL on fare_positive, statistics with histograms and "
+          f"correlations): save {save_s:.2f} s, of which statistics "
+          f"{clocks['compute_statistics']:.2f} s and validation "
+          f"{clocks['validate_dataframe']:.2f} s; second commit of {FS_UPDATES} updated trips "
+          f"{insert_s:.2f} s (commits {first['rowsInserted']} inserted, then "
+          f"{second['rowsInserted']} inserted / {second['rowsUpdated']} updated); as_of the "
+          f"first commit {as_of_s:.2f} s, equal to the first save; validation "
+          f"{report['status']}; training dataset taxi_tips v1 (parquet, splits 0.8/0.2) "
+          f"materialized in {td_s:.2f} s: train {len(train_df)} rows, test {len(test_df)} "
+          f"rows", flush=True)
+    if not (first["rowsInserted"] == FS_TRIPS and second["rowsUpdated"] == FS_UPDATES
+            and second["rowsInserted"] == 0):
+        raise AssertionError(f"phase 16 (a): commit details {commits}")
+    if report["status"] != "SUCCESS" or stats["row_count"] != FS_TRIPS:
+        raise AssertionError(f"phase 16 (a): validation {report['status']}, statistics over "
+                             f"{stats['row_count']} rows")
+    if len(train_df) + len(test_df) != FS_TRIPS or len(offline) != FS_TRIPS:
+        raise AssertionError(f"phase 16 (a): splits {len(train_df)} + {len(test_df)} rows of "
+                             f"{len(offline)}")
+
+    # (b) WideAndDeep trained on the card from the training dataset,
+    # through experiment.launch.
+    keep: dict = {}
+
+    def train_fn():
+        tds = hsfs.connection().get_feature_store().get_training_dataset("taxi_tips", 1)
+        feeder = tds.tf_data(target_name="big_tipper", split="train", feature_names=FS_ORDER)
+        loader = feeder.loader(FS_BATCH, seed=seed, num_epochs=FS_EPOCHS, name="taxi")
+        model = WideAndDeep(TAXI_VOCAB, num_dense=FS_NUM_DENSE, device=dev, seed=seed)
+        opt = torch.optim.Adam(model.parameters(), lr=FS_LR)
+        rows = tds.read("train")[FS_ORDER].to_numpy(np.float32)[loader._epoch_order(0)[:FS_BATCH]]
+        losses, waits, steps = [], [], []
+        it = loader.device_iterator(size=2, device=dev)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                x, y = next(it)
+            except StopIteration:
+                break
+            waits.append(time.perf_counter() - t0)
+            if not steps and not np.array_equal(x.cpu().numpy(), rows):
+                raise AssertionError("phase 16 (b): the first batch is not the split's rows in "
+                                     f"{FS_ORDER} at the loader's order")
+            t0 = time.perf_counter()
+            logits = model({"dense": x[:, :FS_NUM_DENSE], "categorical": x[:, FS_NUM_DENSE:]})
+            loss = cross_entropy_loss(logits, y)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        keep.update(model=model.eval(), losses=[float(v) for v in losses], waits=waits,
+                    steps=steps, per_epoch=loader.steps_per_epoch)
+        return {"first": keep["losses"][0], "last": float(np.mean(keep["losses"][-10:]))}
+
+    t0 = time.perf_counter()
+    _, metrics = experiment.launch(train_fn, name="taxi_widedeep")
+    launch_s = time.perf_counter() - t0
+    model, losses = keep["model"], keep["losses"]
+    x_test, y_test = td.tf_data(target_name="big_tipper", split="test",
+                                feature_names=FS_ORDER).numpy_arrays()
+    with torch.inference_mode():
+        xt = torch.from_numpy(x_test).to(dev)
+        pred = model({"dense": xt[:, :FS_NUM_DENSE], "categorical": xt[:, FS_NUM_DENSE:]})
+        acc = float((pred.argmax(1).cpu().numpy() == y_test).mean())
+    majority = max(float(y_test.mean()), 1.0 - float(y_test.mean()))
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"phase 16 (b) WideAndDeep {TAXI_VOCAB} (embed 8, hidden (128, 64), bf16) through "
+          f"experiment.launch from td.tf_data(target_name='big_tipper', split='train', "
+          f"feature_names={FS_ORDER}).loader({FS_BATCH}) -> device_iterator(size=2): "
+          f"{len(losses)} Adam steps ({FS_EPOCHS} epochs of {keep['per_epoch']}) in "
+          f"{launch_s:.2f} s; loss {first10:.4f} -> {last10:.4f} (means of the first and last "
+          f"10 steps); step {statistics.median(keep['steps']) * 1e3:.3f} ms (median, host clock "
+          f"ending in synchronize()), loader wait per batch median "
+          f"{statistics.median(keep['waits']) * 1e3:.3f} ms (first "
+          f"{keep['waits'][0] * 1e3:.1f} ms); test accuracy {acc:.4f} over {len(y_test)} rows "
+          f"against the majority class's share {majority:.4f}; card {card_line}", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and last10 < first10):
+        raise AssertionError(f"phase 16 (b): the loss did not fall: {first10} -> {last10}")
+    if len(losses) != FS_EPOCHS * keep["per_epoch"] or not acc > majority:
+        raise AssertionError(f"phase 16 (b): {len(losses)} steps, test accuracy {acc:.4f} "
+                             f"against the majority share {majority:.4f}")
+    model_dir = work / "taxi_model"
+    model_dir.mkdir()
+    save_npz(model_dir / "params.npz", params_to_flax(model))
+    (model_dir / "predictor.py").write_text(FS_PREDICTOR.format(
+        vocab=TAXI_VOCAB, num_dense=FS_NUM_DENSE, dtype="bfloat16", device=str(dev)))
+    del keep, model, xt, pred
+    torch.cuda.empty_cache()
+
+    # (c) write-through materialization of the test split into the
+    # sharded online store.
+    store = ShardedOnlineStore("taxi_trips", 1, primary_key=["trip_id"], shards=FS_SHARDS)
+    try:
+        topic = pubsub.create_topic("taxi-trips-updates")
+        producer = pubsub.Producer(topic)
+        t0 = time.perf_counter()
+        t_mark = time.time()
+        for rec in test_df.to_dict(orient="records"):
+            producer.send({**rec, "event_time": t_mark})
+        producer.flush()
+        produce_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        daemon = Materializer(store, topic, event_time="event_time").start()
+        try:
+            drained = daemon.drain(300.0)
+        finally:
+            daemon.stop()
+        mat_s = time.perf_counter() - t0
+        lag = store.freshness_lag_s()
+        backends = [type(sh._impl).__name__ for sh in store._shards]
+        ids = np.random.default_rng(seed + 17).choice(
+            test_df["trip_id"].to_numpy(), FS_READBACK, replace=False)
+        got = pd.DataFrame(store.multi_get([{"trip_id": int(i)} for i in ids]))
+        count = store.count()
+    finally:
+        store.close()
+    print(f"phase 16 (c) materialized the test split's {len(test_df)} rows through pubsub topic "
+          f"{topic} into ShardedOnlineStore taxi_trips v1 ({FS_SHARDS} shards, backends "
+          f"{backends}): produced in {produce_s:.2f} s, drained in {mat_s:.2f} s "
+          f"({len(test_df) / mat_s:.0f} rows/s materialized), freshness lag {lag:.2f} s after "
+          f"the drain; {FS_READBACK} seeded trip IDs read back", flush=True)
+    if not drained or count != len(test_df):
+        raise AssertionError(f"phase 16 (c): drained {drained}, {count} rows online")
+    if not all(sh._impl.__class__ is kvstore.NativeKV for sh in store._shards):
+        raise AssertionError(f"phase 16 (c): a shard is not native: {backends}")
+    want = offline.loc[ids].reset_index()
+    pd.testing.assert_frame_equal(got[list(want.columns)], want)  # raises: online != offline
+
+    # (d) serving by trip ID over HTTP: a batching endpoint and an
+    # unbatched one, each joining the online rows into the model's vector.
+    feature_config = {"groups": [{"name": "taxi_trips", "version": 1, "primary_key": ["trip_id"],
+                                  "features": FS_ORDER, "shards": FS_SHARDS}],
+                      "order": FS_ORDER, "missing": "reject"}
+    spec = importlib.util.spec_from_file_location("taxi_offline_twin", model_dir / "predictor.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    direct, ref32 = twin.Predict(), twin.Predict(dtype="float32")
+    pool = test_df["trip_id"].to_numpy()
+    g = np.random.default_rng(seed + 18)
+    requests = [[[int(i) for i in g.choice(pool, FS_IDS, replace=False)]
+                 for _ in range(FS_REQUESTS)] for _ in range(FS_CLIENTS)]
+
+    def offline_vectors(trip_ids):
+        return offline.loc[trip_ids, FS_ORDER].to_numpy(np.float64).tolist()
+
+    hists = {"lookup": ("hops_tpu_online_lookup_seconds", {"store": "taxi_trips_1"}),
+             "join": ("hops_tpu_online_join_seconds", {"model": "taxi"}),
+             "request": ("hops_tpu_online_request_seconds", {"model": "taxi"})}
+    before = {k: _hist_read(REGISTRY, n, **lab) for k, (n, lab) in hists.items()}
+    serving.create_or_update("taxi", model_path=str(model_dir), model_server="PYTHON",
+                             feature_config=feature_config, batching_enabled=True,
+                             batching_config=FS_BATCHING)
+    serving.create_or_update("taxi-unbatched", model_path=str(model_dir),
+                             model_server="PYTHON", feature_config=feature_config)
+
+    def client(reqs):
+        out = []
+        for trip_ids in reqs:
+            t0 = time.perf_counter()
+            resp = serving.make_inference_request(
+                "taxi", {"instances": [{"trip_id": i} for i in trip_ids]})
+            out.append((resp["predictions"], time.perf_counter() - t0))
+        return out
+
+    try:
+        serving.start("taxi")
+        t0 = time.perf_counter()
+        answers = _concurrently(client, requests)
+        wall = time.perf_counter() - t0
+        batches = serving._servers["taxi"].batcher.batches_run
+        after = {k: _hist_read(REGISTRY, n, **lab) for k, (n, lab) in hists.items()}
+    finally:
+        serving.stop("taxi")
+    one = [int(i) for i in g.choice(pool, FS_UNBATCHED_IDS, replace=False)]
+    try:
+        serving.start("taxi-unbatched")
+        alone = serving.make_inference_request(
+            "taxi-unbatched", {"instances": [{"trip_id": i} for i in one]})["predictions"]
+    finally:
+        serving.stop("taxi-unbatched")
+    served = torch.tensor([p for a in answers for preds, _ in a for p in preds])
+    flat = [i for reqs in requests for trip_ids in reqs for i in trip_ids]
+    vectors = offline_vectors(flat)
+    want_bf16 = torch.tensor(direct.predict(vectors))
+    want_fp32 = torch.tensor(ref32.predict(vectors))
+    d_bf16 = (want_bf16 - want_fp32).abs().max().item()
+    d_served = (served - want_fp32).abs().max().item()
+    top2 = want_bf16.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) <= 2 * d_bf16
+    differ = served.argmax(1) != want_bf16.argmax(1)
+    exact = alone == direct.predict(offline_vectors(one))
+    n_req = FS_CLIENTS * FS_REQUESTS
+    model_s = (after["request"][2] - before["request"][2]) - (after["join"][2] - before["join"][2])
+    print(f"phase 16 (d) endpoint taxi (PYTHON predictor: the trained WideAndDeep, bf16, on "
+          f"{dev}; feature_config joins taxi_trips v1's {FS_SHARDS} shards in {FS_ORDER}, "
+          f"missing reject; batching {FS_BATCHING}): {FS_CLIENTS} client threads x "
+          f"{FS_REQUESTS} requests x {FS_IDS} trip IDs in {wall:.2f} s, {batches} batches for "
+          f"{n_req} requests; client latency {_pcts([t for a in answers for _, t in a])}; "
+          f"hops_tpu_online_lookup_seconds (a shard's batch) "
+          f"{_hist_pcts(before['lookup'], after['lookup'])}; hops_tpu_online_join_seconds (a "
+          f"coalesced batch) {_hist_pcts(before['join'], after['join'])}; the model's share of "
+          f"a joined predict {model_s / (after['request'][2] - before['request'][2]):.1%}; "
+          f"argmax differs from the direct forward on the offline vectors in "
+          f"{int(differ.sum())} of {len(flat)} rows ({int((differ & near).sum())} at a near "
+          f"tie); ||served - fp32||inf {d_served:.4e}, ||bf16 forward - fp32||inf {d_bf16:.4e} "
+          f"(bound {CLASSIFIER_REL}x); card {card_line}", flush=True)
+    print(f"phase 16 (d) endpoint taxi-unbatched: one request of {FS_UNBATCHED_IDS} trip IDs "
+          f"{'equals' if exact else 'differs from'} the direct forward of the same "
+          f"{FS_UNBATCHED_IDS} offline vectors bit for bit", flush=True)
+    if served.shape != want_bf16.shape or bool((differ & ~near).any()):
+        raise AssertionError("phase 16 (d): a served argmax differs from the direct forward's "
+                             "without a near tie")
+    if not d_served <= CLASSIFIER_REL * d_bf16:
+        raise AssertionError(f"phase 16 (d): served logits {d_served:.4e} from fp32, over "
+                             f"{CLASSIFIER_REL} x {d_bf16:.4e}")
+    if not batches < n_req:
+        raise AssertionError(f"phase 16 (d): {batches} batches for {n_req} requests")
+    if not exact:
+        raise AssertionError("phase 16 (d): the unbatched request's logits are not the direct "
+                             "forward's on the offline vectors")
+    launches = {k: n for k, n in A.launch_counts().items() if n}
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 16 took {phase_s:.1f} s (budget {PHASE16_BUDGET_S:.0f} s); launches of the "
+          f"hand-written kernels {launches}", flush=True)
+    if launches:
+        raise AssertionError(f"phase 16 launched hand-written kernels: {launches}")
+    if phase_s > PHASE16_BUDGET_S:
+        raise AssertionError(f"phase 16 took {phase_s:.1f} s, over {PHASE16_BUDGET_S:.0f} s")
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -4996,6 +5452,10 @@ def main() -> int:
         print("phase 15 search:", flush=True)
         search_launches = search_phase(A, torch, np, params, dev, args.seed, card_line)
         print("phase 15 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 16 feature store:", flush=True)
+        feature_phase(A, torch, np, dev, args.seed, card_line)
+        print("phase 16 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}

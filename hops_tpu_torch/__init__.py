@@ -17,7 +17,13 @@ both behind the TF-Serving REST contract. Hyperparameter searches
 ``search`` with heartbeats over ``messaging.rpc``) run each trial on its
 own group of devices, fed by the input pipeline (``featurestore.loader``
 over the native RecordIO reader of ``native``, prefetched onto the
-card by ``featurestore.feed``).
+card by ``featurestore.feed``). The feature store (``featurestore``:
+feature groups with time travel, queries, validation, statistics,
+training datasets that feed the loader, the sharded online store kept
+by write-through materialization; ``sql``: SQL over feature groups)
+builds the training data, and the serving host's ``feature_config``
+joins online rows into model inputs for requests that carry entity
+IDs only.
 
 The package imports ``torch`` and numpy only — never ``jax``, ``flax``,
 ``optax``, ``orbax`` or ``hops_tpu`` — and its entry points run on the

@@ -30,8 +30,10 @@ coalesces concurrent requests for the classifier and Python predictors.
 The endpoint's ``device`` (``None``: the card) is stored in its record
 and handed to the predictor: a restored or standalone endpoint runs
 where its definition says, and raises where that card is missing.
-``feature_config`` (the feature store's serving-time join) is not
-ported yet.
+``feature_config`` wraps the built predictor in the feature store's
+serving-time join (:class:`~hops_tpu_torch.featurestore.online_serving.FeatureJoinPredictor`),
+under the batcher: requests carry entity IDs, and a coalesced batch of
+them becomes one multi-get of the sharded online store.
 """
 
 from __future__ import annotations
@@ -735,9 +737,18 @@ class _InflightSlot:
 class _RunningServing:
     def __init__(self, cfg: dict[str, Any]):
         self.cfg = cfg
-        if cfg.get("feature_config"):
-            raise NotImplementedError(_NO_FEATURE_JOIN)
         self.predictor = _build_predictor(cfg)
+        if cfg.get("feature_config"):
+            # Serving-time feature joins: requests carry entity IDs
+            # only; the wrapper multi-gets the configured feature
+            # groups' online rows, assembles model-ready vectors, and
+            # feeds the real predictor. Sits UNDER the DynamicBatcher,
+            # so coalesced entity batches become one batched join.
+            from hops_tpu_torch.featurestore.online_serving import FeatureJoinPredictor
+
+            self.predictor = FeatureJoinPredictor(
+                self.predictor, cfg["feature_config"], model=cfg["name"]
+            )
         self.producer = pubsub.Producer(cfg["topic"])
         name = cfg["name"]
         # Overload protection + failure gating (docs/operations.md
@@ -1290,12 +1301,6 @@ class _RunningServing:
 # -- public API (reference surface) ------------------------------------------
 
 
-#: The feature store's serving-time join (``FeatureJoinPredictor``) is
-#: ROADMAP Queue 1 item 7.
-_NO_FEATURE_JOIN = ("feature_config (the feature store's serving-time join) is a later "
-                    "slice of the port")
-
-
 def create_or_update(
     name: str,
     model_path: str | None = None,
@@ -1341,8 +1346,14 @@ def create_or_update(
     a half-open probe (defaults 5 / 30 s). ``GET /healthz`` reports
     readiness and flips 503 while the breaker is open.
 
-    ``feature_config`` (the JAX package's serving-time feature join)
-    raises ``NotImplementedError``: it is not ported yet.
+    ``feature_config`` turns the endpoint into a feature-joining one
+    (docs/featurestore.md "Online store & serving-time joins"):
+    requests carry only entity-key dicts in ``instances``; the serving
+    looks the entities up in the configured feature groups' sharded
+    online stores, joins the rows into model-ready vectors (missing-key
+    policy ``default`` | ``reject`` | ``passthrough``), and feeds the
+    predictor those vectors — composing with ``batching_enabled``
+    (coalesced entity batches become one batched multi-get join).
 
     ``device`` is where the predictor runs (``None``: the card,
     ``cuda:0``). It is stored in the record as a string, so a restored
@@ -1354,7 +1365,18 @@ def create_or_update(
             "batching) — batching_enabled would double-batch; leave it off"
         )
     if feature_config:
-        raise NotImplementedError(_NO_FEATURE_JOIN)
+        if model_server.upper() == LM:
+            raise ValueError(
+                "feature_config joins entity IDs into feature vectors — "
+                "that is not a token stream; model_server='LM' cannot "
+                "take it"
+            )
+        # Validate at definition time: a typo'd missing-key policy or a
+        # group without a primary key must fail here, not at the first
+        # request of a started endpoint.
+        from hops_tpu_torch.featurestore.online_serving import validate_feature_config
+
+        feature_config = validate_feature_config(feature_config)
     if lm_config:
         # The registry round-trips through JSON with default=str: a
         # numpy/jnp array anywhere in lm_config would be silently

@@ -57,6 +57,12 @@ def test_every_module_imports_with_jax_blocked():
         "hops_tpu_torch.runtime.httpclient", "hops_tpu_torch.messaging.pubsub",
         "hops_tpu_torch.modelrepo.serving_host",
     } <= set(mods)
+    assert {
+        f"hops_tpu_torch.featurestore.{m}" for m in (
+            "storage", "feature", "statistics", "query", "validation", "online",
+            "columnar", "feature_group", "training_dataset", "builders", "connectors",
+            "bias", "connection", "online_serving")
+    } | {"hops_tpu_torch.sql", "hops_tpu_torch.sql.gateway"} <= set(mods)
     code = (
         "import sys, importlib, json\n"
         f"for name in {BLOCKED!r}:\n"

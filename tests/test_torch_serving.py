@@ -573,8 +573,25 @@ def test_lifecycle_states_match_jax(tmp_path):
 
 
 def test_feature_config_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="feature"):
-        serving.create_or_update("fj", model_path="x", feature_config={"groups": []})
+    """``feature_config`` is checked where the endpoint is defined, as the
+    JAX package checks it: the same errors for an LM server and for bad
+    configs, and a good config recorded as given."""
+    good = {"groups": [{"name": "U", "primary_key": ["ID"], "features": ["A"]}],
+            "missing": "reject"}
+    bad = [dict(good, missing="explode"), {"groups": []}, {"groups": [{"name": "u"}]}]
+    for pkg in PKGS.values():
+        pkg.serving.create_or_update("fj", model_path="x", model_server="PYTHON",
+                                     feature_config=good)
+    assert (serving.get_all()[0]["feature_config"]
+            == jax_serving.get_all()[0]["feature_config"] == good)
+    for cfg, server in [(good, "LM")] + [(c, "PYTHON") for c in bad]:
+        errors = []
+        for pkg in PKGS.values():
+            with pytest.raises(ValueError) as e:
+                pkg.serving.create_or_update("fj", model_path="x", model_server=server,
+                                             feature_config=cfg)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
 
 
 # -- (5) standalone host ------------------------------------------------------
