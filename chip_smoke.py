@@ -358,6 +358,35 @@ failure exits non-zero:
    phase 11 (b); fewer batches than requests), then an unbatched one
    whose ``FS_UNBATCHED_IDS``-ID request equals the direct forward bit for
    bit. It launches no hand-written kernel.
+17. fleet — the serving fleet, placement and the closed loop, within
+   ``PHASE17_BUDGET_S`` (router with hedging and brownout off,
+   ``FLEET_OPTIONS``; the autoscaler heals below 2 replicas): (a) phase
+   4's artifact behind ``fleet.start_fleet`` with 2 process replicas
+   (``python -m hops_tpu_torch.modelrepo.serving_host --fleet-worker``,
+   read from ``/proc/<pid>/cmdline``): phase 4's 8 requests concurrently
+   through the router (streams equal phase 4's under the near-tie rule,
+   client p50/p99 beside phase 11's direct endpoint), then a rollout to
+   v2 (the same weights) under 2 clients with a ready replica SIGKILLed
+   2 s in: completed, zero client errors, healed to 2, no worker alive
+   after the fleet stops; (b) two ``Hostd`` agents with process units, a
+   ``PlacementClient`` and the fleet with ``placement=``: 4 requests equal
+   (a)'s streams, then one host killed (``chaos_kill``: its units with
+   it) and partitioned under 2 clients, re-placed on the survivor with
+   zero client errors, ``invariants.audit`` clean, no unit alive after;
+   (c) ``LOOP_ROWS`` rows of ``TRAIN_SEQ + 1`` counting tokens published
+   by a producer thread onto a pubsub topic, trained by
+   ``pipeline.run_continuous`` (``StreamingSource`` -> ``SpanStream``,
+   ``LOOP_SPAN`` rows a span, one ``pubsub.poll`` fault armed) at phase
+   7's widths on 2 layers (``LOOP_LM``), gates every ``LOOP_EVAL_EVERY``
+   steps on a held-out loss (``mode="min"``, gate 2 poisoned), passing
+   candidates exported by ``registry.save_lm`` and rolled into an
+   in-process fleet of 2 replicas under ``LOOP_CLIENTS`` clients, one
+   replica killed in the first rollout: ledger of ``LOOP_ROWS`` records,
+   contiguous and disjoint, a recovery, one failed gate, a completed
+   cutover, zero client errors, served versions among v1 and the passed
+   gates', every export's weights equal to its gate's bit for bit, and
+   the fleet's streams after the last cutover equal to a direct engine on
+   the last export.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -388,7 +417,9 @@ those of K1-K4 phase 12's (``distribute``), and every record phase
 13's Ulysses steps (``sp``) and MoE training and serving (``moe``) and
 phase 14's rank-0 launches: tensor-parallel serving and training
 (``tp``) and pipeline training (``pp``), and those of K1-K3 phase 15's
-search trials (``search``). The
+search trials (``search``), and those of K1-K4 phase 17's trainer and
+in-process fleet (``fleet``; process replicas count in their own
+processes). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -2897,8 +2928,9 @@ def _pcts(seconds) -> str:
 
 
 def serving_phase(A, torch, art, params, prompts, instances, answers, prefix, prefix_want,
-                  dev, seed: int, card_line: str) -> dict[str, int]:
-    """Phase 11; returns the launch counts of (a)."""
+                  dev, seed: int, card_line: str, keep: dict | None = None) -> dict[str, int]:
+    """Phase 11; returns the launch counts of (a) (and puts (a)'s client
+    latencies, seconds, into ``keep["http_s"]`` for phase 17)."""
     import numpy as np
 
     from hops_tpu_torch.models.convert import params_to_flax
@@ -2940,6 +2972,8 @@ def serving_phase(A, torch, art, params, prompts, instances, answers, prefix, pr
     finally:
         serving.stop("smoke-lm")
     got, got_sfx = [a for a, _ in plain], [a for a, _ in sfx]
+    if keep is not None:
+        keep["http_s"] = [t for _, t in plain]
     model = load_lm_artifact(art, dev)
     notes = near_ties(model, torch, prompts, got, answers, dev, "phase 11 (a)")
     full = [prefix + p for p in prompts[:4]]
@@ -5169,6 +5203,497 @@ def feature_phase(A, torch, np, dev, seed: int, card_line: str) -> None:
         raise AssertionError(f"phase 16 took {phase_s:.1f} s, over {PHASE16_BUDGET_S:.0f} s")
 
 
+PHASE17_BUDGET_S = 180.0
+FLEET_SLOTS = 4
+# The fleets' router runs with hedging and brownout off: an LM request
+# lasts seconds, so the default 1 s brownout SLO (a classifier's) would
+# cut every stream to the brownout token cap, and a hedge would run a
+# whole generation twice. Outlier ejection stays at its default; a
+# process replica loads its 12 layers in well under the spawn timeout.
+FLEET_OPTIONS = dict(hedge=None, brownout=None, scrape_interval_s=0.1, spawn_timeout_s=300.0)
+# The autoscaler only heals (2 to 4 replicas, never down): a scale-down
+# drains the least-loaded ready replica, which mid-rollout is the idle
+# canary, and a drained canary sees none of the traffic that judges it.
+FLEET_HEAL = dict(min_replicas=2, max_replicas=4, target_load=50.0, low_factor=0.0)
+FLEET_PLACED_REQUESTS = 4
+FLEET_HEAL_S = 180.0  # the longest wait for the autoscaler to restore 2 ready replicas
+# (c) the closed loop: phase 9's LAUNCH_LM without dropout, served as bf16.
+LOOP_LM = dict(TRAIN, num_layers=2)
+LOOP_SERVE = dict(MODEL, num_layers=2)
+LOOP_ROWS, LOOP_SPAN = 240, 8
+LOOP_SAVE_EVERY, LOOP_EVAL_EVERY = 5, 10
+LOOP_PUBLISH_RPS = 400.0  # faster than the trainer takes rows: spans fill
+LOOP_PROMPT, LOOP_NEW_TOKENS, LOOP_CLIENTS = 32, 16, 2
+
+
+def _alive(pid: int) -> bool:
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+
+
+def _worker_module(pid: int) -> str:
+    """The module a ``python -m`` process runs, from its command line."""
+    argv = Path(f"/proc/{pid}/cmdline").read_bytes().decode().split("\0")
+    return argv[argv.index("-m") + 1] if "-m" in argv else " ".join(argv)
+
+
+class _Clients:
+    """Closed-loop client threads: ``ask(i)`` for i = 0, 1, ... until
+    stopped; every answer, error and completion time recorded."""
+
+    def __init__(self, ask, n: int):
+        self.ask, self.answers, self.errors, self.done = ask, [], [], []
+        self._lock, self._stop = threading.Lock(), threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(k, n), daemon=True)
+                         for k in range(n)]
+
+    def _run(self, k: int, n: int) -> None:
+        i = k
+        while not self._stop.is_set():
+            try:
+                out = self.ask(i)
+                with self._lock:
+                    self.answers.append((i, out))
+                    self.done.append(time.perf_counter())
+            except Exception as e:  # noqa: BLE001 — counted; the phase requires none
+                with self._lock:
+                    self.errors.append(f"{type(e).__name__}: {e}")
+            i += n
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=600)
+
+
+def _blip_ms(done: list[float], windows: list[tuple[float, float]]) -> float:
+    """The longest gap between successful completions inside any rollout
+    window (0.5 s either side), as ``bench.py``'s continuous-loop tier
+    measures the cutover blip."""
+    blip, done = 0.0, sorted(done)
+    for t0, t1 in windows:
+        window = [t for t in done if t0 - 0.5 <= t <= t1 + 0.5]
+        blip = max([blip] + [(b - a) * 1e3 for a, b in zip(window, window[1:])])
+    return blip
+
+
+def _wait(cond, seconds: float, what: str) -> None:
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 17: {what} within {seconds:.0f} s")
+        time.sleep(0.05)
+
+
+def _streams_ok(model, torch, prompts, got, want, dev, what: str) -> str:
+    """``got`` held to ``want`` stream by stream under the near-tie rule."""
+    notes = near_ties(model, torch, prompts, got, want, dev, what)
+    return "; ".join(notes) or "all identical"
+
+
+def _client_answers(clients, instances, want) -> tuple[list, list, list]:
+    """The clients' answers regrouped as (prompts index, got, want)."""
+    idx = [i % len(instances) for i, _ in clients.answers]
+    return idx, [a for _, a in clients.answers], [want[i] for i in idx]
+
+
+def fleet_phase(A, torch, np, art, prompts, instances, answers, http_s, dev, seed: int,
+                card_line: str) -> dict[str, int]:
+    """Phase 17; returns the launch counts of this process over the phase
+    (the in-process fleet and the trainer of (c); process replicas count
+    in their own processes)."""
+    from hops_tpu_torch.jobs import placement
+    from hops_tpu_torch.jobs.placement import invariants
+    from hops_tpu_torch.modelrepo import fleet, registry, serving
+    from hops_tpu_torch.modelrepo.fleet.autoscale import AutoscalePolicy
+    from hops_tpu_torch.modelrepo.fleet.replicas import ReplicaManager
+    from hops_tpu_torch.modelrepo.serving import load_lm_artifact
+    from hops_tpu_torch.runtime import config, faultinject, flight
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_smoke" / "fleet"
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke")
+    heal = AutoscalePolicy(**FLEET_HEAL)
+    v1 = registry.export(art, "smoke-fleet", metrics={"layers": MODEL["num_layers"]})["version"]
+    v2 = registry.export(art, "smoke-fleet", metrics={"layers": MODEL["num_layers"]})["version"]
+    serving.create_or_update("smoke-fleet", model_name="smoke-fleet", model_version=v1,
+                             model_server="LM", lm_config={"slots": FLEET_SLOTS})
+    model = load_lm_artifact(art, dev)  # the near-tie rule's reference
+    spawned: list[int] = []
+    spawn_process = ReplicaManager._spawn_process
+
+    def tracked(self, rep, cfg):
+        try:
+            spawn_process(self, rep, cfg)
+        finally:
+            if rep.proc is not None:
+                spawned.append(rep.proc.pid)
+
+    def ask_fleet(f):
+        return lambda i: f.predict([instances[i % len(instances)]],
+                                   timeout_s=600.0)["predictions"][0]
+
+    # (a) process replicas of phase 4's artifact behind the router.
+    ReplicaManager._spawn_process = tracked
+    agents: list = []
+    try:
+        t0 = time.perf_counter()
+        with fleet.start_fleet("smoke-fleet", 2, autoscale=heal, autoscale_interval_s=0.1,
+                               **FLEET_OPTIONS) as f:
+            spawn_s = (time.perf_counter() - t0) / 2
+            modules = {_worker_module(r.pid) for r in f.manager.ready()}
+            if modules != {"hops_tpu_torch.modelrepo.serving_host"}:
+                raise AssertionError(f"phase 17 (a): the workers run {modules}")
+            timed = _concurrently(_timed(ask_fleet(f)), list(range(len(instances))))
+            got_a = [a for a, _ in timed]
+            notes_a = _streams_ok(model, torch, prompts, got_a, answers, dev, "phase 17 (a)")
+            windows: list = []
+            with _Clients(ask_fleet(f), 2) as clients:
+                time.sleep(1.0)
+                victim = f.manager.ready()[0]
+                killer = threading.Timer(2.0, lambda: f.manager.kill(victim.rid))
+                killer.start()
+                t0 = time.perf_counter()
+                summary = f.roll_out(v2, canary_requests=2, canary_window_s=120.0)
+                windows.append((t0, time.perf_counter()))
+                killer.join()
+                _wait(lambda: len(f.manager.ready()) >= 2, FLEET_HEAL_S,
+                      "the autoscaler did not heal the fleet to 2 replicas")
+                healed = [r.version for r in f.manager.ready()]
+            idx, got, want = _client_answers(clients, instances, answers)
+            notes_r = _streams_ok(model, torch, [prompts[i] for i in idx], got, want, dev,
+                                  "phase 17 (a) rollout")
+        left = [p for p in spawned if _alive(p)]
+        print(f"phase 17 (a) fleet of 2 process replicas (python -m "
+              f"hops_tpu_torch.modelrepo.serving_host --fleet-worker, {FLEET_SLOTS} slots, "
+              f"{MODEL['num_layers']} layers bf16) up in {spawn_s:.1f} s a replica; phase 4's "
+              f"8 requests through the router: client latency {_pcts([t for _, t in timed])} "
+              f"(phase 11's direct endpoint: {_pcts(http_s)}); streams equal phase 4's: leading "
+              f"tokens {same_lead(got_a, answers)}; {notes_a}. Rollout to v{v2} (the same "
+              f"weights) under 2 clients with replica {victim.rid} SIGKILLed 2 s in: "
+              f"{summary['outcome']} in {summary['duration_s']:.1f} s, blip "
+              f"{_blip_ms(clients.done, windows):.0f} ms; {len(clients.answers)} answers, "
+              f"{len(clients.errors)} errors ({'; '.join(clients.errors[:3])}); streams: "
+              f"{notes_r}; healed to versions {healed}; {len(spawned)} workers spawned, "
+              f"{len(left)} alive after stop; card {card_line}", flush=True)
+        if summary["outcome"] != "completed" or clients.errors or left:
+            raise AssertionError(f"phase 17 (a): rollout {summary['outcome']}, client errors "
+                                 f"{clients.errors[:3]}, workers left alive {left}")
+
+        # (b) the same fleet placed by two host agents.
+        placed: list[int] = []
+        for i in range(2):
+            agent = placement.Hostd(f"h{i}", unit_root=work / f"h{i}", spawn_timeout_s=300.0)
+            spawn_unit = agent._spawn_process
+
+            def tracked_unit(unit, cfg, spawn_unit=spawn_unit):
+                try:
+                    spawn_unit(unit, cfg)
+                finally:
+                    if unit.proc is not None:
+                        placed.append(unit.proc.pid)
+
+            agent._spawn_process = tracked_unit
+            agents.append(agent)
+        client = placement.PlacementClient(
+            placement.HostRegistry(hosts=[a.host() for a in agents]), breaker_failures=2,
+            rpc_timeout_s=5.0, spawn_timeout_s=300.0)
+        seq0 = flight.FLIGHT.seq
+        t0 = time.perf_counter()
+        with fleet.start_fleet("smoke-fleet", 2, placement=client, autoscale=heal,
+                               autoscale_interval_s=0.1, **FLEET_OPTIONS) as f:
+            placed_s = (time.perf_counter() - t0) / 2
+            hosts = sorted(r.unit.host.name for r in f.manager.ready())
+            modules = {_worker_module(p) for p in placed if _alive(p)}
+            if hosts != ["h0", "h1"] or modules != {"hops_tpu_torch.modelrepo.serving_host"}:
+                raise AssertionError(f"phase 17 (b): replicas on {hosts} run {modules}")
+            n = FLEET_PLACED_REQUESTS
+            got_b = _concurrently(ask_fleet(f), list(range(n)))
+            notes_b = _streams_ok(model, torch, prompts[:n], got_b, got_a[:n], dev,
+                                  "phase 17 (b)")
+            victim = f.manager.ready()[0].unit.host.name
+            survivor = next(h for h in hosts if h != victim)
+            with _Clients(lambda i: ask_fleet(f)(i % n), 2) as clients:
+                time.sleep(1.0)
+                t_kill = time.perf_counter()
+                faultinject.arm(f"placement.rpc=error:OSError@key={victim}")
+                next(a for a in agents if a.name == victim).chaos_kill()
+                _wait(lambda: len(f.manager.ready()) >= 2 and all(
+                    r.unit is not None and r.unit.host.name == survivor
+                    for r in f.manager.ready()), FLEET_HEAL_S,
+                    f"the fleet was not re-placed on {survivor}")
+                replaced_s = time.perf_counter() - t_kill
+                time.sleep(1.0)
+            faultinject.disarm()
+            idx, got, want = _client_answers(clients, instances[:n], got_a[:n])
+            notes_k = _streams_ok(model, torch, [prompts[i] for i in idx], got, want, dev,
+                                  "phase 17 (b) host killed")
+        violations = invariants.audit(after_seq=seq0)
+        for a in agents:
+            with contextlib.suppress(Exception):  # the killed agent answers nothing
+                a.stop()
+        left = [p for p in placed if _alive(p)]
+        print(f"phase 17 (b) placed fleet on hosts {hosts} (two Hostd agents, process units): "
+              f"{placed_s:.1f} s a replica; {n} requests equal (a)'s streams: {notes_b}; host "
+              f"{victim} killed under 2 clients: re-placed on {survivor} in {replaced_s:.1f} s, "
+              f"{len(clients.answers)} answers, {len(clients.errors)} errors "
+              f"({'; '.join(clients.errors[:3])}), streams: {notes_k}; slot invariant "
+              f"{'held' if not violations else violations[:3]}; {len(placed)} units spawned, "
+              f"{len(left)} alive after stop; card {card_line}", flush=True)
+        if clients.errors or violations or left:
+            raise AssertionError(f"phase 17 (b): client errors {clients.errors[:3]}, "
+                                 f"violations {violations[:3]}, units left alive {left}")
+    finally:
+        ReplicaManager._spawn_process = spawn_process
+        faultinject.disarm()
+        for a in agents:
+            with contextlib.suppress(Exception):
+                a.stop()
+    del model
+    torch.cuda.empty_cache()
+    launches = loop_closed(A, torch, np, work, dev, seed, card_line)
+    missing = [k for k in TRAIN_KERNELS + ("decode_attention",) if not launches.get(k)]
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 17 took {phase_s:.1f} s (budget {PHASE17_BUDGET_S:.0f} s); launches in this "
+          f"process (the loop's trainer and in-process fleet) {launches}", flush=True)
+    if missing:
+        raise AssertionError(f"phase 17: {missing} never launched")
+    if phase_s > PHASE17_BUDGET_S:
+        raise AssertionError(f"phase 17 took {phase_s:.1f} s, over {PHASE17_BUDGET_S:.0f} s")
+    return launches
+
+
+def loop_rows(np, seed: int, n: int):
+    """``n`` rows of ``TRAIN_SEQ + 1`` tokens that count up by a stride
+    of 1 to 3 from a seeded start: learnable, so the held-out loss falls
+    from gate to gate."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, LOOP_LM["vocab_size"], (n, 1))
+    stride = rng.integers(1, 4, (n, 1))
+    return ((start + stride * np.arange(TRAIN_SEQ + 1)) % LOOP_LM["vocab_size"]).astype(np.int32)
+
+
+def loop_closed(A, torch, np, work, dev, seed: int, card_line: str) -> dict[str, int]:
+    """Phase 17 (c): the closed loop on the card; returns the launch
+    counts of its trainer and in-process fleet."""
+    from hops_tpu_torch.featurestore.loader import StreamingSource
+    from hops_tpu_torch.messaging import pubsub
+    from hops_tpu_torch.models.common import create_train_state
+    from hops_tpu_torch.models.convert import params_to_flax, random_params
+    from hops_tpu_torch.models.transformer import TransformerLM, make_lm_train_step
+    from hops_tpu_torch.modelrepo import fleet, registry, serving
+    from hops_tpu_torch.modelrepo.fleet.autoscale import AutoscalePolicy
+    from hops_tpu_torch.modelrepo.fleet.replicas import ReplicaManager
+    from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, load_lm_artifact
+    from hops_tpu_torch.ops.xent import chunked_softmax_xent
+    from hops_tpu_torch.pipeline import continuous as C
+    from hops_tpu_torch.runtime import faultinject
+    from hops_tpu_torch.runtime.preemption import PreemptionGuard
+    from hops_tpu_torch.runtime.resilience import RetryPolicy
+    from hops_tpu_torch.telemetry.metrics import REGISTRY
+
+    t_loop = time.perf_counter()
+    params = random_params(**LOOP_LM, seed=seed + 17)
+    model = TransformerLM(**LOOP_LM, device=dev).load_flax(params)
+    state = create_train_state(model, seed=seed, learning_rate=LEARNING_RATE)
+    step = make_lm_train_step(loss_chunk=LOSS_CHUNK)
+    v1 = registry.save_lm(LOOP_SERVE, params, "smoke-loop", metrics={"step": 0})
+    serving.create_or_update("smoke-loop", model_name="smoke-loop", model_version=v1["version"],
+                             model_server="LM", lm_config={"slots": FLEET_SLOTS})
+    heldout = torch.from_numpy(loop_rows(np, seed + 1017, TRAIN_BATCH)).to(dev).long()
+    requests = [{"prompt": r[:LOOP_PROMPT].tolist(), "max_new_tokens": LOOP_NEW_TOKENS,
+                 "temperature": 0.0} for r in loop_rows(np, seed + 2017, 4)]
+    topic = "smoke-loop-rows"
+    pubsub.create_topic(topic)
+    rows = loop_rows(np, seed + 17, LOOP_ROWS)
+
+    def produce():
+        prod = pubsub.Producer(topic)
+        t0 = time.perf_counter()
+        for i, row in enumerate(rows):
+            lag = t0 + (i + 1) / LOOP_PUBLISH_RPS - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            prod.send({"tokens": row.tolist()})
+
+    step_s: list[float] = []
+
+    def train_step(s, batch):
+        t0 = time.perf_counter()
+        s, metrics = step(s, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return s, metrics
+
+    src = StreamingSource(topic, group="smoke-loop", from_beginning=True, name="smoke-loop")
+    gate_params, freshness = [], []
+
+    def eval_fn(s):
+        freshness.append(src.watermark_lag_s())
+        # The check's own copy of the judged weights, on the card.
+        gate_params.append({k: v.detach().clone() for k, v in s.model.state_dict().items()})
+        if len(gate_params) == 2:
+            return float("inf")  # the poisoned candidate: it must never be exported
+        inputs, targets = heldout[:, :-1], heldout[:, 1:]
+        with torch.no_grad():
+            hidden = s.model(inputs, return_hidden=True)
+            return float(chunked_softmax_xent(hidden, s.model.unembed.kernel, targets,
+                                              chunk=LOSS_CHUNK))
+
+    exports: dict[int, tuple[int, float]] = {}
+
+    def export_fn(s, at, metric):
+        t0 = time.perf_counter()
+        meta = registry.save_lm(LOOP_SERVE, params_to_flax(s.model), "smoke-loop",
+                                metrics={"heldout_loss": metric, "step": at})
+        exports[at] = (meta["version"], time.perf_counter() - t0)
+        return meta
+
+    versions: dict[str, int] = {}
+    spawn = ReplicaManager.spawn
+
+    def tracked(self, *a, **kw):
+        rep = spawn(self, *a, **kw)
+        versions[rep.rid] = rep.version
+        return rep
+
+    snap = REGISTRY.get("hops_tpu_continuous_snapshot_seconds").labels()
+    evals = REGISTRY.get("hops_tpu_continuous_eval_gate_seconds").labels()
+    snap0, evals0 = (snap.sum, snap.count), (evals.sum, evals.count)
+    windows: list = []
+    rollouts: list = []
+    ReplicaManager.spawn = tracked
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    try:
+        with fleet.start_fleet("smoke-loop", 2, inprocess=True,
+                               autoscale=AutoscalePolicy(**FLEET_HEAL),
+                               autoscale_interval_s=0.1, **FLEET_OPTIONS) as f:
+
+            class _Timed:
+                """The fleet, with each rollout's window recorded and a
+                ready replica killed 0.05 s into the first one."""
+
+                def roll_out(self, version, **kw):
+                    if not windows:
+                        victim = f.manager.ready()[0]
+                        threading.Timer(0.05, lambda: f.manager.kill(victim.rid)).start()
+                    t0 = time.perf_counter()
+                    try:
+                        out = f.roll_out(version, canary_requests=2, canary_window_s=60.0, **kw)
+                        rollouts.append(out)
+                        return out
+                    finally:
+                        windows.append((t0, time.perf_counter()))
+
+            ask = lambda i: f.predict([requests[i % len(requests)]],  # noqa: E731
+                                      timeout_s=300.0)["predictions"][0]
+            producer = threading.Thread(target=produce, daemon=True)
+            faultinject.arm(f"pubsub.poll=error:OSError@times=1,after={LOOP_SPAN * 2}")
+            with _Clients(ask, LOOP_CLIENTS) as clients:
+                producer.start()
+                stream = C.SpanStream(src, work / "loop_ck", collate=lambda vals: {
+                    "tokens": torch.from_numpy(np.asarray([v["tokens"] for v in vals], np.int32))},
+                    min_records=LOOP_SPAN, max_records=LOOP_SPAN, eval_every=LOOP_EVAL_EVERY,
+                    stop_on_idle=True, idle_grace_s=2.0)
+                t_train = time.perf_counter()
+                res = C.run_continuous(
+                    train_step, state, stream, directory=str(work / "loop_ck"),
+                    eval_fn=eval_fn, mode="min", save_every=LOOP_SAVE_EVERY, max_recoveries=3,
+                    recovery_policy=RetryPolicy(base_delay_s=0.01, seed=0),
+                    publisher=C.RegistryFleetPublisher("smoke-loop", export_fn, fleet=_Timed()),
+                    guard=PreemptionGuard(install=False))
+                train_wall = time.perf_counter() - t_train
+                faultinject.disarm()
+                _wait(lambda: len(f.manager.ready()) >= 2, FLEET_HEAL_S,
+                      "the loop's fleet did not heal to 2 replicas")
+            producer.join(timeout=60)
+            final = _concurrently(ask, list(range(len(requests))))
+            forwards = REGISTRY.counter("hops_tpu_fleet_forwards_total",
+                                        labels=("model", "replica"))
+            served = {versions[rid] for rid in versions
+                      if forwards.value(model="smoke-loop", replica=rid) > 0}
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in A.launch_counts().items() if n}
+    finally:
+        ReplicaManager.spawn = spawn
+        faultinject.disarm()
+    snap_n = snap.count - snap0[1]
+    snap_s = (snap.sum - snap0[0]) / max(snap_n, 1)
+    eval_s = (evals.sum - evals0[0]) / max(evals.count - evals0[1], 1)
+    passed = [g for g in res.gates if g["outcome"] == "pass"]
+    failed = [g for g in res.gates if g["outcome"] == "fail"]
+    completed = [c for c in res.cutovers if c["outcome"] == "completed"]
+    allowed = {v1["version"]} | {c["version"] for c in res.cutovers}
+    # The trap of a torch loop: each export holds the weights its gate judged, bit for bit.
+    judged = {g["step"]: p for g, p in zip(res.gates, gate_params)}
+    unequal = []
+    for c in res.cutovers:
+        path = registry.get_model("smoke-loop", c["version"])["path"]
+        m = load_lm_artifact(path, dev, dtype="float32")
+        exported = m.state_dict()
+        unequal += [f"step {c['step']} {k}" for k, v in judged[c["step"]].items()
+                    if not torch.equal(exported[k], v)]
+        del m, exported
+    last = registry.get_model("smoke-loop", res.cutovers[-1]["version"])["path"]
+    direct = LMEnginePredictor(last, {"slots": FLEET_SLOTS})
+    try:
+        want = direct.predict(requests)
+    finally:
+        direct.stop()
+    ref = load_lm_artifact(last, dev)
+    notes = _streams_ok(ref, torch, [r["prompt"] for r in requests], final, want, dev,
+                        "phase 17 (c) after the last cutover")
+    del ref, direct, judged, gate_params
+    torch.cuda.empty_cache()
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / statistics.median(step_s)
+    led = res.ledger
+    print(f"phase 17 (c) closed loop: {LOOP_ROWS} rows of {TRAIN_SEQ + 1} tokens published at "
+          f"{LOOP_PUBLISH_RPS:.0f} rows/s, trained {led['records']} in {res.steps} steps "
+          f"({LOOP_LM['num_layers']} layers, d_model {LOOP_LM['d_model']}, fp32 masters, bf16) "
+          f"in {train_wall:.1f} s: step {statistics.median(step_s) * 1e3:.3f} ms median "
+          f"({tok_s:.0f} tokens/s); ledger entries {led['entries']}, contiguous "
+          f"{led['contiguous']}, disjoint {led['disjoint']}; recoveries {res.recoveries}; "
+          f"gates {[(g['step'], g['outcome'], round(g['metric'], 4)) for g in res.gates]}, "
+          f"eval {eval_s * 1e3:.1f} ms a gate, gate latency with the wait for the previous "
+          f"cutover {[round(g['latency_s'] * 1e3, 1) for g in res.gates]} ms; snapshot on the "
+          f"training thread {snap_s * 1e3:.1f} ms a passed gate ({snap_n}); cutovers "
+          f"{[(c['step'], c['version'], c['outcome']) for c in res.cutovers]}, exports "
+          f"{[round(s, 2) for _, s in exports.values()]} s, rollouts "
+          f"{[round(r['duration_s'], 2) for r in rollouts]} s, blip "
+          f"{_blip_ms(clients.done, windows):.0f} ms; freshness lag median "
+          f"{statistics.median(freshness):.2f} s, max {max(freshness):.2f} s; clients "
+          f"{len(clients.answers)} answers, {len(clients.errors)} errors; served versions "
+          f"{sorted(served)} of allowed {sorted(allowed)}; exported weights equal the judged "
+          f"ones: {not unequal}; streams after the last cutover against a direct engine: "
+          f"{notes} ({time.perf_counter() - t_loop:.1f} s); card {card_line}", flush=True)
+    problems = []
+    if clients.errors:
+        problems.append(f"client errors {clients.errors[:3]}")
+    if not (led["records"] == LOOP_ROWS and led["contiguous"] and led["disjoint"]):
+        problems.append(f"ledger {led}")
+    if res.recoveries < 1:
+        problems.append("no recovery")
+    if len(failed) != 1 or not completed:
+        problems.append(f"{len(failed)} failed gates, {len(completed)} completed cutovers")
+    if not served <= allowed:
+        problems.append(f"served versions {sorted(served)} outside {sorted(allowed)}")
+    if unequal or len(passed) != len(res.cutovers):
+        problems.append(f"exports unlike their gates: {unequal[:3]}")
+    if problems:
+        raise AssertionError("phase 17 (c): " + "; ".join(problems))
+    return launches
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -5432,7 +5957,7 @@ def main() -> int:
         print("phase 11 serving:", flush=True)
         http_launches = serving_phase(A, torch, art, params, prompts, instances, answers,
                                       kept["prefix"], kept["prefix_want"], dev, args.seed,
-                                      card_line)
+                                      card_line, kept)
         print("phase 11 ok", flush=True)
         torch.cuda.empty_cache()
         print("phase 12 distribute:", flush=True)
@@ -5456,6 +5981,11 @@ def main() -> int:
         print("phase 16 feature store:", flush=True)
         feature_phase(A, torch, np, dev, args.seed, card_line)
         print("phase 16 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 17 fleet, placement and the closed loop:", flush=True)
+        fleet_launches = fleet_phase(A, torch, np, art, prompts, instances, answers,
+                                     kept["http_s"], dev, args.seed, card_line)
+        print("phase 17 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -5486,6 +6016,9 @@ def main() -> int:
         for r in (k1, *bwd_rows):
             r["launches_by_path"]["search"] = search_launches[r["name"]]
             r["launches"] += search_launches[r["name"]]
+        for r in (k1, *bwd_rows, k4):
+            r["launches_by_path"]["fleet"] = fleet_launches.get(r["name"], 0)
+            r["launches"] += fleet_launches.get(r["name"], 0)
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
     finally:
         if predictor is not None:

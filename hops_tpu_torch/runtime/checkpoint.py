@@ -51,6 +51,7 @@ import uuid
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -179,10 +180,13 @@ def _host_copy(tree: Any) -> Any:
     """A copy of ``tree`` whose tensors live in host memory and share
     nothing with the originals. Device tensors are copied synchronously:
     the values are those of the moment of the call, whatever the stream
-    does next."""
+    does next. A numpy array is stored as a tensor (the loader takes
+    tensors only) and comes back as an array through :func:`_place`."""
     if isinstance(tree, torch.Tensor):
         t = tree.detach()
         return t.to("cpu", copy=True) if t.device.type != "cpu" else t.clone()
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.array(tree, copy=True))
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -205,9 +209,11 @@ def _snapshot(state: Any) -> tuple[str, Any]:
 
 def _place(loaded: Any, template: Any) -> Any:
     """``loaded`` with each tensor moved to its template tensor's device
-    and dtype."""
+    and dtype, or made an array where the template holds one."""
     if isinstance(template, torch.Tensor) and isinstance(loaded, torch.Tensor):
         return loaded.to(template.device, template.dtype)
+    if isinstance(template, np.ndarray) and isinstance(loaded, torch.Tensor):
+        return loaded.numpy().astype(template.dtype, copy=False)
     if isinstance(template, dict) and isinstance(loaded, dict):
         return {k: _place(v, template.get(k)) for k, v in loaded.items()}
     if isinstance(template, (list, tuple)) and isinstance(loaded, (list, tuple)):

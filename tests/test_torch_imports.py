@@ -6,6 +6,7 @@ from __future__ import annotations
 import ast
 import json
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -63,6 +64,14 @@ def test_every_module_imports_with_jax_blocked():
             "columnar", "feature_group", "training_dataset", "builders", "connectors",
             "bias", "connection", "online_serving")
     } | {"hops_tpu_torch.sql", "hops_tpu_torch.sql.gateway"} <= set(mods)
+    assert {
+        f"hops_tpu_torch.{m}" for m in (
+            "modelrepo.fleet", "modelrepo.fleet.autoscale", "modelrepo.fleet.replicas",
+            "modelrepo.fleet.router", "modelrepo.fleet.rollout", "pipeline",
+            "pipeline.continuous", "jobs.placement", "jobs.placement.registry",
+            "jobs.placement.lease", "jobs.placement.invariants", "jobs.placement.client",
+            "jobs.placement.shardd", "jobs.placement.hostd")
+    } <= set(mods)
     code = (
         "import sys, importlib, json\n"
         f"for name in {BLOCKED!r}:\n"
@@ -97,6 +106,52 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     # safetensors: checkpoints are torch.save files, needing nothing the
     # card's machine lacks.
     assert not _imported_roots(REPO / path) & (set(BLOCKED) | {"safetensors"})
+
+
+def _jax_module_literals(tree: ast.AST) -> list[tuple[int, str]]:
+    """String literals that name a module of the JAX package, and
+    ``python -m`` arguments that name anything but the port's modules:
+    what a child process would run. The import sweep above cannot see a
+    module named in a string (a worker argv, ``importlib``)."""
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and re.fullmatch(r"hops_tpu(\.\w+)*", node.value):
+            bad.append((node.lineno, node.value))
+        if isinstance(node, (ast.List, ast.Tuple)):
+            elts = node.elts
+            for flag, arg in zip(elts, elts[1:]):
+                if isinstance(flag, ast.Constant) and flag.value == "-m" \
+                        and isinstance(arg, ast.Constant) and isinstance(arg.value, str) \
+                        and arg.value.startswith("hops_tpu") \
+                        and not arg.value.startswith("hops_tpu_torch."):
+                    bad.append((arg.lineno, arg.value))
+    return bad
+
+
+def test_argv_guard_sees_a_jax_worker_module():
+    """The guard below fails on the literal a copied worker argv keeps
+    (``"-m", "hops_tpu.modelrepo.serving_host"``) and passes the port's."""
+    jax_argv = '[sys.executable, "-m", "hops_tpu.modelrepo.serving_host", "--fleet-worker", d]'
+    mod = 'mod = ("hops_tpu.modelrepo.serving_host" if k else "hops_tpu.jobs.placement.shardd")'
+    port = '[sys.executable, "-m", "hops_tpu_torch.modelrepo.serving_host", "--fleet-worker", d]'
+    assert [v for _, v in _jax_module_literals(ast.parse(jax_argv))] == \
+        ["hops_tpu.modelrepo.serving_host", "hops_tpu.modelrepo.serving_host"]
+    assert len(_jax_module_literals(ast.parse(mod))) == 2
+    assert _jax_module_literals(ast.parse(port)) == []
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_source_names_a_jax_module_for_a_child_process(path):
+    """No port file (nor ``chip_smoke.py``) names a JAX-package module
+    in a string: a process spawned with it would run the JAX package
+    (``modelrepo/fleet/replicas.py``'s and ``jobs/placement/hostd.py``'s
+    worker argv are the cases this closes)."""
+    src = REPO / path
+    assert _jax_module_literals(ast.parse(src.read_text(), str(src))) == []
 
 
 def _no_card():
