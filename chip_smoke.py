@@ -5103,6 +5103,7 @@ def feature_phase(A, torch, np, dev, seed: int, card_line: str) -> None:
         for rec in test_df.to_dict(orient="records"):
             producer.send({**rec, "event_time": t_mark})
         producer.flush()
+        producer.close()
         produce_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         daemon = Materializer(store, topic, event_time="event_time").start()

@@ -1,6 +1,10 @@
 """Durable pubsub topics — the Kafka-surface equivalent
 (a copy of ``hops_tpu/messaging/pubsub.py``: the module imports no JAX, and
-the port imports nothing of the JAX package).
+the port imports nothing of the JAX package). One difference: a
+``Producer`` opens its topic log once, at its first send, and keeps it
+until :meth:`Producer.close`, where the JAX package opens the log for
+every record; the bytes written and when they reach the file are the
+same.
 
 The reference used per-project SSL Kafka for inference logging and
 streaming ingest, with broker discovery and an Avro schema registry
@@ -98,6 +102,7 @@ class Producer:
         if not topic_exists(topic):
             create_topic(topic)
         self._path = _topic_dir(topic) / "log.jsonl"
+        self._f = None  # the open log, from the first send to close()
 
     def send(self, value: Any, key: str | None = None) -> None:
         from hops_tpu_torch.runtime import faultinject
@@ -108,11 +113,23 @@ class Producer:
         # record (consumers must survive an unparsable line).
         line = faultinject.fire_data("pubsub.publish", line)
         with _lock:
-            with self._path.open("ab") as f:
-                f.write(line)
+            # One open per producer, not per record: on a slow
+            # filesystem the open costs several times the write. The
+            # flush pushes the line to the file before send returns,
+            # as the close after each record did.
+            if self._f is None:
+                self._f = self._path.open("ab")
+            self._f.write(line)
+            self._f.flush()
 
     def flush(self) -> None:
         pass  # every send is durable
+
+    def close(self) -> None:
+        with _lock:
+            if self._f is not None:
+                self._f.close()
+                self._f = None
 
 
 class Consumer:

@@ -299,7 +299,7 @@ class TrialDriver:
             "num_trials": len(results),
             "early_stopped": sum(r.stopped_early for r in results),
             # direction + per-trial params travel with the summary so
-            # downstream tooling (hops_tpu.plotting.plot_trials /
+            # downstream tooling (hops_tpu_torch.plotting.plot_trials /
             # collect) can orient the best-so-far envelope and plot
             # metric-vs-param without re-reading trial dirs.
             "direction": self.direction,

@@ -291,6 +291,20 @@ def test_create_runner_topic_conflict_raises():
     return str(e.value)
 
 
+@in_both
+def test_producer_each_send_reaches_the_log():
+    """Each record is in the topic log when ``send`` returns, and two
+    producers on one topic append whole lines in the order sent."""
+    pubsub.create_topic("interleave")
+    a, b = pubsub.Producer("interleave"), pubsub.Producer("interleave")
+    consumer = pubsub.Consumer("interleave", group="g", from_beginning=True)
+    seen = []
+    for i in range(6):
+        (a if i % 2 else b).send({"i": i, "text": "é" * i}, key=f"k{i}")
+        seen.append([(r["key"], r["value"]) for r in consumer.poll()])
+    return seen
+
+
 # -- the on-disk layout: one package registers, the other reads ----------------
 
 
@@ -498,3 +512,20 @@ def test_the_job_child_imports_neither_torch_nor_the_port(tmp_path, request):
     assert done.state == "FINISHED", done.stdout()
     assert done.stdout().splitlines() == [
         "[]", str([str(t_fs.workspace_root()), "testproj", "bare"]), ex.execution_id]
+
+
+def test_port_producer_keeps_one_log_open_until_close(shared):
+    """The port's producer opens its topic log at the first send and
+    keeps it; ``close`` releases it, and a later send opens it again."""
+    prod = t_pubsub.Producer("held")
+    prod.send({"i": 0})
+    log = prod._f
+    prod.send({"i": 1})
+    assert prod._f is log and not log.closed
+    prod.close()
+    assert log.closed and prod._f is None
+    prod.close()  # a second close is a no-op
+    prod.send({"i": 2})
+    prod.close()
+    recs = t_pubsub.Consumer("held", group="g", from_beginning=True).poll()
+    assert [r["value"]["i"] for r in recs] == [0, 1, 2]
