@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the repository root; it needs one CUDA device and ``nvcc``. The
-phases run in order, each prints its result on its own line, and any
-failure exits non-zero:
+Run from the repository root; it needs one CUDA device and ``nvcc``.
+Where the interpreter writes no bytecode, the script keeps a cache of it
+under ``_smoke/pycache`` for itself and every process it starts
+(``bytecode_cache``). The phases run in order, each prints its result on
+its own line, and any failure exits non-zero:
 
 1. card     — the card's name and power limit (``nvidia-smi``);
 2. build    — all seven kernels compiled from ``hops_tpu_torch/ops/csrc``
@@ -42,7 +44,9 @@ failure exits non-zero:
    rounding bounds, fp32 inputs within ``1e-4 * max(1, max|plain|)`` per
    output, and exact zeros in dq for rows that see no key and in dk/dv
    for keys that no query sees (outputs are allocated over freed
-   NaN-filled memory first);
+   NaN-filled memory first); then K1, K2 and K3 at head_dim 8, 16 and
+   32 (``kernel_checks.narrow_head_checks``: zero-padded to 64 at the
+   entry points), bf16 and fp32, within the same bounds, one launch each;
 3c. caches  — the int8 and paged decode kernels (K5 dense int8, K6 paged
    bf16/fp32 pools, K7 paged int8 pools) against their plain versions:
    d 64/128, MHA and GQA (8 q heads on 2 kv heads), 1 and 256 query
@@ -79,9 +83,12 @@ failure exits non-zero:
    255, full causal; s = 129 against capacity 2048) within the
    tensor-core rounding bound with ``mag`` from the dequantized |v|,
    and K5 at the int8 engine's admission prefill as phase 5 times it (q
-   (4, 8, 2048, d), valid_len 2048, causal: 16 row tiles per head). The cases
-   and operands come from ``hops_tpu_torch/ops/kernel_checks.py``, which
-   the card tests share;
+   (4, 8, 2048, d), valid_len 2048, causal: 16 row tiles per head). Last,
+   K4-K7 at head_dim 8, 16 and 32 on their split and wide bodies
+   (zero-padded to 64), each once on caches at the narrow dim and once
+   on caches allocated at 64 with zero pad columns, which must give the
+   same bits. The cases and operands come from
+   ``hops_tpu_torch/ops/kernel_checks.py``, which the card tests share;
 4. slice    — a seeded full-width TransformerLM (vocab 32000, d_model
    1024, 8 heads of 128, 12 layers, bf16, max_decode_len 2048) written
    as an artifact, served by ``LMEnginePredictor`` with 4 slots: 8 greedy
@@ -363,7 +370,9 @@ failure exits non-zero:
    ``FLEET_OPTIONS``; the autoscaler heals below 2 replicas): (a) phase
    4's artifact behind ``fleet.start_fleet`` with 2 process replicas
    (``python -m hops_tpu_torch.modelrepo.serving_host --fleet-worker``,
-   read from ``/proc/<pid>/cmdline``): phase 4's 8 requests concurrently
+   read from ``/proc/<pid>/cmdline``; process workers start side by side,
+   later ones warm from the manager's or agent's spare, counted in the
+   output): phase 4's 8 requests concurrently
    through the router (streams equal phase 4's under the near-tie rule,
    client p50/p99 beside phase 11's direct endpoint), then a rollout to
    v2 (the same weights) under 2 clients with a ready replica SIGKILLed
@@ -416,6 +425,22 @@ failure exits non-zero:
    parquet sink, stopped and restarted from its checkpoint: each record
    exactly once; (e) ``plotting.plot_metrics`` renders the train job's
    logged losses into its run directory.
+19. examples — the example suite (``examples_torch/``, the notebook
+   twins) on the card, within ``PHASE19_BUDGET_S``, holding the relay
+   lock at a path under its own workspace: every example's ``main`` in
+   this process (the feature-store tour also as a job with
+   ``--td-version 2``, ``pi`` as a staged job), each held to the
+   assertions of ``tests/test_docs_and_examples.py``; what the machine
+   lacks (``importlib.util.find_spec``: matplotlib for
+   ``plotting_tour``, sklearn for ``golden_parity``, ``torch_mnist`` and
+   ``iris_sklearn``) is named on a line of its own and those examples
+   left out. ``decode_bench`` runs at its own defaults on K1, K4 and K5
+   in four modes (bf16, ``--kv-dtype int8``, ``--continuous --horizon
+   8``, ``--valid-sweep`` at ``d_model`` 1024 and capacity 16384): its
+   ms per token step, the sweep's times against ``valid_len`` and its
+   roofline tables, each on a line beside the card's name and power
+   limit. K1-K5 must each launch in the phase; the counts go under
+   ``launches_by_path``, ``examples``.
 
 The rounding bound of a bf16 tensor-core body (K1's, K4's and K5's wide
 o, K2's dq, K3's dk and dv, K6's and K7's chunk o) is per element ``2**-8 * (mag + |plain|) + slack``: each operand
@@ -449,7 +474,7 @@ phase 14's rank-0 launches: tensor-parallel serving and training
 search trials (``search``), and those of K1-K4 phase 17's trainer and
 in-process fleet (``fleet``; process replicas count in their own
 processes), and those of K1-K4 phase 18's train job child and serve task
-(``jobs``). The
+(``jobs``), and every record phase 19's (``examples``). The
 second-to-last line is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX or of the
 JAX package is imported.
@@ -1032,6 +1057,44 @@ def check_dense_wide_body(A, torch, gen, dev, d: int, worst) -> list[str]:
           f"err/rounding bound {ratio_max:.3f}; NaN/+-1e30 past valid_len change no bit",
           flush=True)
     return bad
+
+
+def check_narrow_heads(A, torch, gen, dev, part: str, worst) -> None:
+    """Phases 3b (``part`` "flash": K1, K2, K3) and 3c (``part``
+    "cache": K4-K7) at the head dims below the kernels' 64 that the
+    examples use (``kernel_checks.NARROW_HEAD_DIMS``, zero-padded at the
+    entry points), bf16 and fp32 queries: each call one launch of its own
+    kernel, within its body's bound (``kernel_checks.held``), and the
+    cache kernels on caches padded once at allocation bit-identical to
+    caches padded per call. Folds the errors into ``worst``; raises on a
+    miss."""
+    from hops_tpu_torch.ops.kernel_checks import NARROW_HEAD_DIMS, held, narrow_head_checks
+
+    bad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).rsplit(".", 1)[-1]
+        for d in NARROW_HEAD_DIMS:
+            errs, ratio_max, n = {}, 0.0, 0
+            for case, counter, launched, out, ref, mag, slack in narrow_head_checks(
+                    d, dtype, gen, dev, part):
+                torch.cuda.synchronize()
+                err, ratio, ok = held(out, ref, mag, slack)
+                n += 1
+                if slack:  # not a bit-identity check
+                    errs[counter] = max(errs.get(counter, 0.0), err)
+                    ratio_max = max(ratio_max, ratio)
+                    if counter in worst:
+                        worst[counter][dname] = max(worst[counter][dname], err)
+                if not (ok and launched and out.shape == ref.shape):
+                    bad.append(f"{dname} {case}: err {err:.3e}, err/bound {ratio:.3f}, "
+                               f"launched {launched}")
+            print(f"  {dname} d{d} ({part}, zero-padded to {A.kernel_head_dim(d)}): {n} checks; "
+                  "worst err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                  + f"; worst err/bound {ratio_max:.3f}; padded caches bit-identical",
+                  flush=True)
+    if bad:
+        raise AssertionError("kernel at a narrow head dim disagrees with its plain version: "
+                             + "; ".join(bad))
 
 
 def unseen(torch, sq, sk, causal, window, q_offset, dev):
@@ -5380,7 +5443,7 @@ def fleet_phase(A, torch, np, art, prompts, instances, answers, http_s, dev, see
         t0 = time.perf_counter()
         with fleet.start_fleet("smoke-fleet", 2, autoscale=heal, autoscale_interval_s=0.1,
                                **FLEET_OPTIONS) as f:
-            spawn_s = (time.perf_counter() - t0) / 2
+            spawn_s = time.perf_counter() - t0
             modules = {_worker_module(r.pid) for r in f.manager.ready()}
             if modules != {"hops_tpu_torch.modelrepo.serving_host"}:
                 raise AssertionError(f"phase 17 (a): the workers run {modules}")
@@ -5400,13 +5463,14 @@ def fleet_phase(A, torch, np, art, prompts, instances, answers, http_s, dev, see
                 _wait(lambda: len(f.manager.ready()) >= 2, FLEET_HEAL_S,
                       "the autoscaler did not heal the fleet to 2 replicas")
                 healed = [r.version for r in f.manager.ready()]
+            starts_a = (f.manager.starter.warm, f.manager.starter.cold)
             idx, got, want = _client_answers(clients, instances, answers)
             notes_r = _streams_ok(model, torch, [prompts[i] for i in idx], got, want, dev,
                                   "phase 17 (a) rollout")
         left = [p for p in spawned if _alive(p)]
         print(f"phase 17 (a) fleet of 2 process replicas (python -m "
               f"hops_tpu_torch.modelrepo.serving_host --fleet-worker, {FLEET_SLOTS} slots, "
-              f"{MODEL['num_layers']} layers bf16) up in {spawn_s:.1f} s a replica; phase 4's "
+              f"{MODEL['num_layers']} layers bf16) up in {spawn_s:.1f} s, side by side; phase 4's "
               f"8 requests through the router: client latency {_pcts([t for _, t in timed])} "
               f"(phase 11's direct endpoint: {_pcts(http_s)}); streams equal phase 4's: leading "
               f"tokens {same_lead(got_a, answers)}; {notes_a}. Rollout to v{v2} (the same "
@@ -5415,7 +5479,8 @@ def fleet_phase(A, torch, np, art, prompts, instances, answers, http_s, dev, see
               f"{_blip_ms(clients.done, windows):.0f} ms; {len(clients.answers)} answers, "
               f"{len(clients.errors)} errors ({'; '.join(clients.errors[:3])}); streams: "
               f"{notes_r}; healed to versions {healed}; {len(spawned)} workers spawned, "
-              f"{len(left)} alive after stop; card {card_line}", flush=True)
+              f"{len(left)} alive after stop; worker starts warm from a spare {starts_a[0]}, cold "
+              f"{starts_a[1]}; card {card_line}", flush=True)
         if summary["outcome"] != "completed" or clients.errors or left:
             raise AssertionError(f"phase 17 (a): rollout {summary['outcome']}, client errors "
                                  f"{clients.errors[:3]}, workers left alive {left}")
@@ -5442,7 +5507,7 @@ def fleet_phase(A, torch, np, art, prompts, instances, answers, http_s, dev, see
         t0 = time.perf_counter()
         with fleet.start_fleet("smoke-fleet", 2, placement=client, autoscale=heal,
                                autoscale_interval_s=0.1, **FLEET_OPTIONS) as f:
-            placed_s = (time.perf_counter() - t0) / 2
+            placed_s = time.perf_counter() - t0
             hosts = sorted(r.unit.host.name for r in f.manager.ready())
             modules = {_worker_module(p) for p in placed if _alive(p)}
             if hosts != ["h0", "h1"] or modules != {"hops_tpu_torch.modelrepo.serving_host"}:
@@ -5469,17 +5534,19 @@ def fleet_phase(A, torch, np, art, prompts, instances, answers, http_s, dev, see
             notes_k = _streams_ok(model, torch, [prompts[i] for i in idx], got, want, dev,
                                   "phase 17 (b) host killed")
         violations = invariants.audit(after_seq=seq0)
+        starts_b = [sum(a.starter.warm for a in agents), sum(a.starter.cold for a in agents)]
         for a in agents:
             with contextlib.suppress(Exception):  # the killed agent answers nothing
                 a.stop()
         left = [p for p in placed if _alive(p)]
         print(f"phase 17 (b) placed fleet on hosts {hosts} (two Hostd agents, process units): "
-              f"{placed_s:.1f} s a replica; {n} requests equal (a)'s streams: {notes_b}; host "
+              f"up in {placed_s:.1f} s, side by side; {n} requests equal (a)'s streams: {notes_b}; host "
               f"{victim} killed under 2 clients: re-placed on {survivor} in {replaced_s:.1f} s, "
               f"{len(clients.answers)} answers, {len(clients.errors)} errors "
               f"({'; '.join(clients.errors[:3])}), streams: {notes_k}; slot invariant "
               f"{'held' if not violations else violations[:3]}; {len(placed)} units spawned, "
-              f"{len(left)} alive after stop; card {card_line}", flush=True)
+              f"{len(left)} alive after stop; unit starts warm from a spare {starts_b[0]}, cold "
+              f"{starts_b[1]}; card {card_line}", flush=True)
         if clients.errors or violations or left:
             raise AssertionError(f"phase 17 (b): client errors {clients.errors[:3]}, "
                                  f"violations {violations[:3]}, units left alive {left}")
@@ -5527,7 +5594,7 @@ def loop_closed(A, torch, np, work, dev, seed: int, card_line: str) -> dict[str,
     from hops_tpu_torch.modelrepo.serving import LMEnginePredictor, load_lm_artifact
     from hops_tpu_torch.ops.xent import chunked_softmax_xent
     from hops_tpu_torch.pipeline import continuous as C
-    from hops_tpu_torch.runtime import faultinject
+    from hops_tpu_torch.runtime import checkpoint, faultinject
     from hops_tpu_torch.runtime.preemption import PreemptionGuard
     from hops_tpu_torch.runtime.resilience import RetryPolicy
     from hops_tpu_torch.telemetry.metrics import REGISTRY
@@ -5600,6 +5667,8 @@ def loop_closed(A, torch, np, work, dev, seed: int, card_line: str) -> dict[str,
     snap = REGISTRY.get("hops_tpu_continuous_snapshot_seconds").labels()
     evals = REGISTRY.get("hops_tpu_continuous_eval_gate_seconds").labels()
     snap0, evals0 = (snap.sum, snap.count), (evals.sum, evals.count)
+    ck = {m: getattr(checkpoint, f"_m_{m}").labels() for m in ("snapshot", "write", "restore")}
+    ck0 = {m: (h.sum, h.count) for m, h in ck.items()}
     windows: list = []
     rollouts: list = []
     ReplicaManager.spawn = tracked
@@ -5658,6 +5727,8 @@ def loop_closed(A, torch, np, work, dev, seed: int, card_line: str) -> dict[str,
     finally:
         ReplicaManager.spawn = spawn
         faultinject.disarm()
+    ck_n = {m: h.count - ck0[m][1] for m, h in ck.items()}
+    ck_s = {m: h.sum - ck0[m][0] for m, h in ck.items()}
     snap_n = snap.count - snap0[1]
     snap_s = (snap.sum - snap0[0]) / max(snap_n, 1)
     eval_s = (evals.sum - evals0[0]) / max(evals.count - evals0[1], 1)
@@ -5697,7 +5768,10 @@ def loop_closed(A, torch, np, work, dev, seed: int, card_line: str) -> dict[str,
           f"gates {[(g['step'], g['outcome'], round(g['metric'], 4)) for g in res.gates]}, "
           f"eval {eval_s * 1e3:.1f} ms a gate, gate latency with the wait for the previous "
           f"cutover {[round(g['latency_s'] * 1e3, 1) for g in res.gates]} ms; snapshot on the "
-          f"training thread {snap_s * 1e3:.1f} ms a passed gate ({snap_n}); cutovers "
+          f"training thread {snap_s * 1e3:.1f} ms a passed gate ({snap_n}); checkpoints: "
+          f"{ck_n['write']} writes {ck_s['write']:.2f} s (their copies to host on the training "
+          f"thread {ck_s['snapshot']:.2f} s), {ck_n['restore']} restores {ck_s['restore']:.2f} s; "
+          f"cutovers "
           f"{[(c['step'], c['version'], c['outcome']) for c in res.cutovers]}, exports "
           f"{[round(s, 2) for _, s in exports.values()]} s, rollouts "
           f"{[round(r['duration_s'], 2) for r in rollouts]} s, blip "
@@ -6108,6 +6182,282 @@ def jobs_phase(A, torch, np, art, prompts, instances, dev, seed: int, card_line:
     return launches
 
 
+PHASE19_BUDGET_S = 150.0
+# Phase 19: the kernels every run of the example suite must launch.
+EXAMPLE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+                   "decode_attention_q8")
+# decode_bench's modes in phase 19 (its own defaults otherwise).
+DECODE_MODES = {"bf16": [], "int8": ["--kv-dtype", "int8"],
+                "continuous": ["--continuous", "--horizon", "8"], "valid-sweep": ["--valid-sweep"]}
+# Examples that need a package the card's machine may lack.
+EXAMPLE_NEEDS = {"plotting_tour": "matplotlib", "golden_parity": "sklearn",
+                 "torch_mnist": "sklearn", "iris_sklearn": "sklearn"}
+
+
+def _example_checks(torch, np, dev, work: Path, lacking: set[str]):
+    """Phase 19's in-process examples other than ``decode_bench``, in
+    order: ``(name, run)``, where ``run()`` drives the example on ``dev``
+    and raises unless its outcome meets its test's assertions; returns a
+    summary. (``pi`` runs as a job only: :func:`_start_example_jobs`.)"""
+    import importlib
+
+    import pandas as pd
+
+    from hops_tpu_torch.runtime import config
+
+    def ex(name):
+        return importlib.import_module(f"examples_torch.{name}")
+
+    def check(ok, name, got):
+        if not ok:
+            raise AssertionError(f"phase 19 {name}: {got}")
+
+    def featurestore_tour():
+        r = ex("featurestore_tour").main([], device=dev)
+        check(r["feature_groups"] == 5 and r["td_splits"]["train"] > 0, "featurestore_tour", r)
+        return f"{r['td_splits']}"
+
+    def lm_serving():
+        m = ex("lm_serving")
+        r = m.main(device=dev)
+        cyc = m.CYCLE
+        check(r["accuracy"] > 0.9
+              and r["continuation"][:8] == [cyc[(4 + i) % len(cyc)] for i in range(8)]
+              and r["ragged"]["short"][:4] == [cyc[(2 + i) % 8] for i in range(4)]
+              and r["ragged"]["long"][:4] == [cyc[(6 + i) % 8] for i in range(4)],
+              "lm_serving", r)
+        return f"accuracy {r['accuracy']:.3f}, continuation {r['continuation'][:8]}"
+
+    def continuous_batching():
+        r = ex("continuous_batching").main(device=dev)
+        check(r["parity"] == r["requests"] == 6 and r["dispatches"] < r["naive_dispatches"]
+              and r["spec_parity"] == 6 and r["spec_dispatches"] <= r["dispatches"]
+              and r["paged_parity"] == 6, "continuous_batching", r)
+        return (f"parity {r['parity']}/6, dispatches {r['dispatches']} (naive "
+                f"{r['naive_dispatches']}), speculative {r['spec_parity']}/6, paged "
+                f"{r['paged_parity']}/6")
+
+    def preemptible_training():
+        r = ex("preemptible_training").main(num_steps=8, preempt_at=3, device=dev)
+        got = (r["first"]["steps_completed"], r["second"]["steps_completed"],
+               r["second"]["optimizer_steps"])
+        check(got == (3, 8, 8), "preemptible_training", r)
+        return f"steps {got}"
+
+    def continuous_training():
+        r = ex("continuous_training").main(records=24, span_records=4, eval_every=2, device=dev)
+        # The example points the runtime at a workspace of its own: back to the phase's.
+        config.configure(workspace=str(work / "workspace"), project="chip_smoke_examples")
+        outcomes = [o for _, o in r["gates"]]
+        check(r["records_trained"] == 24 and r["ledger"]["contiguous"]
+              and r["ledger"]["disjoint"] and r["held_back"] == 1
+              and r["published_versions"] == outcomes.count("pass"), "continuous_training", r)
+        return f"{r['records_trained']} records, gates {r['gates']}"
+
+    def batch_inference():
+        r = ex("batch_inference").main(n_images=70, per_chip_batch=4, device=dev)
+        df = pd.read_parquet(r["path"])
+        check(r["rows"] == 70 and set(df.columns) == {"image_id", "prediction", "probability"}
+              and df["prediction"].between(0, 9).all()
+              and df["probability"].between(0.0, 1.0).all()
+              and r["lm_generated"] == [6, 4, 8], "batch_inference", r)
+        return f"{r['rows']} rows, LM tokens {r['lm_generated']}"
+
+    def long_context_lm():
+        r = ex("long_context_lm").main(seq_len=256, steps=2, device=dev)
+        check(np.isfinite(r["loss"]) and r["mesh"] == {"data": 1, "seq": 1},
+              "long_context_lm", r)
+        return f"loss {r['loss']:.4f} on {r['mesh']}"
+
+    def golden_parity():
+        m = ex("golden_parity")
+        r = m.main(device=dev)
+        check(r["ffn"] >= m.GOLDEN_FFN and r["cnn"] >= m.GOLDEN_CNN, "golden_parity", r)
+        return f"FFN {r['ffn']:.4f} (>= {m.GOLDEN_FFN}), CNN {r['cnn']:.4f} (>= {m.GOLDEN_CNN})"
+
+    def torch_mnist():
+        r = ex("torch_mnist").main(generations=1, population=4, device=dev)
+        check(r["launch"]["accuracy"] > 0.85 and r["de"]["best_metric"] > 0.85
+              and 1e-4 <= r["de"]["best_config"]["lr"] <= 1e-2, "torch_mnist", r)
+        return f"launch {r['launch']['accuracy']:.3f}, DE best {r['de']['best_metric']:.3f}"
+
+    def lagom_search():
+        r = ex("lagom_search").main(device=dev)
+        check(r["best_metric"] > 0.5
+              and r["best_config"].keys() == {"kernel", "pool", "dropout"}, "lagom_search", r)
+        return f"best {r['best_metric']:.4f} at {r['best_config']}"
+
+    def taxi_pipeline():
+        r = ex("taxi_pipeline").main(device=dev)
+        check(r["metrics"]["accuracy"] > 0.5 and r["best"]["version"] == 1, "taxi_pipeline", r)
+        return f"accuracy {r['metrics']['accuracy']:.3f}"
+
+    def iris_sklearn():
+        r = ex("iris_sklearn").main(device=dev)
+        check(r["accuracy"] > 0.9 and len(r["predictions"]) == 3, "iris_sklearn", r)
+        return f"accuracy {r['accuracy']:.3f}, predictions {r['predictions']}"
+
+    def plotting_tour():
+        r = ex("plotting_tour").main(device=dev)
+        check(len(r["figures"]) == 3
+              and all(Path(f).read_bytes()[:4] == PNG_MAGIC for f in r["figures"]),
+              "plotting_tour", r)
+        return f"{len(r['figures'])} PNGs"
+
+    def mnist_pipeline():
+        r = ex("mnist_pipeline").main(device=dev)
+        check(len(r["predictions"]) == 2 and r["logged"] >= 1, "mnist_pipeline", r)
+        return f"accuracy {r['metrics']['accuracy']:.3f}, {r['logged']} logged"
+
+    def distributed_training():
+        r = ex("distributed_training").main(device=dev)
+        check(all(np.isfinite(r[k]["loss"]) for k in ("mirrored", "collective")),
+              "distributed_training", r)
+        return f"mirrored {r['mirrored']['metric']:.3f}, collective {r['collective']['metric']:.3f}"
+
+    def feature_serving():
+        r = ex("feature_serving").main([], device=dev)
+        check(r["online_matches_offline"] and len(r["predictions"]) == 3, "feature_serving", r)
+        return f"{r['entities']} entities online"
+
+    order = (featurestore_tour, lm_serving, continuous_batching, preemptible_training,
+             batch_inference, long_context_lm, golden_parity, torch_mnist, lagom_search,
+             taxi_pipeline, iris_sklearn, plotting_tour, mnist_pipeline, distributed_training,
+             feature_serving, continuous_training)
+    return [(fn.__name__, fn) for fn in order if EXAMPLE_NEEDS.get(fn.__name__) not in lacking]
+
+
+def _start_example_jobs(work: Path, dev) -> list[tuple[str, str, str, str]]:
+    """Phase 19's job children, started first so their interpreters come
+    up while the in-process examples run: the feature-store tour with
+    ``--td-version 2`` and ``pi`` from a staged workspace. Returns
+    ``(example, job, execution id, the line its output must hold)``."""
+    from hops_tpu_torch import jobs
+    from hops_tpu_torch.jobs import api, dataset
+
+    ws = work / "pi_ws"
+    ws.mkdir(parents=True, exist_ok=True)
+    for name in ("pi.py", "pi_util.py"):
+        (ws / name).write_text((ROOT / "examples_torch" / name).read_text())
+    staged = dataset.upload_workspace(ws, "Resources", name="pi_program.zip")
+    rundir = dataset.extract(staged, work / "pi_run")
+    started = []
+    for example, job, app, args, expect in (
+            ("featurestore_tour", "fs_tour", ROOT / "examples_torch/featurestore_tour.py",
+             ["--td-version", "2"], "tour complete"),
+            ("pi", "pi_job", Path(rundir) / "pi.py", ["200000"], "pi is roughly 3.1")):
+        jobs.create_job(job, api.JobConfig(app_file=str(app),
+                                           default_args=[*args, "--device", str(dev)]))
+        started.append((example, job, jobs.start_job(job).execution_id, expect))
+    return started
+
+
+def examples_phase(A, torch, np, dev, card_line: str) -> dict[str, int]:
+    """Phase 19; returns the launch counts of its path."""
+    import importlib.util
+    import os
+
+    from hops_tpu_torch.runtime import config, relaylock
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_smoke" / "examples"
+    work.mkdir(parents=True, exist_ok=True)
+    config.configure(workspace=str(work / "workspace"), project="chip_smoke_examples")
+    lacking = {pkg for pkg in set(EXAMPLE_NEEDS.values()) if importlib.util.find_spec(pkg) is None}
+    print("phase 19 left out: " + (", ".join(
+        f"{name} (needs {pkg}, not installed on this machine)"
+        for name, pkg in EXAMPLE_NEEDS.items() if pkg in lacking) or "nothing"), flush=True)
+    lock = work / "relay.lock"
+    prior_lock = os.environ.get(relaylock.ENV_LOCK_PATH)
+    os.environ[relaylock.ENV_LOCK_PATH] = str(lock)
+    A.reset_launch_counts()
+    try:
+        from hops_tpu_torch import jobs
+
+        pending = _start_example_jobs(work, dev)
+        for name, run in _example_checks(torch, np, dev, work, lacking):
+            t0, before = time.perf_counter(), A.launch_counts()
+            summary = run()
+            torch.cuda.synchronize()
+            delta = {k: n - before[k] for k, n in A.launch_counts().items() if n > before[k]}
+            print(f"phase 19 {name}: {summary}; {time.perf_counter() - t0:.1f} s; launches "
+                  f"{delta}", flush=True)
+        for name, job, execution_id, expect in pending:
+            done = jobs.wait_for_completion(job, execution_id, timeout_s=PHASE19_BUDGET_S)
+            if not (done.state == "FINISHED" and expect in done.stdout()):
+                raise AssertionError(f"phase 19 {name} as a job: {done.state}\n"
+                                     f"{done.stdout()[-2000:]}")
+            print(f"phase 19 {name} as a job: {done.state}, {done.stdout().strip().splitlines()[-1]!r}; "
+                  f"{done.finished_at - done.submitted_at:.1f} s submit to exit (a child on "
+                  f"{dev}); card {card_line}", flush=True)
+        # decode_bench last: no job child shares the card while it times.
+        from examples_torch import decode_bench
+
+        for mode, argv in DECODE_MODES.items():
+            t0, before = time.perf_counter(), A.launch_counts()
+            r = decode_bench.main(argv, device=dev)
+            delta = {k: n - before[k] for k, n in A.launch_counts().items() if n > before[k]}
+            took = f"{time.perf_counter() - t0:.1f} s; launches {delta}; card {card_line}"
+            if mode == "valid-sweep":
+                for row in r["rows"]:
+                    print(f"phase 19 decode_bench valid-sweep capacity {r['capacity']} head_dim "
+                          f"{r['head_dim']} valid_len {row['valid_len']}: "
+                          f"{row['us_per_step']:.1f} us/step, {row['gb']:.4f} GB read "
+                          f"({row['gb'] / row['us_per_step'] * 1e6:.1f} GB/s); card "
+                          f"{card_line}", flush=True)
+                c = r["control"]
+                print(f"phase 19 decode_bench valid-sweep control valid_len {c['valid_len']}: "
+                      f"capacity {r['capacity']} {c['us_big_cap']:.1f} us/step, capacity "
+                      f"{r['capacity'] // 4} {c['us_small_cap']:.1f} us/step (ratio "
+                      f"{c['ratio']:.2f}); {took}", flush=True)
+            elif mode == "continuous":
+                ok = [len(s) for s in r["streams"]] == [b for _, b in r["requests"]]
+                if not ok:
+                    raise AssertionError(f"phase 19 decode_bench continuous: stream lengths "
+                                         f"{[len(s) for s in r['streams']]}")
+                print(f"phase 19 decode_bench continuous --horizon 8: engine "
+                      f"{r['engine_tokens_per_s']:.1f} tokens/s ({r['dispatches']} dispatches, "
+                      f"{r['admission_waves']} admission waves), static "
+                      f"{r['static_tokens_per_s']:.1f} tokens/s; {took}", flush=True)
+            else:
+                c = r["config"]
+                print(f"phase 19 decode_bench {mode}: {r['ms_per_token_step']:.3f} ms per token "
+                      f"step, {r['tokens_per_s']:.1f} tokens/s (batch {c['batch']}, prompt "
+                      f"{c['prompt']}, {c['tokens']} tokens, d_model {c['d_model']}, "
+                      f"{c['num_heads']} heads of {c['d_model'] // c['num_heads']}, "
+                      f"{c['num_layers']} layers, vocab {c['vocab_size']}, capacity "
+                      f"{c['max_decode_len']}, cache {c['kv_cache_dtype'] or c['dtype']}); "
+                      f"{took}", flush=True)
+                rep = r["roofline"]
+                for c in rep["categories"]:
+                    rate = ("-" if c["peak_share"] is None
+                            else f"{c['peak_share']:.1%} of its roof ({c['bound']})")
+                    print(f"phase 19 decode_bench {mode} roofline {c['name']}: {c['count']:.1f} "
+                          f"launches, {c['ms']:.4f} ms per token step ({c['share']:.1%}), "
+                          f"{rate}; card {card_line}", flush=True)
+                print(f"phase 19 decode_bench {mode} roofline total {rep['total_ms']:.4f} ms per "
+                      f"token step against a best case of {rep['roofline_ms']:.4f} ms for the "
+                      f"counted categories; card {card_line}", flush=True)
+        launches = A.launch_counts()
+    finally:
+        if prior_lock is None:
+            os.environ.pop(relaylock.ENV_LOCK_PATH, None)
+        else:
+            os.environ[relaylock.ENV_LOCK_PATH] = prior_lock
+    if lock.exists():
+        raise AssertionError(f"phase 19: the relay lock {lock} outlived its holder")
+    missing = [k for k in EXAMPLE_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 19: the examples never launched {missing}: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 19 took {phase_s:.1f} s (budget {PHASE19_BUDGET_S:.0f} s); launches of the "
+          f"path {({k: n for k, n in sorted(launches.items()) if n})}; card {card_line}",
+          flush=True)
+    if phase_s > PHASE19_BUDGET_S:
+        raise AssertionError(f"phase 19 took {phase_s:.1f} s, over {PHASE19_BUDGET_S:.0f} s")
+    return launches
+
+
 def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     """Phase 5's row for K4's wide calls (K1's forward body over the bf16
     cache) at a dense prefix's suffix append: the first request's suffix
@@ -6180,6 +6530,26 @@ def time_prefix_append(A, torch, gen, dev, launches, worst) -> dict:
     return row
 
 
+def bytecode_cache(os) -> Path | None:
+    """Where the interpreter writes no bytecode (``PYTHONDONTWRITEBYTECODE``)
+    and the installed packages carry none, every Python process compiles
+    torch's ~2,100 modules from source, seconds of each start, and this
+    script starts dozens (launch ranks, fleet replicas, job children).
+    Then it keeps one bytecode cache under ``_smoke/pycache`` for itself
+    and every process it starts (they inherit the environment), removed
+    with ``_smoke``; the installed packages and the checkout are left as
+    they are. Returns the cache's directory, or None where bytecode is
+    written already."""
+    if not (sys.flags.dont_write_bytecode or os.environ.get("PYTHONDONTWRITEBYTECODE")):
+        return None
+    pycache = ROOT / "_smoke" / "pycache"
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(pycache)
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(pycache)
+    return pycache
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6196,9 +6566,12 @@ def main() -> int:
     import os
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    pycache = bytecode_cache(os)
     import torch
 
     if not torch.cuda.is_available():
+        if pycache is not None:
+            shutil.rmtree(ROOT / "_smoke", ignore_errors=True)
         return fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
     if not (ROOT / "hops_tpu_torch" / "ops" / "csrc").is_dir():
         return fail(f"no hops_tpu_torch package beside {Path(__file__).name}")
@@ -6251,6 +6624,7 @@ def main() -> int:
           flush=True)
     with torch.inference_mode():
         worst.update(check_bwd_kernels(A, torch, gen, dev))
+        check_narrow_heads(A, torch, gen, dev, "flash", worst)
     print("phase 3b ok: worst error " + ", ".join(
         f"{k} {worst[k]['bfloat16']:.3e} (bf16) {worst[k]['float32']:.3e} (fp32)"
         for k in ("flash_bwd_dq", "flash_bwd_dkv")
@@ -6259,6 +6633,7 @@ def main() -> int:
           "fp32 plain):", flush=True)
     with torch.inference_mode():
         worst.update(check_cache_kernels(A, torch, gen, dev))
+        check_narrow_heads(A, torch, gen, dev, "cache", worst)
     print("phase 3c ok: worst error " + ", ".join(
         f"{k} {worst[k]['bfloat16']:.3e} (bf16) {worst[k]['float32']:.3e} (fp32)"
         for k in CACHE_KERNELS
@@ -6409,6 +6784,10 @@ def main() -> int:
         job_launches = jobs_phase(A, torch, np, art, prompts, instances, dev, args.seed,
                                   card_line, phase7)
         print("phase 18 ok", flush=True)
+        torch.cuda.empty_cache()
+        print("phase 19 examples:", flush=True)
+        example_launches = examples_phase(A, torch, np, dev, card_line)
+        print("phase 19 ok", flush=True)
         k1, k4 = rows
         k1["launches_by_path"] = {"serving": k1["launches"], "training": train_launches["flash_fwd"],
                                   "launch": launch_launches["flash_fwd"]}
@@ -6445,6 +6824,9 @@ def main() -> int:
             r["launches_by_path"]["jobs"] = job_launches.get(r["name"], 0)
             r["launches"] += job_launches.get(r["name"], 0)
         rows = [k1, *bwd_rows, k4, wide_row, *cache_rows]
+        for r in rows:
+            r["launches_by_path"]["examples"] = example_launches.get(r["name"], 0)
+            r["launches"] += example_launches.get(r["name"], 0)
     finally:
         if predictor is not None:
             predictor.stop()

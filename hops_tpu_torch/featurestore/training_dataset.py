@@ -7,14 +7,19 @@ version).save(query_or_df)``; ``td.read(split)``; ``td.tf_data(...)``
 feeder; ``td.query`` replay; online serving vectors via
 ``td.init_prepared_statement()`` / ``td.get_serving_vector({pk: v})``.
 
-Formats: parquet, csv, tfrecord (via TensorFlow when present), and
-"recordio" — the native engine's format (hops_tpu_torch/native/recordio.cc),
-the default for shuffled feeding.
+Formats: parquet, csv, tfrecord, and "recordio" — the native engine's
+format (hops_tpu_torch/native/recordio.cc), the default for shuffled
+feeding. Unlike the JAX module, which writes and reads tfrecord through
+TensorFlow, the port encodes the TFRecord framing and the
+``tf.train.Example`` protobuf itself (:func:`_write_tfrecord`,
+:func:`_read_tfrecord`): the machine with the card has no TensorFlow.
+The files are TensorFlow's format, so each package reads the other's.
 """
 
 from __future__ import annotations
 
 import json
+import struct
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
@@ -430,45 +435,156 @@ def _read_delta(d, as_of=None) -> pd.DataFrame:
     return storage.read_as_of(d, primary_key=[], as_of=ts, exclude_until=exclude_until)
 
 
-def _write_tfrecord(df: pd.DataFrame, path: str) -> None:
-    try:
-        import tensorflow as tf
-    except ImportError as e:  # pragma: no cover
-        raise RuntimeError("tfrecord format requires tensorflow") from e
+def _crc32c_table() -> list[int]:
+    table = []
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
 
-    with tf.io.TFRecordWriter(path) as w:
+
+_CRC32C = _crc32c_table()
+
+
+def _masked_crc32c(data: bytes) -> int:
+    """TFRecord's checksum: CRC-32C (Castagnoli), rotated right by 15 and
+    offset by ``0xa282ead8``. Pure Python: a byte a table lookup, fine for
+    the records of a training dataset's rows."""
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc = _CRC32C[(crc ^ byte) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(n: int) -> bytes:
+    n &= (1 << 64) - 1  # int64 values as their two's complement, as protobuf does
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _field(number: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field (wire type 2)."""
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _encode_feature(v: Any) -> bytes:
+    """A ``tf.train.Feature``: ``bytes_list`` (1), ``float_list`` (2,
+    packed float32) or ``int64_list`` (3, packed varints), as the JAX
+    module's writer picks them."""
+    if isinstance(v, (int, np.integer, bool)):
+        return _field(3, _field(1, _varint(int(v))))
+    if isinstance(v, (float, np.floating)):
+        return _field(2, _field(1, struct.pack("<f", float(v))))
+    if isinstance(v, (list, np.ndarray)):
+        return _field(2, _field(1, struct.pack(f"<{len(v)}f", *(float(x) for x in v))))
+    return _field(1, _field(1, str(v).encode()))
+
+
+def _write_tfrecord(df: pd.DataFrame, path: str) -> None:
+    """One ``tf.train.Example`` a row, in TFRecord framing: the length
+    (uint64), its masked CRC-32C, the bytes, theirs."""
+    with open(path, "wb") as f:
         for rec in df.to_dict(orient="records"):
-            feats = {}
-            for k, v in rec.items():
-                if isinstance(v, (int, np.integer, bool)):
-                    feats[k] = tf.train.Feature(int64_list=tf.train.Int64List(value=[int(v)]))
-                elif isinstance(v, (float, np.floating)):
-                    feats[k] = tf.train.Feature(float_list=tf.train.FloatList(value=[float(v)]))
-                elif isinstance(v, (list, np.ndarray)):
-                    feats[k] = tf.train.Feature(
-                        float_list=tf.train.FloatList(value=[float(x) for x in v]))
-                else:
-                    feats[k] = tf.train.Feature(
-                        bytes_list=tf.train.BytesList(value=[str(v).encode()]))
-            w.write(tf.train.Example(features=tf.train.Features(feature=feats)).SerializeToString())
+            entries = b"".join(_field(1, _field(1, str(k).encode()) + _field(2, _encode_feature(v)))
+                               for k, v in rec.items())
+            data = _field(1, entries)  # Example.features (Features.feature map entries)
+            length = struct.pack("<Q", len(data))
+            f.write(length + struct.pack("<I", _masked_crc32c(length)) + data
+                    + struct.pack("<I", _masked_crc32c(data)))
+
+
+def _fields(buf: bytes):
+    """``(field number, wire type, value)`` of a protobuf message: an int
+    for varints, bytes for length-delimited and fixed-width fields."""
+    i = 0
+    while i < len(buf):
+        key, i = _read_varint(buf, i)
+        number, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _read_varint(buf, i)
+        elif wire == 2:
+            n, i = _read_varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        elif wire == 5:
+            value, i = buf[i:i + 4], i + 4
+        elif wire == 1:
+            value, i = buf[i:i + 8], i + 8
+        else:
+            raise ValueError(f"unsupported protobuf wire type {wire}")
+        yield number, wire, value
+
+
+def _read_varint(buf: bytes, i: int) -> tuple[int, int]:
+    shift = result = 0
+    while True:
+        b = buf[i]
+        i += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, i
+        shift += 7
+
+
+def _decode_feature(buf: bytes) -> list:
+    """The values of a ``tf.train.Feature`` (packed or not)."""
+    for kind, _, lst in _fields(buf):
+        vals: list = []
+        for _, wire, v in _fields(lst):
+            if kind == 1:
+                vals.append(v.decode())
+            elif kind == 2:
+                vals.extend(struct.unpack(f"<{len(v) // 4}f", v))
+            elif wire == 0:
+                vals.append(v - (1 << 64) if v >= 1 << 63 else v)
+            else:  # packed int64 varints
+                j = 0
+                while j < len(v):
+                    x, j = _read_varint(v, j)
+                    vals.append(x - (1 << 64) if x >= 1 << 63 else x)
+        return vals
+    return []
 
 
 def _read_tfrecord(path, features: list[Feature]) -> pd.DataFrame:
-    import tensorflow as tf
-
+    """The rows of a TFRecord file of ``tf.train.Example``s, each
+    record's checksums verified; columns in the order of ``features``
+    (the JAX reader returns protobuf's map order), others after them."""
     rows = []
-    for raw in tf.data.TFRecordDataset(str(path)):
-        ex = tf.train.Example()
-        ex.ParseFromString(raw.numpy())
+    data = open(path, "rb").read()
+    i = 0
+    while i < len(data):
+        length = data[i:i + 8]
+        (n,) = struct.unpack("<Q", length)
+        (crc,) = struct.unpack("<I", data[i + 8:i + 12])
+        payload = data[i + 12:i + 12 + n]
+        (dcrc,) = struct.unpack("<I", data[i + 12 + n:i + 16 + n])
+        if crc != _masked_crc32c(length) or dcrc != _masked_crc32c(payload):
+            raise ValueError(f"{path}: corrupt TFRecord at byte {i}")
+        i += 16 + n
         row = {}
-        for k, feat in ex.features.feature.items():
-            kind = feat.WhichOneof("kind")
-            vals = list(getattr(feat, kind).value)
-            if kind == "bytes_list":
-                vals = [v.decode() for v in vals]
-            row[k] = vals[0] if len(vals) == 1 else vals
+        for number, _, features_msg in _fields(payload):
+            if number != 1:
+                continue
+            for _, _, entry in _fields(features_msg):
+                key, value = None, b""
+                for num, _, v in _fields(entry):
+                    if num == 1:
+                        key = v.decode()
+                    elif num == 2:
+                        value = v
+                vals = _decode_feature(value)
+                row[key] = vals[0] if len(vals) == 1 else vals
         rows.append(row)
-    return pd.DataFrame(rows)
+    frame = pd.DataFrame(rows)
+    order = [f.name for f in features if f.name in frame.columns]
+    return frame[order + [c for c in frame.columns if c not in order]]
 
 
 def _write_recordio(df: pd.DataFrame, path: str) -> None:

@@ -269,13 +269,18 @@ def stop_job(name: str, execution_id: str | None = None) -> None:
                 proc.wait(timeout=10)
             except subprocess.TimeoutExpired:
                 proc.kill()
+                proc.wait()
         # Only overwrite the record when we actually signaled it — the
         # process may have exited on its own between the listing and the
         # signal, in which case _reap's FINISHED/FAILED verdict stands.
+        # The KILLED record is final, so it carries the exit code itself:
+        # _reap may take the lock after it.
         if killed:
             with _procs_lock:
                 cur = get_execution(name, ex.execution_id)
                 cur.state = "KILLED"
+                if cur.exit_code is None:
+                    cur.exit_code = proc.returncode
                 cur.finished_at = cur.finished_at or time.time()
                 cur.save()
 

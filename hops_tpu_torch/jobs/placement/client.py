@@ -139,6 +139,7 @@ class PlacementClient:
         self._lock = threading.Lock()
         self._breakers: dict[str, CircuitBreaker] = {}  # guarded by: self._lock
         self._placed: dict[str, int] = {}  # per-host unit count, guarded by: self._lock
+        self._placing: dict[str, int] = {}  # per-host spawns in flight, guarded by: self._lock
         self._generations: dict[str, int] = {}  # slot → current gen, guarded by: self._lock
         self._slot_seq = 0  # auto-slot counter, guarded by: self._lock
 
@@ -248,12 +249,11 @@ class PlacementClient:
 
     # -- placement verbs ------------------------------------------------------
 
-    def _candidates(self, prefer: str | None) -> list[Host]:
-        with self._lock:
-            placed = dict(self._placed)
-        hosts = sorted(
-            self.healthy_hosts(),
-            key=lambda h: (placed.get(h.name, 0), h.name))
+    def _order(self, hosts: list[Host], prefer: str | None) -> list[Host]:
+        """``hosts``, least placed first (units placed, and spawns in
+        flight to them), ``prefer`` ahead of all. Call under the lock."""
+        hosts = sorted(hosts, key=lambda h: (
+            self._placed.get(h.name, 0) + self._placing.get(h.name, 0), h.name))
         if prefer is not None:
             hosts.sort(key=lambda h: h.name != prefer)
         return hosts
@@ -275,7 +275,19 @@ class PlacementClient:
         cfg = dict(cfg)
         cfg["slot"], cfg["generation"] = slot, gen
         errors: list[str] = []
-        for host in self._candidates(prefer):
+        healthy = self.healthy_hosts()
+        tried: set[str] = set()
+        while True:
+            # Pick and reserve in one step: spawns side by side each see
+            # the hosts the others are placing on as taken.
+            with self._lock:
+                host = next((h for h in self._order(healthy, prefer)
+                             if h.name not in tried), None)
+                if host is None:
+                    break
+                self._placing[host.name] = self._placing.get(host.name, 0) + 1
+            tried.add(host.name)
+            rec = None
             try:
                 rec = self._rpc(
                     host, "spawn", "POST", "/units/spawn",
@@ -285,6 +297,12 @@ class PlacementClient:
                 errors.append(str(e))
                 log.warning("placement: spawn of %s failed on %s, trying "
                             "next host: %s", kind, host.name, e)
+            finally:
+                with self._lock:
+                    self._placing[host.name] -= 1
+                    if rec is not None:
+                        self._placed[host.name] = self._placed.get(host.name, 0) + 1
+            if rec is None:
                 continue
             unit = PlacedUnit(host=host, uid=rec["uid"], kind=kind,
                               port=int(rec["port"]), pid=rec.get("pid"),
@@ -292,8 +310,6 @@ class PlacementClient:
             flight.record("generation", action="mint", slot=slot,
                           generation=gen, unit_kind=kind, host=host.name,
                           uid=unit.uid)
-            with self._lock:
-                self._placed[host.name] = self._placed.get(host.name, 0) + 1
             _m_units.set(self._placed_count(host.name, kind),
                          host=host.name, kind=kind)
             return unit

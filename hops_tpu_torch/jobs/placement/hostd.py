@@ -72,6 +72,7 @@ from typing import Any
 
 from hops_tpu_torch.jobs.placement.lease import Lease
 from hops_tpu_torch.jobs.placement.registry import Host, HostRegistry
+from hops_tpu_torch.modelrepo.fleet.spare import WorkerStarter
 from hops_tpu_torch.runtime import faultinject, flight
 from hops_tpu_torch.runtime.httpserver import HTTPServer
 from hops_tpu_torch.runtime.logging import get_logger
@@ -134,6 +135,9 @@ class Hostd:
         self._lock = threading.Lock()
         self._units: dict[str, _Unit] = {}  # guarded by: self._lock
         self._counter = 0  # guarded by: self._lock
+        #: Replica units start warm from a spare that has imported torch
+        #: already (:mod:`~hops_tpu_torch.modelrepo.fleet.spare`).
+        self.starter = WorkerStarter()
         self._server = _make_server(self, bind, port)
         self.port = self._server.port
         self.address = bind
@@ -297,12 +301,16 @@ class Hostd:
         argv = [sys.executable, "-m", mod]
         argv += (["--fleet-worker", str(udir)] if unit.kind == "replica"
                  else [str(udir)])
-        with open(udir / "worker.log", "a") as logfile:
-            # SAME process group as the hostd (no start_new_session):
-            # a dead host takes its units with it — the machine-failure
-            # semantics the chaos drill SIGKILLs for.
-            unit.proc = subprocess.Popen(
-                argv, stdout=logfile, stderr=subprocess.STDOUT, env=env)
+        # SAME process group as the hostd (no new session): a dead host
+        # takes its units with it — the machine-failure semantics the
+        # chaos drill SIGKILLs for. Replicas start warm from a spare.
+        if unit.kind == "replica":
+            unit.proc = self.starter.start(argv[3:], env, udir / "worker.log",
+                                            new_session=False)
+        else:
+            with open(udir / "worker.log", "a") as logfile:
+                unit.proc = subprocess.Popen(
+                    argv, stdout=logfile, stderr=subprocess.STDOUT, env=env)
         deadline = time.monotonic() + self.spawn_timeout_s
         state_file = udir / "state.json"
         while time.monotonic() < deadline:
@@ -419,6 +427,7 @@ class Hostd:
         self._hb_stop.set()
         for unit in self.units():
             self.reap(unit.uid)
+        self.starter.close()
         self._server.stop()
         if self._announce_dir is not None:
             HostRegistry.retract(self._announce_dir, self.name)
@@ -436,6 +445,7 @@ class Hostd:
                 unit.server.stop()
                 unit.server = None
             unit.state = "stopped"
+        self.starter.close()
         self._server.stop()
         log.warning("hostd %s: CHAOS-KILLED with %d units", self.name,
                     len(self.units()))

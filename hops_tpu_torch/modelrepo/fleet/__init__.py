@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 from hops_tpu_torch.modelrepo.fleet.autoscale import Autoscaler, AutoscalePolicy
@@ -115,8 +116,19 @@ class ServingFleet:
         self.router = None
         self.autoscaler = None
         try:
-            for _ in range(replicas):
-                self.manager.spawn()
+            if not inprocess:
+                # Process workers, local or placed, come up side by side:
+                # each start is mostly its own interpreter importing
+                # torch and loading weights. (Placement counts a spawn in
+                # flight to a host as a unit on it; in-process replicas
+                # share this interpreter, so they have nothing to overlap.)
+                with ThreadPoolExecutor(replicas) as pool:
+                    spawns = [pool.submit(self.manager.spawn) for _ in range(replicas)]
+                for spawn in spawns:
+                    spawn.result()
+            else:
+                for _ in range(replicas):
+                    self.manager.spawn()
             self.router = Router(
                 self.manager, rate_limits=rate_limits, **router_kwargs)
             if autoscale is not None:

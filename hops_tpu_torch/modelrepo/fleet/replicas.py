@@ -33,13 +33,13 @@ import json
 import os
 import signal
 import subprocess
-import sys
 import threading
 import time
 from pathlib import Path
 from typing import Any
 
 from hops_tpu_torch.modelrepo import serving
+from hops_tpu_torch.modelrepo.fleet.spare import WorkerStarter
 from hops_tpu_torch.runtime import faultinject, flight, fs
 from hops_tpu_torch.runtime.httpclient import HTTPPool
 from hops_tpu_torch.runtime.logging import get_logger
@@ -125,6 +125,9 @@ class ReplicaManager:
         # must look unreachable to the liveness sweep, not just to the
         # router's forwards.
         self._probe_pool = HTTPPool(max_idle_per_host=2, identity="fleet")
+        #: Process workers start warm from a spare that has imported
+        #: torch already (:mod:`~hops_tpu_torch.modelrepo.fleet.spare`).
+        self.starter = WorkerStarter()
         self._publish_states()
 
     # -- bookkeeping ----------------------------------------------------------
@@ -263,13 +266,8 @@ class ReplicaManager:
         env["HOPS_TPU_WORKSPACE"] = str(fs.workspace_root())
         env["HOPS_TPU_PROJECT"] = fs.project_name()
         env["PYTHONPATH"] = _child_pythonpath(env.get("PYTHONPATH"))
-        with open(rdir / "worker.log", "a") as logfile:
-            rep.proc = subprocess.Popen(
-                [sys.executable, "-m", "hops_tpu_torch.modelrepo.serving_host",
-                 "--fleet-worker", str(rdir)],
-                stdout=logfile, stderr=subprocess.STDOUT, env=env,
-                start_new_session=True,
-            )
+        rep.proc = self.starter.start(["--fleet-worker", str(rdir)], env,
+                                       rdir / "worker.log", new_session=True)
         deadline = time.monotonic() + self.spawn_timeout_s
         state_file = rdir / "state.json"
         poll = 0.05
@@ -592,4 +590,5 @@ class ReplicaManager:
             self.reap(rep.rid)
         if self.placement is not None:
             self._reap_superseded()
+        self.starter.close()
         self._probe_pool.close()

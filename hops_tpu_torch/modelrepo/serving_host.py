@@ -13,6 +13,9 @@ here the equivalent is this resident process:
   every serving recorded Running whose server died with its process,
   stay resident hosting them, and (with ``--watch``) re-check liveness
   every N seconds, reviving again as needed.
+- ``serving_host --spare`` — a fleet worker started ahead of its job
+  (:mod:`~hops_tpu_torch.modelrepo.fleet.spare`): it imports torch,
+  then reads the worker's arguments and environment on stdin.
 - ``serving_host --fleet-worker DIR`` — one fleet replica: host the
   serving config at ``DIR/cfg.json`` (in the JAX package,
   ``modelrepo.fleet.replicas.ReplicaManager`` writes it) WITHOUT touching the
@@ -34,6 +37,34 @@ import os
 import signal
 
 
+def _await_job() -> list[str]:
+    """``--spare`` (:mod:`~hops_tpu_torch.modelrepo.fleet.spare`): import
+    torch ahead of the job, then take the job from one JSON line on stdin
+    — its environment, its log file as stdout and stderr, a session of its
+    own if asked — and return its arguments. Exits when stdin closes
+    first."""
+    import sys
+
+    import torch  # noqa: F401 — the import a cold worker pays at its start
+
+    line = sys.stdin.readline()
+    if not line:
+        os._exit(0)
+    job = json.loads(line)
+    os.environ.clear()
+    os.environ.update(job["env"])
+    fd = os.open(job["log"], os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    null = os.open(os.devnull, os.O_RDONLY)
+    os.dup2(null, 0)
+    os.close(null)
+    if job["new_session"]:
+        os.setsid()
+    return job["args"]
+
+
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(
         prog="python -m hops_tpu_torch.modelrepo.serving_host",
@@ -53,7 +84,10 @@ def main(argv: list[str] | None = None) -> None:
         help="host one fleet replica from DIR/cfg.json (registry untouched; "
         "port announced in DIR/state.json)",
     )
+    parser.add_argument("--spare", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.spare:
+        args = parser.parse_args(_await_job())
     if sum(map(bool, (args.name, args.restore, args.fleet_worker))) != 1:
         parser.error("provide a serving name, --restore, or --fleet-worker")
 

@@ -49,6 +49,7 @@ from hops_tpu_torch.models.common import TrainState, cross_entropy_loss, step_se
 from hops_tpu_torch.models.convert import params_from_flax
 from hops_tpu_torch.ops.attention import (
     attention_reference,
+    cache_head_dim,
     decode_attention,
     decode_attention_q8,
     flash_attention,
@@ -151,7 +152,9 @@ class RMSNorm(nn.Module):
 @dataclasses.dataclass
 class KVCache:
     """Dense per-layer KV cache: ``k[i]``/``v[i]`` are
-    ``(batch, kv_heads, max_decode_len, head_dim)``; ``idx`` is the cache
+    ``(batch, kv_heads, max_decode_len, head_dim)`` (on the card a head
+    narrower than the kernels' is stored zero-padded to
+    :func:`~hops_tpu_torch.ops.attention.cache_head_dim`); ``idx`` is the cache
     index — ``(batch,)`` int32 on a ``ragged_decode`` model (every row
     advances on its own), a 0-d int32 otherwise. All layers advance in
     lockstep, so one index serves them all. Decode calls update the
@@ -373,6 +376,7 @@ class Attention(nn.Module):
         k = rotary_embedding(k, pos)
         if isinstance(cache, PagedKVCache):
             return self._project_out(self._paged_attend(q, k, v, cache, layer, pos, offset + s))
+        d = q.shape[-1]
         ck, cv = cache.k[layer], cache.v[layer]
         cap = ck.shape[2]
         start = torch.clamp(offset, 0, cap - s)
@@ -383,7 +387,7 @@ class Attention(nn.Module):
             vq, vs = quantize_kv(v)
             # (b, cap, h, d) and (b, cap, h) views: one index_put_ per
             # tensor writes every row's chunk at its own offset.
-            for dst, val in ((ck, kq), (cv, vq), (cache.k_scale[layer], ks),
+            for dst, val in ((ck[..., :d], kq), (cv[..., :d], vq), (cache.k_scale[layer], ks),
                              (cache.v_scale[layer], vs)):
                 dst.transpose(1, 2)[row_idx[:, None], wpos] = val.transpose(1, 2)
             if fresh:
@@ -391,8 +395,8 @@ class Attention(nn.Module):
             else:
                 kv = [ck, cv, cache.k_scale[layer], cache.v_scale[layer]]
             return self._project_out(decode_attention_q8(q, *kv, offset + s, window=self.window))
-        ck.transpose(1, 2)[row_idx[:, None], wpos] = k.transpose(1, 2).to(ck.dtype)
-        cv.transpose(1, 2)[row_idx[:, None], wpos] = v.transpose(1, 2).to(cv.dtype)
+        ck[..., :d].transpose(1, 2)[row_idx[:, None], wpos] = k.transpose(1, 2).to(ck.dtype)
+        cv[..., :d].transpose(1, 2)[row_idx[:, None], wpos] = v.transpose(1, 2).to(cv.dtype)
         if s > 1 and fresh:
             kk, vv = repeat_kv(q, k.to(ck.dtype), v.to(cv.dtype))
             o = flash_attention(q, kk, vv, causal=True, window=self.window)
@@ -424,8 +428,9 @@ class Attention(nn.Module):
             ks_pool[:, blk, off] = ks.transpose(0, 1)
             vs_pool[:, blk, off] = vs.transpose(0, 1)
             scales = dict(k_scale=ks_pool, v_scale=vs_pool)
-        ck[:, blk, off] = k.transpose(0, 1).to(ck.dtype)
-        cv[:, blk, off] = v.transpose(0, 1).to(cv.dtype)
+        d = q.shape[-1]
+        ck[..., :d][:, blk, off] = k.transpose(0, 1).to(ck.dtype)
+        cv[..., :d][:, blk, off] = v.transpose(0, 1).to(cv.dtype)
         return paged_decode_attention(q, ck, cv, valid_len, cache.pages, window=self.window,
                                       **scales)
 
@@ -693,15 +698,18 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch: int) -> KVCache | PagedKVCache:
         """A cache for ``batch`` rows on the model's device: values 0 and
-        int8 scales 1, as the JAX package initialises them. A paged cache
+        int8 scales 1, as the JAX package initialises them; on the card
+        its head dim is :func:`~hops_tpu_torch.ops.attention.cache_head_dim`
+        (heads narrower than the kernels' padded once, here). A paged cache
         starts with an all-zero page table (every position on the scratch
         block) for its owner to fill."""
         attn = self.block_0.attn
         dev = self.device
+        hd = cache_head_dim(attn.head_dim, dev)
         if self.paged_decode:
-            shape = (attn.kv_heads, self.kv_pool_blocks, self.kv_page_size, attn.head_dim)
+            shape = (attn.kv_heads, self.kv_pool_blocks, self.kv_page_size, hd)
         else:
-            shape = (batch, attn.kv_heads, self.max_decode_len, attn.head_dim)
+            shape = (batch, attn.kv_heads, self.max_decode_len, hd)
         int8 = self.kv_cache_dtype == "int8"
         store = torch.int8 if int8 else self.dtype
 

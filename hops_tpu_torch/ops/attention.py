@@ -32,8 +32,10 @@ tensors and their plain PyTorch versions on CPU tensors:
 On a CUDA tensor the entry point launches its kernel or raises; it never
 falls back. The kernels mask ragged tails themselves, so every sequence
 length, cache capacity and page size runs on them (no block table, no
-reference routing below a length or for a page size). Each launch adds
-one to :data:`LAUNCHES`.
+reference routing below a length or for a page size). Their bodies are
+built for head_dim 64 and 128; a narrower head (8, 16, 32, 96, ...) runs
+on them zero-padded to :func:`kernel_head_dim` (see there). Each launch
+adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -71,6 +73,45 @@ SPLIT_KEYS = 128
 _SPLIT_TILE = 64
 #: At most this many blocks per call (4 waves of the H100's 132 SMs).
 SPLIT_MAX_BLOCKS = 4 * 132
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a call of head dim ``d`` at: the
+    smallest of 64 and 128 that holds ``d`` (``d`` itself above 128,
+    which the kernels refuse). The entry points zero-pad q, k, v (and
+    dO) to it and slice the pad off o, dq, dk and dv: zero columns add
+    nothing to q·kᵀ and leave the real columns of p·v and of the
+    gradients as they are. ``sm_scale`` stays ``1/sqrt(d)``. A cache
+    allocated at this head dim (:func:`cache_head_dim`) is read as it
+    is, so a decode step copies only its query."""
+    return next((kd for kd in _KERNEL_HEAD_DIMS if d <= kd), d)
+
+
+def cache_head_dim(d: int, device) -> int:
+    """The head dim of a KV cache for heads of ``d`` on ``device``: on
+    the card :func:`kernel_head_dim` (the pad columns stay 0, padded
+    once where the cache is allocated), else ``d``."""
+    return kernel_head_dim(d) if torch.device(device).type == "cuda" else d
+
+
+def _pad_head(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``dp`` (``t`` itself when
+    it is ``dp`` wide already)."""
+    if t.shape[-1] == dp:
+        return t
+    return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+
+
+def _cache_view(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` columns of a cache or pool (allocated at
+    :func:`cache_head_dim`): what the plain versions read."""
+    return t if t.shape[-1] == d else t[..., :d]
+
+
+def _check_cache_head_dim(name: str, kd: int, d: int) -> None:
+    if kd not in (d, kernel_head_dim(d)):
+        raise ValueError(f"{name}: cache head_dim {kd} is neither the query's {d} nor "
+                         f"its kernel head dim {kernel_head_dim(d)}")
 
 
 def reset_launch_counts() -> None:
@@ -515,21 +556,25 @@ def _flash_fwd(q, k, v, causal, sm_scale, q_offset, window):
         o = attention_reference(q, k, v, causal, sm_scale, q_offset, window)
         return torch.where(torch.isneginf(lse)[..., None], 0.0, o), lse
     b, h, sq, d = q.shape
+    dp = kernel_head_dim(d)
+    q, k, v = (_pad_head(t, dp) for t in (q, k, v))
     _check_kernel_inputs("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _build.kernel("flash_fwd")
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, sq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(sm_scale),
+        b * h, sq, k.shape[2], dp, int(q.dtype == torch.bfloat16), float(sm_scale),
         int(causal), int(q_offset), int(window or 0), _stream(q.device),
     )
     _build.check("flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return (o if dp == d else o[..., :d].contiguous()), lse
 
 
 def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, sm_scale, q_offset, window):
+    """Launch K2 or K3 into ``outs`` (allocated at q's head dim, or at
+    the kernel head dim when q, k, v and do are padded to it)."""
     b, h, sq, d = q.shape
     _check_kernel_inputs(name, q, k, v, do, *outs)
     for t in (lse, delta):
@@ -567,9 +612,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, sm_scale=None,
         "flash_bwd_dq", q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
     if _device_of("flash_bwd_dq", q) == "cpu":
         return flash_bwd_dq_reference(*ts, causal, sm_scale, q_offset, window)
+    d = q.shape[-1]
+    ts[:4] = [_pad_head(t, kernel_head_dim(d)) for t in ts[:4]]
     dq = torch.empty_like(ts[0])
     _bwd_launch("flash_bwd_dq", *ts, [dq], causal, sm_scale, q_offset, window)
-    return dq
+    return dq if dq.shape[-1] == d else dq[..., :d].contiguous()
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, sm_scale=None,
@@ -581,9 +628,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, sm_scale=None,
         "flash_bwd_dkv", q, k, v, do, lse, delta, causal, sm_scale, q_offset, window)
     if _device_of("flash_bwd_dkv", q) == "cpu":
         return flash_bwd_dkv_reference(*ts, causal, sm_scale, q_offset, window)
+    d = q.shape[-1]
+    ts[:4] = [_pad_head(t, kernel_head_dim(d)) for t in ts[:4]]
     dk, dv = torch.empty_like(ts[1]), torch.empty_like(ts[2])
     _bwd_launch("flash_bwd_dkv", *ts, [dk, dv], causal, sm_scale, q_offset, window)
-    return dk, dv
+    if dk.shape[-1] == d:
+        return dk, dv
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
@@ -641,10 +692,11 @@ def flash_attention(
     key returns 0. With ``return_lse`` also returns the fp32 ``(b, h,
     seq_q)`` logsumexp (not differentiable).
 
-    CUDA tensors run ``csrc/flash_fwd.cu`` (bf16 or fp32, head_dim 64 or
-    128) and, when autograd needs a gradient, ``csrc/flash_bwd_dq.cu``
-    and ``csrc/flash_bwd_dkv.cu`` in backward; CPU tensors run the plain
-    versions of all three.
+    CUDA tensors run ``csrc/flash_fwd.cu`` (bf16 or fp32, head_dim up to
+    128: 64 and 128 as they are, others zero-padded to
+    :func:`kernel_head_dim`) and, when autograd needs a gradient,
+    ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` in backward;
+    CPU tensors run the plain versions of all three.
     """
     if window is not None and not causal:
         raise ValueError("window requires causal=True")
@@ -714,11 +766,13 @@ def decode_attention(
     head, and only up to ``valid_len``.
 
     With ``k_scale``/``v_scale`` (both or neither; fp32 ``(b, hkv,
-    capacity)`` from :func:`quantize_kv`) the caches are int8.
+    capacity)`` from :func:`quantize_kv`) the caches are int8. The
+    caches' head dim is q's ``d`` or :func:`kernel_head_dim` of it (a
+    cache allocated by :func:`cache_head_dim`, its pad columns 0).
 
     CUDA tensors run ``csrc/decode_attention.cu`` (K4) or, int8,
     ``csrc/decode_attention_q8.cu`` (K5) (bf16 or fp32 queries, head_dim
-    64 or 128): a call of at most ``SPLIT_ROWS`` rows (``g * s``, every
+    up to 128, zero-padded to :func:`kernel_head_dim`): a call of at most ``SPLIT_ROWS`` rows (``g * s``, every
     decode step) runs the split-K body, ``decode_splits`` splits of the
     capacity merged by a combine kernel; a wider bf16 call (a prefix
     hit's suffix appended to a warm cache; K5: the int8 engine's
@@ -734,10 +788,11 @@ def decode_attention(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     b, h, s, d = q.shape
-    hkv, cap = k.shape[1], k.shape[2]
+    hkv, cap, kd = k.shape[1], k.shape[2], k.shape[-1]
     if h % hkv:
         raise ValueError(f"{h} query heads not divisible by {hkv} kv heads")
-    if k.shape != (b, hkv, cap, d) or v.shape != k.shape:
+    _check_cache_head_dim("decode_attention", kd, d)
+    if k.shape != (b, hkv, cap, kd) or v.shape != k.shape:
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
@@ -749,16 +804,20 @@ def decode_attention(
         sm_scale = 1.0 / math.sqrt(d)
     vl = _normalize_valid_len(valid_len, b, q.device)
     if _device_of("decode_attention", q) == "cpu":
+        k, v = _cache_view(k, d), _cache_view(v, d)
         if quantized:
             o = decode_attention_q8_reference(q, k, v, k_scale, v_scale, vl, sm_scale, window)
         else:
             o = decode_attention_reference(q, k, v, vl, sm_scale, window)
         return torch.where(_sees_a_key(vl, s, cap, window)[:, None, :, None], o, 0.0)
-    q = q.contiguous()
+    # A cache at q's own narrow head dim is padded here, on every call:
+    # the model allocates its caches padded instead (cache_head_dim).
+    dp = kernel_head_dim(d)
+    q, k, v = (_pad_head(t, dp) for t in (q.contiguous(), k, v))
     o = torch.empty_like(q)
     rows = (h // hkv) * s
-    n_splits, split_keys, work = _split_workspace(rows, cap, b * hkv, d, q.device)
-    common = (None if work is None else work.data_ptr(), b, hkv, rows, s, cap, d,
+    n_splits, split_keys, work = _split_workspace(rows, cap, b * hkv, dp, q.device)
+    common = (None if work is None else work.data_ptr(), b, hkv, rows, s, cap, dp,
               int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0), n_splits,
               split_keys, _stream(q.device))
     if quantized:
@@ -783,7 +842,7 @@ def decode_attention(
     if rows > SPLIT_ROWS and q.dtype == torch.bfloat16:
         name += "_chunk"
     LAUNCHES[name] += 1
-    return o
+    return o if dp == d else o[..., :d].contiguous()
 
 
 def decode_attention_q8(q, k, v, k_scale, v_scale, valid_len, **kwargs) -> torch.Tensor:
@@ -819,7 +878,8 @@ def paged_decode_attention(
     through it and leaves its keys out of the softmax. With
     ``k_scale``/``v_scale`` (both or neither; fp32 ``(hkv, nblocks,
     page)``) the pools are int8 and each scale is read through the same
-    table entry as its values.
+    table entry as its values. The pools' head dim is q's ``d`` or
+    :func:`kernel_head_dim` of it, as for :func:`decode_attention`.
 
     CUDA tensors run ``csrc/paged_decode_attention.cu`` (K6) or, for
     int8 pools, ``csrc/paged_decode_attention_q8.cu`` (K7), for every
@@ -836,8 +896,7 @@ def paged_decode_attention(
         raise ValueError(f"window must be >= 1, got {window}")
     b, h, s, d = q.shape
     hkv, nblocks, page, dk = k.shape
-    if dk != d:
-        raise ValueError(f"pool head_dim {dk} != query head_dim {d}")
+    _check_cache_head_dim("paged_decode_attention", dk, d)
     if h % hkv:
         raise ValueError(f"{h} query heads not divisible by {hkv} kv heads")
     if v.shape != k.shape:
@@ -855,19 +914,21 @@ def paged_decode_attention(
     vl = _normalize_valid_len(valid_len, b, q.device)
     if _device_of("paged_decode_attention", q) == "cpu":
         return paged_decode_attention_reference(
-            q, k, v, vl, pages, sm_scale, window, k_scale=k_scale, v_scale=v_scale,
+            q, _cache_view(k, d), _cache_view(v, d), vl, pages, sm_scale, window,
+            k_scale=k_scale, v_scale=v_scale,
         ).to(q.dtype)
     name = "paged_decode_attention_q8" if quantized else "paged_decode_attention"
-    q = q.contiguous()
+    dp = kernel_head_dim(d)
+    q, k, v = (_pad_head(t, dp) for t in (q.contiguous(), k, v))
     pages = pages.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty_like(q)
     _check_kernel_inputs(name, q, o)
     _check_operands(name, q.device, torch.int8 if quantized else q.dtype, k, v)
     _check_operands(name, q.device, torch.int32, pages)
     rows = (h // hkv) * s
-    n_splits, split_keys, work = _split_workspace(rows, max_blocks * page, b * hkv, d, q.device)
+    n_splits, split_keys, work = _split_workspace(rows, max_blocks * page, b * hkv, dp, q.device)
     tail = (None if work is None else work.data_ptr(), b, hkv, rows, s, page, max_blocks,
-            nblocks, d, int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0),
+            nblocks, dp, int(q.dtype == torch.bfloat16), float(sm_scale), int(window or 0),
             n_splits, split_keys, _stream(q.device))
     if quantized:
         _check_operands(name, q.device, torch.float32, k_scale, v_scale)
@@ -884,4 +945,4 @@ def paged_decode_attention(
     # A wide bf16 call ran the tensor-core chunk body: counted on its own.
     chunk = rows > SPLIT_ROWS and q.dtype == torch.bfloat16
     LAUNCHES[name + "_chunk" if chunk else name] += 1
-    return o
+    return o if dp == d else o[..., :d].contiguous()

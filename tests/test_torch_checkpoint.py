@@ -314,6 +314,32 @@ def test_corrupt_newest_step_is_quarantined_and_restore_falls_back(tmp_path):
     assert out is fresh and start == 0
 
 
+def test_chunk_digests_find_a_flipped_byte_and_whole_file_manifests_still_verify(
+        tmp_path, monkeypatch):
+    monkeypatch.setattr(checkpoint, "_DIGEST_CHUNK", 4096)
+    with checkpoint.CheckpointManager(tmp_path / "c", async_save=False) as m:
+        m.save(0, _state())
+        manifest = json.loads((m.directory / "manifest_0.json").read_text())
+        meta = manifest["files"]["state.pt"]
+        path = m.directory / "0" / "state.pt"
+        assert meta["chunk_bytes"] == 4096
+        assert len(meta["sha256_chunks"]) == -(-path.stat().st_size // 4096) > 2
+        assert m.verify_step(0) is None
+        # A manifest of whole-file digests (the format before chunks).
+        whole = {"step": 0, "files": {
+            rel: {"size": f["size"], "sha256": checkpoint._file_sha256(m.directory / "0" / rel)}
+            for rel, f in manifest["files"].items()}}
+        (m.directory / "manifest_0.json").write_text(json.dumps(whole))
+        assert m.verify_step(0) is None
+        (m.directory / "manifest_0.json").write_text(json.dumps(manifest))
+        data = bytearray(path.read_bytes())
+        data[4096 * 2 + 7] ^= 1  # one bit in the third chunk; the size is unchanged
+        path.write_bytes(bytes(data))
+        assert m.verify_step(0) == "state.pt: checksum mismatch"
+        (m.directory / "manifest_0.json").write_text(json.dumps(whole))
+        assert m.verify_step(0) == "state.pt: checksum mismatch"
+
+
 def test_explicit_corrupt_step_raises_and_renames_nothing(tmp_path):
     with checkpoint.CheckpointManager(tmp_path / "e", async_save=False) as m:
         m.save(0, _state())

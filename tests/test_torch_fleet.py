@@ -2101,3 +2101,74 @@ class TestPackedWireRelay:
         assert summary["dtype"] == "<f4"
         assert "payload" not in front[0]  # tensor body never JSONs
         return summary
+
+
+def test_port_process_fleet_starts_its_replicas_side_by_side(request):
+    """The port's ``start_fleet`` spawns process workers in parallel: the
+    two spawns overlap in time, both workers serve, and both are reaped."""
+    _use_workspace("torch", request)
+    _export_version("flt", "return [[v[0] * 2] for v in instances]")
+    t_serving.create_or_update("flt", model_name="flt", model_version=1,
+                               model_server="PYTHON")
+    spans: list[tuple[float, float]] = []
+    spawn_process = t_ReplicaManager._spawn_process
+
+    def timed(self, rep, cfg):
+        t0 = time.monotonic()
+        try:
+            spawn_process(self, rep, cfg)
+        finally:
+            spans.append((t0, time.monotonic()))
+
+    mp = request.getfixturevalue("monkeypatch")
+    mp.setattr(t_ReplicaManager, "_spawn_process", timed)
+    f = t_fleet.start_fleet("flt", 2, spawn_timeout_s=120.0, scrape_interval_s=0.05)
+    try:
+        reps = f.manager.ready()
+        assert sorted(r.rid for r in reps) == ["r0", "r1"]
+        assert len({r.pid for r in reps}) == 2
+        assert {worker_module(r.pid) for r in reps} == {"hops_tpu_torch.modelrepo.serving_host"}
+        (a0, a1), (b0, b1) = sorted(spans)
+        assert b0 < a1, f"the second spawn began after the first ended: {spans}"
+        assert [f.predict([[v]])["predictions"] for v in (3, 4)] == [[[6]], [[8]]]
+    finally:
+        f.stop()
+    assert all(r.proc.poll() is not None for r in reps)
+
+
+def test_port_workers_start_warm_from_a_spare(request):
+    """After a start the port's manager keeps a spare worker that has
+    imported torch: the next spawn runs in it (the same module, its own
+    log and session, ready and serving), a changed environment starts
+    cold and drops the stale spare, and stop() ends the last spare."""
+    import os
+
+    _use_workspace("torch", request)
+    _export_version("flt", "return [[v[0] * 2] for v in instances]")
+    t_serving.create_or_update("flt", model_name="flt", model_version=1,
+                               model_server="PYTHON")
+    mgr = t_ReplicaManager("flt", spawn_timeout_s=120.0)
+    router = t_router.Router(mgr, scrape_interval_s=0.1)
+    try:
+        first = mgr.spawn()
+        spare = mgr.starter._spare[0]
+        second = mgr.spawn()
+        assert second.proc is spare and (mgr.starter.warm, mgr.starter.cold) == (1, 1)
+        assert worker_module(second.pid) == "hops_tpu_torch.modelrepo.serving_host"
+        assert os.getsid(second.pid) == second.pid != os.getsid(0)
+        announced = (mgr._fleet_dir() / second.rid / "worker.log").read_text().splitlines()
+        assert json.loads(announced[-1])["pid"] == second.pid
+        mgr.reap(first.rid)
+        code, payload, _ = router.route(json.dumps({"instances": [[8]]}).encode())
+        assert code == 200 and json.loads(payload)["predictions"] == [[16]]
+        stale = mgr.starter._spare[0]
+        request.getfixturevalue("monkeypatch").setenv("HOPS_SPARE_TEST", "1")
+        third = mgr.spawn()
+        assert third.proc is not stale and stale.poll() is not None
+        assert (mgr.starter.warm, mgr.starter.cold) == (1, 2)
+        last = mgr.starter._spare[0]
+    finally:
+        router.stop()
+        mgr.stop()
+    assert last.poll() is not None and mgr.starter._spare is None
+    assert all(r.proc.poll() is not None for r in (first, second, third))

@@ -110,12 +110,41 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"]
+    + sorted(p.relative_to(REPO).as_posix() for p in (REPO / "examples_torch").glob("*.py"))
+    + ["make_torch.py"],
 )
 def test_no_source_imports_jax_or_the_jax_package(path):
     # safetensors: checkpoints are torch.save files, needing nothing the
-    # card's machine lacks.
-    assert not _imported_roots(REPO / path) & (set(BLOCKED) | {"safetensors"})
+    # card's machine lacks. examples: the JAX package's example scripts
+    # (the port's examples import examples_torch).
+    assert not _imported_roots(REPO / path) & (set(BLOCKED) | {"safetensors", "examples"})
+
+
+def test_every_example_has_its_port():
+    """``examples_torch/`` holds one file for each of ``examples/``, and
+    each names its counterpart in its docstring."""
+    ours = sorted(p.name for p in (REPO / "examples_torch").glob("*.py"))
+    assert ours == sorted(p.name for p in (REPO / "examples").glob("*.py"))
+    for name in ours:
+        doc = ast.get_docstring(ast.parse((REPO / "examples_torch" / name).read_text()))
+        assert f"examples/{name}" in doc, name
+
+
+def test_make_torch_builds_the_port_site(tmp_path):
+    """The docs generator walks the port and its examples (ast only)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import make_torch
+    finally:
+        sys.path.remove(str(REPO))
+    pages = make_torch.build(tmp_path / "site")
+    assert len(pages) > 40
+    index = (tmp_path / "site/content/_index.md").read_text()
+    assert "hops_tpu_torch.ops.attention" in index
+    assert "examples_torch.decode_bench" in index
+    attn = (tmp_path / "site/content/hops_tpu_torch.ops.attention.md").read_text()
+    assert "flash_attention" in attn
 
 
 def _jax_module_literals(tree: ast.AST) -> list[tuple[int, str]]:

@@ -16,6 +16,7 @@ the training DAG's, and every wait has a timeout.
 from __future__ import annotations
 
 import json
+import threading
 import time
 from pathlib import Path
 
@@ -139,6 +140,49 @@ def test_stop_job_kills_running_execution(tmp_path):
     assert done.state == "KILLED"
     assert time.monotonic() - t0 < 10
     return {"state": done.state, "signalled": done.exit_code < 0}
+
+
+class _ReapAfterStop:
+    """A stand-in for the port's ``_procs_lock`` that keeps the reaper
+    thread out until ``stop_job`` has written its verdict: the ordering
+    in which the KILLED record is written first."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.stopped = threading.Event()
+
+    def __enter__(self):
+        if threading.current_thread().name.startswith("job-reap-"):
+            assert self.stopped.wait(WAIT_S), "stop_job never let the reaper in"
+        self._lock.acquire()
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
+def test_stop_job_record_carries_the_exit_code_before_the_reaper(tmp_path, monkeypatch):
+    """The port alone: when ``stop_job`` takes the lock before the
+    reaper, the final KILLED record it writes already holds the signal's
+    exit code, and the reaper leaves both as they are."""
+    monkeypatch.setattr(t_config, "_current", t_config.runtime())
+    t_config.configure(workspace=str(tmp_path / "ws"), project="testproj")
+    gate = _ReapAfterStop()
+    monkeypatch.setattr(t_api, "_procs_lock", gate)
+    app = _write_app(tmp_path, "import time; time.sleep(60)")
+    t_jobs.create_job("sleeper", t_api.JobConfig(app_file=app))
+    ex = t_jobs.start_job("sleeper")
+    time.sleep(0.3)
+    t_jobs.stop_job("sleeper")
+    first = t_api.get_execution("sleeper", ex.execution_id)
+    assert first.final and first.state == "KILLED"
+    assert first.exit_code is not None and first.exit_code < 0
+    gate.stopped.set()
+    deadline = time.monotonic() + WAIT_S
+    while time.monotonic() < deadline and f"sleeper/{ex.execution_id}" in t_api._procs:
+        time.sleep(0.05)
+    assert f"sleeper/{ex.execution_id}" not in t_api._procs, "the reaper never ran"
+    last = t_api.get_execution("sleeper", ex.execution_id)
+    assert (last.state, last.exit_code) == ("KILLED", first.exit_code)
 
 
 @in_both

@@ -30,7 +30,8 @@ import pytest
 import torch
 
 from hops_tpu_torch.ops import attention as T
-from hops_tpu_torch.ops.kernel_checks import (Q8_SPLIT_CASES, WIDE_CASES, dense_poisoned, q8_call,
+from hops_tpu_torch.ops.kernel_checks import (NARROW_HEAD_DIMS, Q8_SPLIT_CASES, WIDE_CASES,
+                                              dense_poisoned, held, narrow_head_checks, q8_call,
                                               q8_operands, q8_plain, q8_poisoned, shuffled_table,
                                               wide_lengths)
 
@@ -252,9 +253,31 @@ def test_decode_kernel_ignores_garbage_past_valid_len(h, hkv, s):
                                rtol=0, atol=0)
 
 
-def test_unsupported_head_dim_raises_on_the_card():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", NARROW_HEAD_DIMS)
+@pytest.mark.parametrize("part", ["flash", "cache"])
+def test_kernels_at_narrow_head_dims_match_plain(part, d, dtype):
+    """Head dims below the bodies' 64, zero-padded at the entry points:
+    K1 (o and lse) and K2/K3 (``part`` flash), K4-K7 on their split and
+    wide bodies (``part`` cache), each one launch of its own kernel,
+    within the bound of its body (:func:`held`); the cache kernels on a
+    cache padded once at allocation give the same bits as on one padded
+    per call."""
     dev = _card()
-    q = torch.zeros(1, 1, 8, 96, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(31)
+    misses = []
+    for case, _, launched, out, ref, mag, slack in narrow_head_checks(d, dtype, g, dev, part):
+        torch.cuda.synchronize()
+        err, ratio, ok = held(out, ref, mag, slack)
+        if not (ok and launched and out.shape == ref.shape):
+            misses.append(f"{case}: err {err:.3e}, err/bound {ratio:.3f}, launched {launched}")
+    assert not misses, misses
+
+
+def test_unsupported_head_dim_raises_on_the_card():
+    """Above 128 no body takes a head: the entry points refuse it."""
+    dev = _card()
+    q = torch.zeros(1, 1, 8, 192, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         T.flash_attention(q, q, q, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
@@ -787,3 +810,38 @@ def test_int8_and_paged_engines_on_the_card_match_the_cpu(lm_config):
         results = engine.run()
         out.append([results[t] for t in tickets])
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("lm_config", [
+    {}, {"kv_cache_dtype": "int8"}, {"kv_page_size": 8, "prefill_chunk": 8},
+], ids=["dense", "int8", "paged"])
+def test_narrow_head_engines_on_the_card_match_the_cpu(lm_config):
+    """The continuous-batching example's model (d_model 32, 4 heads of 8)
+    served on the card, its caches allocated at the kernels' head dim
+    with the pad columns left 0, emits the CPU's greedy tokens; every
+    call ran a kernel."""
+    from hops_tpu_torch.models.convert import random_params
+    from hops_tpu_torch.models.transformer import TransformerLM
+    from hops_tpu_torch.modelrepo.lm_engine import LMEngine
+
+    dev = _card()
+    cfg = dict(vocab_size=64, d_model=32, num_heads=4, num_layers=2, dtype="float32",
+               max_decode_len=64, ragged_decode=True)
+    params = random_params(**cfg, seed=0)
+    g = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, 64, (n,), generator=g).tolist() for n in (2, 13, 7, 5)]
+    model_kw = {"kv_cache_dtype": lm_config.get("kv_cache_dtype")}
+    engine_kw = {k: v for k, v in lm_config.items() if k != "kv_cache_dtype"}
+    out = []
+    for device in ("cpu", dev):
+        model = TransformerLM(**cfg, **model_kw, device=device).load_flax(params)
+        engine = LMEngine(model, slots=3, device=device, **engine_kw)
+        before = sum(T.launch_counts().values())
+        tickets = [engine.submit(p, max_new_tokens=9) for p in prompts]
+        results = engine.run()
+        out.append(([results[t] for t in tickets], sum(T.launch_counts().values()) - before))
+        if device == dev:
+            assert engine._cache.k[0].shape[-1] == T.kernel_head_dim(8)
+            assert not engine._cache.k[0][..., 8:].any()
+    assert out[0][0] == out[1][0]
+    assert out[0][1] == 0 and out[1][1] > 0

@@ -636,3 +636,34 @@ class TestPackedShardWire:
                 codecs=["packed"]))
         # A config-shaped reject is the caller's bug, not host failure.
         assert len(client.healthy_hosts()) == 2
+
+
+def test_port_spawns_in_flight_count_as_units_on_their_host(tmp_path, monkeypatch):
+    """Two spawns in flight at once (a fleet starting its replicas side
+    by side): the port's client counts each as a unit on the host it is
+    placing on, so they land on h0 and h1, not both on h0."""
+    agents = [placement.Hostd(f"h{i}", inprocess_units=True, unit_root=tmp_path / f"h{i}")
+              for i in range(2)]
+    try:
+        client = _client(agents)
+        both = threading.Barrier(2)
+
+        def rpc(host, verb, method, path, body, timeout_s=None):
+            both.wait(timeout=10)  # each answers once the other is in flight too
+            return {"uid": f"u-{host.name}", "port": 1, "pid": None}
+
+        monkeypatch.setattr(client, "_rpc", rpc)
+        hosts: list[str] = []
+        threads = [threading.Thread(
+            target=lambda: hosts.append(client.spawn("replica", {}).host.name))
+            for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert sorted(hosts) == ["h0", "h1"]
+        assert client._placing == {"h0": 0, "h1": 0}
+        assert client._placed == {"h0": 1, "h1": 1}
+    finally:
+        for a in agents:
+            a.stop()
