@@ -62,6 +62,20 @@ runs its programs under ``shard_map``); each holds its Megatron shard
 of the weights and a cache at its local heads, and only the per-block
 sums cross ranks (:mod:`hops_tpu_torch.parallel.tp_inference`). Those
 sums fold in rank order, so every rank draws the same tokens.
+
+The engine times itself on one phase clock
+(:class:`~hops_tpu_torch.telemetry.spans.Phases`; host seconds and
+counts, read through :meth:`LMEngine.stats`): each request's queue wait
+(``lm_engine.queue_wait``: submit, or requeue after a preemption, to
+admission) and first-token hold (``lm_engine.first_token_hold``: its
+first token on the host to the end of that ``step()``), and the phases
+``lm_engine.prefill`` (child ``lm_engine.prefill.launch``: up to the
+first-token read-back) and ``lm_engine.decode`` (children
+``lm_engine.decode.launch``: up to the last launch of the horizon, and
+``lm_engine.decode.readback``; the rest is the host's row-by-row
+replay). While a ``torch.profiler`` records, each phase is also a
+``record_function`` range, inside an ``lm_engine.step`` range per
+``step()``; with none recording, no range is opened.
 """
 
 from __future__ import annotations
@@ -80,6 +94,7 @@ from hops_tpu_torch.runtime import faultinject, flight, qos
 from hops_tpu_torch.runtime.devices import resolve_device
 from hops_tpu_torch.runtime.logging import get_logger
 from hops_tpu_torch.telemetry.metrics import REGISTRY
+from hops_tpu_torch.telemetry.spans import Phases, annotate
 
 log = get_logger(__name__)
 
@@ -175,6 +190,7 @@ class _Request:
     # same-prefix requests into one admission wave.
     prefix_key: str | None = None
     submitted_at: float = 0.0  # monotonic submit time, the TTFT start mark
+    queued_at: float = 0.0  # perf_counter of submit or of a preemption's requeue
     priority: str = "interactive"  # qos class: interactive | batch
     # A preempted request replays from scratch; its TTFT was observed
     # the first time around.
@@ -187,6 +203,16 @@ class _Request:
         if isinstance(self.prefix, _PagedPrefix):
             return int(self.prefix.tokens.size)
         return self.prefix[2]
+
+
+@dataclasses.dataclass
+class _Marks:
+    """One ticket's host-clock marks (``time.perf_counter``) and the
+    intervals read from them."""
+
+    queue_wait_s: float = 0.0  # every wait in the queue, requeues included
+    first_at: float | None = None  # its first token reached the host
+    first_token_hold_s: float | None = None  # first_at to the end of that step()
 
 
 @dataclasses.dataclass
@@ -401,17 +427,20 @@ class LMEngine:
         self._admit_seq = 0
         self.prefill_chunks = 0  # paged: prompt chunks prefilled
         self.preemptions = 0  # paged: requests sent back to the queue
-        # Host-clock seconds in admission prefills (paged: in calls that
-        # carry a prompt chunk, with the decode rows riding along) and in
-        # decode dispatches, and the tokens those emitted; each ends by
-        # reading its tokens back, so the device work is inside the span.
-        self.prefill_s = 0.0
-        self.decode_s = 0.0
+        # The phase clock (module docstring). Admission prefills (paged:
+        # calls that carry a prompt chunk, with the decode rows riding
+        # along) and decode dispatches each end by reading their tokens
+        # back, so the device work is inside their phases.
+        self._phases = Phases()
+        #: Tokens emitted by decode dispatches.
         self.decode_tokens = 0
         #: Host read-backs of decode dispatches (one per horizon).
         self.readbacks = 0
         #: Per-ticket time to first token (seconds), consumed by take_result.
         self.ttft_s: dict[int, float] = {}
+        # Per-ticket marks, dropped by take_result / take_error / cancel.
+        self._marks: dict[int, _Marks] = {}
+        self._holding: list[_Marks] = []  # first tokens of the running step()
         # Process-wide registry metrics, shared by every engine.
         self._m_dispatches = REGISTRY.counter(
             "hops_tpu_lm_dispatches_total", "LM engine device dispatches").labels()
@@ -522,6 +551,7 @@ class LMEngine:
             temperature=float(temperature), top_k=int(top_k or 0),
             top_p=float(top_p or 0.0), seed=int(seed) & 0x7FFFFFFF, prefix=prefix,
             prefix_key=prefix_id, submitted_at=time.monotonic(),
+            queued_at=time.perf_counter(),
             priority=priority if priority in qos.PRIORITIES else "batch",
         )
         total = req.prefix_len + prompt.size + max_new_tokens
@@ -562,6 +592,7 @@ class LMEngine:
             )
         self._next_ticket += 1
         self._queue.append(req)
+        self._marks[req.ticket] = _Marks()
         return req.ticket
 
     @torch.inference_mode()
@@ -576,16 +607,18 @@ class LMEngine:
         their slots and blocks free and the engine keeps serving the
         queue.
         """
-        try:
-            faultinject.fire("lm_engine.dispatch")
-            self._order_queue_for_prefix_waves()
-            out = self._step_paged() if self._paged else self._step_dense()
-            self._count_prefix_batched()
-            return out
-        except Exception as e:  # noqa: BLE001 — isolate to in-flight work
-            return self._fail_inflight(e)
-        finally:
-            self._admitting.clear()
+        with annotate("lm_engine.step"):
+            try:
+                faultinject.fire("lm_engine.dispatch")
+                self._order_queue_for_prefix_waves()
+                out = self._step_paged() if self._paged else self._step_dense()
+                self._count_prefix_batched()
+                return out
+            except Exception as e:  # noqa: BLE001 — isolate to in-flight work
+                return self._fail_inflight(e)
+            finally:
+                self._admitting.clear()
+                self._close_holds()
 
     def run(self) -> dict[int, list[int]]:
         """Drain the queue and all live slots; returns every result
@@ -615,12 +648,14 @@ class LMEngine:
             reverse=True,
         ))
         while self._queue:
-            wave = [self._queue.popleft() for _ in range(min(self.slots, len(self._queue)))]
+            wave = [self._pop_queue() for _ in range(min(self.slots, len(self._queue)))]
             try:
                 self._run_offline_wave(wave)
             except BaseException:
                 self._queue.extendleft(reversed(wave))
                 raise
+            finally:
+                self._close_holds()
         return dict(self._results)
 
     def result(self, ticket: int) -> list[int] | None:
@@ -628,14 +663,17 @@ class LMEngine:
         return self._results.get(ticket)
 
     def take_result(self, ticket: int) -> list[int] | None:
-        """Like :meth:`result` but consuming (and drops the ticket's TTFT)."""
+        """Like :meth:`result` but consuming (and drops the ticket's TTFT
+        and marks)."""
         self.ttft_s.pop(ticket, None)
+        self._marks.pop(ticket, None)
         return self._results.pop(ticket, None)
 
     def error(self, ticket: int) -> BaseException | None:
         return self._errors.get(ticket)
 
     def take_error(self, ticket: int) -> BaseException | None:
+        self._marks.pop(ticket, None)
         return self._errors.pop(ticket, None)
 
     def cancel(self, ticket: int) -> bool:
@@ -643,10 +681,23 @@ class LMEngine:
         for req in self._queue:
             if req.ticket == ticket:
                 self._queue.remove(req)
+                self._marks.pop(ticket, None)
                 return True
         return False
 
+    def request_times(self, ticket: int) -> dict[str, float | None] | None:
+        """A live ticket's host-clock intervals in seconds: its time in
+        the queue (``queue_wait_s``, every wait if it was preempted) and
+        from its first token reaching the host to the end of that
+        ``step()`` (``first_token_hold_s``, None before then). None for
+        a ticket already taken."""
+        m = self._marks.get(ticket)
+        if m is None:
+            return None
+        return {"queue_wait_s": m.queue_wait_s, "first_token_hold_s": m.first_token_hold_s}
+
     def stats(self) -> dict[str, Any]:
+        ph = self._phases
         out = {
             "dispatches": self.dispatches,
             "tokens_emitted": self.tokens_emitted,
@@ -659,10 +710,16 @@ class LMEngine:
             "decode_horizon": self.decode_horizon,
             "mean_occupancy": round(self._occ_sum / max(self.dispatches, 1), 4),
             "cache_layout": "paged" if self._paged else "dense",
-            "prefill_s": self.prefill_s,
-            "decode_s": self.decode_s,
+            "prefill_s": ph.seconds("lm_engine.prefill"),
+            "decode_s": ph.seconds("lm_engine.decode"),
             "decode_tokens": self.decode_tokens,
             "readbacks": self.readbacks,
+            "queue_wait_s": ph.seconds("lm_engine.queue_wait"),
+            "admitted": ph.count("lm_engine.queue_wait"),
+            "prefill_launch_s": ph.seconds("lm_engine.prefill.launch"),
+            "first_token_hold_s": ph.seconds("lm_engine.first_token_hold"),
+            "decode_launch_s": ph.seconds("lm_engine.decode.launch"),
+            "decode_readback_s": ph.seconds("lm_engine.decode.readback"),
         }
         if self._paged:
             out.update(self._pool.stats())
@@ -757,13 +814,39 @@ class LMEngine:
         if self._paged:
             self._m_pool_util.set(self._pool.stats()["utilization"])
 
+    def _pop_queue(self) -> _Request:
+        """Admit the queue head: its wait ends here."""
+        req = self._queue.popleft()
+        wait = time.perf_counter() - req.queued_at
+        self._phases.add("lm_engine.queue_wait", wait)
+        m = self._marks.get(req.ticket)
+        if m is not None:
+            m.queue_wait_s += wait
+        return req
+
     def _observe_ttft(self, req: _Request) -> None:
-        """Once per request: a preempted request keeps its first TTFT."""
+        """Once per request: a preempted request keeps its first TTFT.
+        Its first token is on the host: the hold to the end of this
+        ``step()`` starts."""
         if not req.ttft_observed:
             dt = time.monotonic() - req.submitted_at
             self._m_ttft.observe(dt)
             self.ttft_s[req.ticket] = dt
             req.ttft_observed = True
+            m = self._marks.get(req.ticket)
+            if m is not None:
+                m.first_at = time.perf_counter()
+                self._holding.append(m)
+
+    def _close_holds(self) -> None:
+        """End the first-token holds of the running ``step()``."""
+        if not self._holding:
+            return
+        now = time.perf_counter()
+        for m in self._holding:
+            m.first_token_hold_s = now - m.first_at
+            self._phases.add("lm_engine.first_token_hold", m.first_token_hold_s)
+        self._holding.clear()
 
     def _emit(self, n: int = 1) -> None:
         self.tokens_emitted += n
@@ -986,22 +1069,28 @@ class LMEngine:
         steps (or speculative rounds), one read-back, then the host
         replays the same bookkeeping row by row."""
         states = self._slot_state
-        ints = np.zeros((6, self.slots), np.int64)
-        ints[3] = -1
-        for r, st in enumerate(states):
-            if is_decode[r]:
-                ints[:, r] = (st.emitted[-1], st.written, st.remaining,
-                              -1 if st.eos_id is None else st.eos_id, st.n_sampled, 1)
-        tok, idx, rem, eos, ns, live = torch.from_numpy(ints).to(self.device)
-        samp = _sampling([st if d else None for st, d in zip(states, is_decode)], self.device)
-        self._set_idx(idx.to(self._cache.idx.dtype))
-        live = live.bool()
+        with self._phases.phase("lm_engine.decode.launch"):
+            ints = np.zeros((6, self.slots), np.int64)
+            ints[3] = -1
+            for r, st in enumerate(states):
+                if is_decode[r]:
+                    ints[:, r] = (st.emitted[-1], st.written, st.remaining,
+                                  -1 if st.eos_id is None else st.eos_id, st.n_sampled, 1)
+            tok, idx, rem, eos, ns, live = torch.from_numpy(ints).to(self.device)
+            samp = _sampling([st if d else None for st, d in zip(states, is_decode)],
+                             self.device)
+            self._set_idx(idx.to(self._cache.idx.dtype))
+            live = live.bool()
+            if self.spec_k:
+                out = self._spec_scan(tok, live, rem, eos, ns, samp, horizon)
+            else:
+                out = self._decode_scan(self._cache, tok, live, rem, eos, ns, samp, horizon)
+        with self._phases.phase("lm_engine.decode.readback"):
+            out = [t.cpu().numpy() for t in out]
         if self.spec_k:
-            toks, emits, accs, lives = self._spec_scan(tok, live, rem, eos, ns, samp, horizon)
-            toks, emits, accs, lives = (t.cpu().numpy() for t in (toks, emits, accs, lives))
+            toks, emits, accs, lives = out
         else:
-            toks, lives = self._decode_scan(self._cache, tok, live, rem, eos, ns, samp, horizon)
-            toks, lives = toks.cpu().numpy(), lives.cpu().numpy()
+            toks, lives = out
         self.readbacks += 1
         self._mark_dispatch()
         for i in range(horizon):
@@ -1022,12 +1111,26 @@ class LMEngine:
 
     def _step_dense(self) -> list[int]:
         finished: list[int] = []
+        if self._queue and any(st is None for st in self._slot_state):
+            with self._phases.phase("lm_engine.prefill"):
+                self._admit_dense(finished)
+        is_decode = [st is not None for st in self._slot_state]
+        if not any(is_decode):
+            return finished
+        before = self.tokens_emitted
+        with self._phases.phase("lm_engine.decode"):
+            self._decode(is_decode, self.decode_horizon, finished)
+        self.decode_tokens += self.tokens_emitted - before
+        return finished
+
+    def _admit_dense(self, finished: list[int]) -> None:
+        """Fill every free slot from the queue: prefix requests one
+        append each, the rest in one wave."""
         wave: list[tuple[int, _Request]] = []
-        t0 = time.perf_counter()
         for row in range(self.slots):
             if self._slot_state[row] is None and self._queue:
                 self._promote_next_admission()
-                req = self._queue.popleft()
+                req = self._pop_queue()
                 self._admitting.append(req)
                 if req.prefix is not None:
                     # Each prefix admission starts from its own stored
@@ -1039,22 +1142,25 @@ class LMEngine:
                     wave.append((row, req))
         if wave:
             finished.extend(self._admit_wave(wave))
-        if self._admitting:
-            self.prefill_s += time.perf_counter() - t0
-        is_decode = [st is not None for st in self._slot_state]
-        if not any(is_decode):
-            return finished
-        t0, before = time.perf_counter(), self.tokens_emitted
-        self._decode(is_decode, self.decode_horizon, finished)
-        self.decode_s += time.perf_counter() - t0
-        self.decode_tokens += self.tokens_emitted - before
-        return finished
 
     def _admit_wave(self, wave: list[tuple[int, _Request]]) -> list[int]:
         """Batched admission: ONE prefill (per model) for every request
         entering a free slot this iteration, written straight into those
         slots. The pad past each row's true length is never read: the
         next dispatch sets the row's index to it."""
+        with self._phases.phase("lm_engine.prefill.launch"):
+            tok_dev = self._launch_wave(wave)
+        toks = tok_dev.tolist()
+        self.admission_waves += 1
+        finished = []
+        for (row, req), tok in zip(wave, toks):
+            done = self._register(row, req, tok)
+            if done is not None:
+                finished.append(done)
+        return finished
+
+    def _launch_wave(self, wave: list[tuple[int, _Request]]) -> torch.Tensor:
+        """The wave's prefill launches; its first tokens on the device."""
         bucket = max(min(self._bucket(req.prompt.size), self._cap) for _, req in wave)
         # MoE routing couples the rows of a call (capacity per call, buffer
         # slots in token order), so an MoE wave of several requests runs
@@ -1086,35 +1192,29 @@ class LMEngine:
             self.draft_model(padded[picked], self._draft_cache, fresh=True, rows=rows,
                              return_hidden=True)
         reqs = [req for _, req in wave]
-        toks = _sampling(reqs, dev).sample(last, torch.zeros_like(lens)).tolist()
-        self.admission_waves += 1
-        finished = []
-        for (row, req), tok in zip(wave, toks):
-            done = self._register(row, req, tok)
-            if done is not None:
-                finished.append(done)
-        return finished
+        return _sampling(reqs, dev).sample(last, torch.zeros_like(lens))
 
     def _admit_prefix(self, row: int, req: _Request) -> int | None:
         """Prefix admission: copy the stored prefix rows (and the
         draft's) into slot ``row`` and append the suffix there, padded to
         its bucket; the pad past the true end is never read."""
-        t_prefix, d_prefix, base = req.prefix
-        n = int(req.prompt.size)
-        padded = np.zeros((1, min(self._bucket(n), self._cap - base)), np.int64)
-        padded[0, :n] = req.prompt
-        padded = torch.from_numpy(padded).to(self.device)
-        last = None
-        for model, cache, prefix in ((self.model, self._cache, t_prefix),
-                                     (self.draft_model, self._draft_cache, d_prefix)):
-            if model is None:
-                continue
-            cache.load_prefix(row, prefix)
-            hidden = model(padded, cache.rows_view(row, row + 1), return_hidden=True)
-            if last is None:
-                last = model.logits(hidden[:, n - 1])
-        tok = _sampling([req], self.device).sample(last, torch.zeros((1,), dtype=torch.long,
-                                                                     device=self.device))
+        with self._phases.phase("lm_engine.prefill.launch"):
+            t_prefix, d_prefix, base = req.prefix
+            n = int(req.prompt.size)
+            padded = np.zeros((1, min(self._bucket(n), self._cap - base)), np.int64)
+            padded[0, :n] = req.prompt
+            padded = torch.from_numpy(padded).to(self.device)
+            last = None
+            for model, cache, prefix in ((self.model, self._cache, t_prefix),
+                                         (self.draft_model, self._draft_cache, d_prefix)):
+                if model is None:
+                    continue
+                cache.load_prefix(row, prefix)
+                hidden = model(padded, cache.rows_view(row, row + 1), return_hidden=True)
+                if last is None:
+                    last = model.logits(hidden[:, n - 1])
+            tok = _sampling([req], self.device).sample(
+                last, torch.zeros((1,), dtype=torch.long, device=self.device))
         self.prefix_hits += 1
         return self._register(row, req, int(tok[0]))
 
@@ -1206,7 +1306,7 @@ class LMEngine:
         blocks = shared + self._pool.alloc(n_new)
         for blk in shared:
             self._pool.ref(blk)
-        self._queue.popleft()
+        self._pop_queue()
         self._admitting.append(req)
         self._pages_np[row, :] = 0
         self._pages_np[row, : len(blocks)] = blocks
@@ -1288,6 +1388,7 @@ class LMEngine:
         # Queue front: the victim re-admits as soon as space frees and
         # replays to the same stream (greedy is deterministic; sampled
         # keys fold (seed, token index) only).
+        st.req.queued_at = time.perf_counter()
         self._queue.appendleft(st.req)
         self.preemptions += 1
         self._m_preemptions.inc()
@@ -1345,10 +1446,9 @@ class LMEngine:
                 for r, st in decoding:
                     tokens[r, 0] = st.emitted[-1]
                     ints[:, r] = (st.written, 1, st.n_sampled)
-            t0 = time.perf_counter()
-            toks = self._paged_chunk(tokens, ints)
-            self._mark_dispatch()
-            self.prefill_s += time.perf_counter() - t0
+            with self._phases.phase("lm_engine.prefill"):
+                toks = self._paged_chunk(tokens, ints)
+                self._mark_dispatch()
             for r, st in prefilling:
                 n = int(ints[1, r])
                 self.prefill_chunks += 1
@@ -1372,9 +1472,9 @@ class LMEngine:
         self._sync_pages()
         dec = {r for r, _ in decoding}
         is_decode = [r in dec for r in range(self.slots)]
-        t0, before = time.perf_counter(), self.tokens_emitted
-        self._decode(is_decode, horizon, finished)
-        self.decode_s += time.perf_counter() - t0
+        before = self.tokens_emitted
+        with self._phases.phase("lm_engine.decode"):
+            self._decode(is_decode, horizon, finished)
         self.decode_tokens += self.tokens_emitted - before
         return finished
 
@@ -1386,15 +1486,18 @@ class LMEngine:
         index ``ints[2]``). Rows with no tokens write into the scratch
         block and attend nothing."""
         dev = self.device
-        base, lens, ns = torch.from_numpy(ints).to(dev)
-        tokens = torch.from_numpy(tokens).to(dev)
-        active = lens > 0
-        self._set_idx(torch.where(active, base, torch.zeros_like(base)).to(self._cache.idx.dtype))
-        self._mask_pages(active)
-        hidden = self.model(tokens, self._cache, return_hidden=True)
-        if self.spec_k:
-            self.draft_model(tokens, self._draft_cache, return_hidden=True)
-        self._mask_pages(None)
-        rows = torch.arange(self.slots, device=dev)
-        last = self.model.logits(hidden[rows, torch.clamp_min(lens - 1, 0)])
-        return _sampling(self._slot_state, dev).sample(last, ns).tolist()
+        with self._phases.phase("lm_engine.prefill.launch"):
+            base, lens, ns = torch.from_numpy(ints).to(dev)
+            tokens = torch.from_numpy(tokens).to(dev)
+            active = lens > 0
+            self._set_idx(torch.where(active, base,
+                                      torch.zeros_like(base)).to(self._cache.idx.dtype))
+            self._mask_pages(active)
+            hidden = self.model(tokens, self._cache, return_hidden=True)
+            if self.spec_k:
+                self.draft_model(tokens, self._draft_cache, return_hidden=True)
+            self._mask_pages(None)
+            rows = torch.arange(self.slots, device=dev)
+            last = self.model.logits(hidden[rows, torch.clamp_min(lens - 1, 0)])
+            toks = _sampling(self._slot_state, dev).sample(last, ns)
+        return toks.tolist()

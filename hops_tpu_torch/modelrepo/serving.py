@@ -407,6 +407,11 @@ class LMEnginePredictor:
             if degrade:
                 kw["max_new_tokens"] = max(1, min(kw.get("max_new_tokens", 32),
                                                   self._brownout_max_new))
+        # The engine steps on its driver thread: each ticket's submit-to-
+        # finish window is recorded under this request's trace once the
+        # results are in, with the engine's marks of where it waited.
+        trace_ctx = tracing.current_context()
+        t_submit = time.time()
         with self._cv:
             if self._stopping:
                 raise RuntimeError("serving stopped")
@@ -432,14 +437,35 @@ class LMEnginePredictor:
                     raise RuntimeError("serving stopped")
                 self._cv.wait()
             self.last_ttft_s = [self._engine.ttft_s.get(t) for t in tickets]
+            times = [self._engine.request_times(t) for t in tickets]
             errors = [self._engine.take_error(t) for t in tickets]
             results = [self._engine.take_result(t) for t in tickets]
+            if trace_ctx is not None:
+                self._record_dispatch(trace_ctx, t_submit, tickets, results, errors, times)
             first = next((e for e in errors if e is not None), None)
             if first is not None:
                 raise RuntimeError(
                     f"lm engine step failed for this request: {type(first).__name__}: {first}"
                 ) from first
             return results
+
+    def _record_dispatch(self, ctx, t_submit: float, tickets: list[int], results: list,
+                         errors: list, times: list) -> None:
+        """One ``lm_engine.dispatch`` span per ticket under the request's
+        trace: ``tokens``, ``ttft_ms``, the engine's ``queue_wait_ms`` and
+        ``first_token_hold_ms``, and ``error`` on failure."""
+        dur = time.time() - t_submit
+        for t, ttft, res, err, tm in zip(tickets, self.last_ttft_s, results, errors, times):
+            attrs: dict[str, Any] = {"ticket": t, "tokens": len(res) if res is not None else 0}
+            if ttft is not None:
+                attrs["ttft_ms"] = round(ttft * 1e3, 3)
+            if tm is not None:
+                attrs["queue_wait_ms"] = round(tm["queue_wait_s"] * 1e3, 3)
+                if tm["first_token_hold_s"] is not None:
+                    attrs["first_token_hold_ms"] = round(tm["first_token_hold_s"] * 1e3, 3)
+            if err is not None:
+                attrs["error"] = type(err).__name__
+            tracing.record_span("lm_engine.dispatch", ctx, t_submit, dur, **attrs)
 
     def stop(self) -> None:
         with self._cv:

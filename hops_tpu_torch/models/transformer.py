@@ -33,6 +33,13 @@ the activations, which join before the final norm. ``tp_axis`` and
 axis: each rank holds ``1/tp_shards`` of the heads (and of the MLP's
 hidden columns) and one sum per projection combines the partial
 outputs (:mod:`hops_tpu_torch.parallel.tp_inference`).
+
+While a ``torch.profiler`` records, the forward opens the ranges
+``transformer.forward``, ``transformer.attention`` and ``transformer.mlp``
+(the two halves of each block) and ``transformer.logits``, and the train
+step ``train_step.forward``, ``.loss``, ``.backward`` and ``.optimizer``
+(:func:`~hops_tpu_torch.telemetry.spans.annotate`: one flag test each
+with none recording).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from hops_tpu_torch.ops.attention import (
 )
 from hops_tpu_torch.ops.xent import chunked_softmax_xent
 from hops_tpu_torch.runtime.devices import resolve_device
+from hops_tpu_torch.telemetry.spans import annotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -522,14 +530,16 @@ class Block(nn.Module):
         outputs are dropped with masks drawn from ``seed`` and
         ``seed + 1``. ``shard``: ``x`` is this rank's block of the
         activations (:class:`TransformerLM`'s sequence parallelism)."""
-        h = self.attn(self.RMSNorm_0(x), cache, layer, offset, fresh, rows, shard)
-        if seed is not None:
-            h = dropout(h, self.dropout_rate, seed, shard)
-        x = x + h
-        h = self.ffn(self.RMSNorm_1(x), shard)
-        if seed is not None:
-            h = dropout(h, self.dropout_rate, seed + 1, shard)
-        return x + h
+        with annotate("transformer.attention"):
+            h = self.attn(self.RMSNorm_0(x), cache, layer, offset, fresh, rows, shard)
+            if seed is not None:
+                h = dropout(h, self.dropout_rate, seed, shard)
+            x = x + h
+        with annotate("transformer.mlp"):
+            h = self.ffn(self.RMSNorm_1(x), shard)
+            if seed is not None:
+                h = dropout(h, self.dropout_rate, seed + 1, shard)
+            return x + h
 
     def ffn(self, x: torch.Tensor, shard: Any = None) -> torch.Tensor:
         if not hasattr(self, "moe"):
@@ -733,7 +743,8 @@ class TransformerLM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """fp32 logits from :meth:`forward`'s ``return_hidden`` output."""
-        return self.unembed(hidden).to(torch.float32)
+        with annotate("transformer.logits"):
+            return self.unembed(hidden).to(torch.float32)
 
     def forward(
         self,
@@ -761,6 +772,11 @@ class TransformerLM(nn.Module):
         batch rows write, so a prefill fills some slots of a larger
         cache and leaves the others exactly as they were.
         """
+        with annotate("transformer.forward"):
+            return self._forward(tokens, cache, fresh, rows, return_hidden, train, generator)
+
+    def _forward(self, tokens, cache, fresh, rows, return_hidden, train, generator):
+        """:meth:`forward`'s body, inside its range."""
         x = self.embed(tokens)
         offset = None
         if cache is not None:
@@ -849,16 +865,20 @@ def make_lm_train_step(aux_loss_weight: float = 0.01, loss_chunk: int | None = N
         tokens = torch.as_tensor(batch["tokens"]).to(model.device, torch.long)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         gen = torch.Generator().manual_seed(step_seed(state.seed, state.step))
-        out = model(inputs, train=True, generator=gen, return_hidden=bool(loss_chunk))
-        if loss_chunk:
-            loss = chunked_softmax_xent(out, model.unembed.kernel, targets, chunk=loss_chunk)
-        else:
-            loss = cross_entropy_loss(out, targets)
-        aux = sum_sown_losses(model)
-        total = loss + aux_loss_weight * aux if model.moe_every else loss
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        state.optimizer.step()
+        with annotate("train_step.forward"):
+            out = model(inputs, train=True, generator=gen, return_hidden=bool(loss_chunk))
+        with annotate("train_step.loss"):
+            if loss_chunk:
+                loss = chunked_softmax_xent(out, model.unembed.kernel, targets, chunk=loss_chunk)
+            else:
+                loss = cross_entropy_loss(out, targets)
+            aux = sum_sown_losses(model)
+            total = loss + aux_loss_weight * aux if model.moe_every else loss
+        with annotate("train_step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with annotate("train_step.optimizer"):
+            state.optimizer.step()
         loss = loss.detach()
         state = dataclasses.replace(state, step=state.step + 1)
         return state, {"loss": loss, "perplexity": torch.exp(loss)}

@@ -2,11 +2,17 @@
 
 ``with span("hops_tpu_serving_request", model=name): ...`` times the
 block into a ``<name>_seconds`` histogram in the global registry;
-``@timed()`` does the same for whole functions. When the JAX profiler
-is active (``torch.profiler``), each span additionally opens a
+``@timed()`` does the same for whole functions. While a
+``torch.profiler`` records, each span additionally opens a
 ``torch.profiler.record_function`` range so spans nest inside the
 profiler's timeline — one annotation vocabulary across metrics and
-traces.
+traces. With no profiler recording, no range is opened.
+
+:class:`Phases` is the in-process form for hot loops (the LM engine):
+host seconds and counts of named phases of one owner, read back as
+numbers rather than histograms, with the same profiler range per phase.
+:func:`annotate` is the range alone, for code that counts nothing; with
+no profiler recording it costs one flag test.
 
 :class:`StepTimer` is the step-loop shape of the same idea: one
 ``tick()`` per training step feeds the step-time histogram, the
@@ -23,7 +29,7 @@ import functools
 import re
 import sys
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, ContextManager, Iterator
 
 from hops_tpu_torch.telemetry.metrics import DEFAULT_BUCKETS, REGISTRY, Registry
 from hops_tpu_torch.telemetry import tracing
@@ -36,6 +42,57 @@ _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 #: immune to NTP steps, meaningless across processes.
 HEARTBEAT_GAUGE = "hops_tpu_heartbeat_time"
 HEARTBEAT_MONO_GAUGE = "hops_tpu_heartbeat_monotonic"
+
+
+_NULL = contextlib.nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording in this process: the
+    module flag that the profiler sets on start and clears on stop.
+    False, without importing torch, in a process that never loaded it."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def annotate(name: str) -> ContextManager[Any]:
+    """A ``record_function(name)`` range while a profiler records (a
+    ``user_annotation`` event in its trace, on the clock of the device's
+    kernels); otherwise a shared no-op context, for one flag test."""
+    if not profiling():
+        return _NULL
+    return sys.modules["torch.autograd.profiler"].record_function(name)
+
+
+class Phases:
+    """Host seconds (``time.perf_counter``) and counts of the named
+    phases of one owner. ``with phases.phase(name):`` adds the block's
+    seconds and one count to ``name`` and, while a profiler records,
+    opens the :func:`annotate` range of the same name; :meth:`add`
+    books an interval measured elsewhere (one that spans calls)."""
+
+    def __init__(self) -> None:
+        self._seconds: dict[str, float] = {}
+        self._counts: dict[str, int] = {}
+
+    def add(self, name: str, seconds: float, count: int = 1) -> None:
+        self._seconds[name] = self._seconds.get(name, 0.0) + seconds
+        self._counts[name] = self._counts.get(name, 0) + count
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        start = time.perf_counter()
+        try:
+            with annotate(name):
+                yield
+        finally:
+            self.add(name, time.perf_counter() - start)
+
+    def seconds(self, name: str) -> float:
+        return self._seconds.get(name, 0.0)
+
+    def count(self, name: str) -> int:
+        return self._counts.get(name, 0)
 
 
 def _sanitize(name: str) -> str:
@@ -62,17 +119,12 @@ def span(name: str, registry: Registry = REGISTRY,
     When the calling context carries an active distributed trace
     (``telemetry/tracing.py``), the block additionally records a child
     tracing span of the same name — one annotation vocabulary across
-    metrics, XProf timelines, and request traces — and the histogram
+    metrics, profiler timelines, and request traces — and the histogram
     observation carries the trace id as an exemplar, so a latency
     bucket links back to a concrete trace."""
     hist = _histogram(name, tuple(sorted(labels)), registry)
-    # Nest inside an active profiler trace without importing torch
-    # into processes that never loaded it.
-    torch = sys.modules.get("torch")
-    annotation = (
-        torch.profiler.record_function(name) if torch is not None
-        else contextlib.nullcontext()
-    )
+    # Nests inside a recording profiler's timeline; nothing otherwise.
+    annotation = annotate(name)
     # Joins the active request trace; a no-op outside one (and the
     # whole lookup is one bool when tracing is disabled).
     tspan = tracing.child_span(name, **labels)
